@@ -1,0 +1,99 @@
+"""Port's deformable-attention core and module against the JAX package:
+`msda_plain` against `msda_pallas` (interpret mode) and the gather core
+`ms_deform_attn_core`, and `MSDeformAttn` against the flax module through
+the weight bridge. Locations reach outside [0, 1], so zero padding at the
+level borders is exercised."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import adaptersis_tpu.ops.msda_pallas as jax_msda
+from adaptersis_tpu.ops.ms_deform_attn import MSDeformAttn as JaxMSDeformAttn
+from adaptersis_tpu.ops.ms_deform_attn import ms_deform_attn_core
+import adaptersis_tpu_torch.ops.msda_cuda as mc
+from adaptersis_tpu_torch.ops.ms_deform_attn import MSDeformAttn
+from adaptersis_tpu_torch.train.convert import load_flax_variables
+from torch_parity import init_perturbed, load, n, pallas_interpret, t  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("pallas_interpret")
+
+# fp32 on both sides: bilinear weights and sums differ only in order
+ATOL = 1e-5
+
+
+def _inputs(shapes, Lq, B=2, M=2, D=8, P=4, seed=0):
+    rng = np.random.default_rng(seed)
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    v = rng.standard_normal((B, S, M, D)).astype(np.float32)
+    loc = rng.uniform(-0.1, 1.1, (B, Lq, M, L, P, 2)).astype(np.float32)
+    aw = rng.uniform(0, 1, (B, Lq, M, L, P)).astype(np.float32)
+    return v, loc, aw
+
+
+@pytest.mark.parametrize("shapes,Lq,D", [
+    ([(8, 8), (4, 4), (2, 2)], 9, 8),     # three levels, like CAViT's pyramid
+    ([(6, 5)], 12, 16),                   # one non-square level, like CACNN's grid
+    ([(8, 8), (4, 4)], 9, 128),           # the main path's head width
+])
+def test_plain_matches_jax(shapes, Lq, D):
+    v, loc, aw = _inputs(shapes, Lq, D=D)
+    out = n(mc.msda_plain(t(v), t(loc), t(aw), shapes))
+    pallas = np.asarray(jax_msda.msda_pallas(jnp.asarray(v), jnp.asarray(loc),
+                                             jnp.asarray(aw), tuple(shapes)))
+    gather = np.asarray(ms_deform_attn_core(jnp.asarray(v), shapes, jnp.asarray(loc),
+                                            jnp.asarray(aw)))
+    np.testing.assert_allclose(out, pallas, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(out, gather, atol=ATOL, rtol=0)
+
+
+def test_cpu_dispatch_and_device_check():
+    shapes = [(4, 4), (2, 2)]
+    v, loc, aw = (t(a) for a in _inputs(shapes, 5))
+    before = mc.launches
+    torch.testing.assert_close(mc.msda_fwd(v, loc, aw, shapes),
+                               mc.msda_plain(v, loc, aw, shapes), rtol=0, atol=0)
+    assert mc.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        mc.msda_fwd(v.to("meta"), loc.to("meta"), aw.to("meta"), shapes)
+
+
+def _module_case(seed=3):
+    shapes = [(6, 6), (3, 3)]
+    C, M, L, P, Lq = 32, 2, 2, 2, 10
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, Lq, C)).astype(np.float32)
+    ref = rng.uniform(0, 1, (2, Lq, L, 2)).astype(np.float32)
+    feat = rng.standard_normal((2, 45, C)).astype(np.float32)
+    jmod = JaxMSDeformAttn(d_model=C, n_levels=L, n_heads=M, n_points=P, impl="pallas")
+    variables = init_perturbed(jmod, seed, jnp.asarray(q), jnp.asarray(ref),
+                               jnp.asarray(feat), shapes)
+    return jmod, variables, (q, ref, feat), shapes, (C, L, M, P)
+
+
+def test_module_matches_flax():
+    jmod, variables, (q, ref, feat), shapes, (C, L, M, P) = _module_case()
+    expect = np.asarray(jmod.apply(variables, jnp.asarray(q), jnp.asarray(ref),
+                                   jnp.asarray(feat), shapes))
+    mod = load(MSDeformAttn(C, L, M, P), variables)
+    with torch.no_grad():
+        out = mod(t(q), t(ref), t(feat), shapes)
+    # through the projections on both sides: fp32 sums of 32 terms
+    np.testing.assert_allclose(n(out), expect, atol=2e-5, rtol=0)
+
+
+def test_weight_bridge_is_strict():
+    _, variables, _, _, (C, L, M, P) = _module_case()
+    params = {k: dict(v) for k, v in variables["params"].items()}
+    mod = MSDeformAttn(C, L, M, P)
+    extra = dict(params, stray={"bias": np.zeros(3, np.float32)})
+    with pytest.raises(KeyError, match="unexpected"):
+        load_flax_variables(mod, extra, {})
+    missing = {k: v for k, v in params.items() if k != "output_proj"}
+    with pytest.raises(KeyError, match="missing"):
+        load_flax_variables(mod, missing, {})
+    params["value_proj"]["kernel"] = params["value_proj"]["kernel"][:, :-1]
+    with pytest.raises(ValueError, match="value_proj.weight"):
+        load_flax_variables(mod, params, {})

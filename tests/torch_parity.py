@@ -1,0 +1,83 @@
+"""Shared pieces of the tests that hold the PyTorch port against the JAX
+package: seeded parameter draws for flax variables, the weight bridge, and
+interpret mode for the JAX package's Pallas kernels."""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+import adaptersis_tpu.ops.flash_fwd as jax_flash
+import adaptersis_tpu.ops.msda_pallas as jax_msda
+from adaptersis_tpu_torch.train.convert import load_flax_variables
+
+
+@contextlib.contextmanager
+def interpret_pallas():
+    """Run the JAX package's Pallas kernels in interpret mode, as its own
+    tests do on the CPU."""
+    saved = (jax_flash._FORCE_INTERPRET, jax_msda._FORCE_INTERPRET)
+    jax_flash._FORCE_INTERPRET = True
+    jax_msda._FORCE_INTERPRET = True
+    try:
+        yield
+    finally:
+        jax_flash._FORCE_INTERPRET, jax_msda._FORCE_INTERPRET = saved
+
+
+@pytest.fixture
+def pallas_interpret():
+    with interpret_pallas():
+        yield
+
+
+def init_perturbed(module, seed: int, *args) -> dict:
+    """Flax variables of `module` for inputs `args`, every leaf drawn by
+    `perturb`. Only the shapes of the module's own init are used."""
+    return perturb(jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args)), seed)
+
+
+def perturb(variables, seed: int) -> dict:
+    """Replace every leaf of flax variables by a seeded numpy draw. Zero or
+    near-zero initialisations (the CAViT gate, the sampling-offset and
+    attention-weight kernels, LayerScale, level_embed) would otherwise make a
+    comparison vacuous: kernels ~ N(0, 1/fan_in), norm scales 1 + N(0, 0.1²),
+    BN running variances in [0.5, 1.5], everything else N(0, 0.1²)
+    (pos_embed and the tokens N(0, 0.02²))."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        keys = [getattr(p, "key", None) for p in path]
+        name, shape = keys[-1], tuple(a.shape)
+        if keys[0] == "batch_stats" and name == "var":
+            v = rng.uniform(0.5, 1.5, shape)
+        elif name == "kernel":
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "scale":
+            v = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name in ("pos_embed", "cls_token", "mask_token"):
+            v = 0.02 * rng.standard_normal(shape)
+        else:
+            v = 0.1 * rng.standard_normal(shape)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, dict(variables))
+
+
+def load(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
+    """Load flax variables into a torch module through the weight bridge."""
+    load_flax_variables(model, variables["params"], variables.get("batch_stats", {}))
+    return model.eval()
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def n(x) -> np.ndarray:
+    return np.asarray(x.detach() if isinstance(x, torch.Tensor) else x, np.float32)
