@@ -67,8 +67,11 @@ msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
     const int H = lv.h[l], W = lv.w[l];
     const T* vl = vbm + (size_t)lv.start[l] * row;
     for (int p = 0; p < P; ++p) {
-      const float x = locw[(l * P + p) * 2] * W - 0.5f;
-      const float y = locw[(l * P + p) * 2 + 1] * H - 0.5f;
+      // rounded as loc·W − 0.5 rounds in PyTorch and XLA (product, then
+      // difference: no fused multiply-add), so a point within rounding of a
+      // pixel edge takes the same corners as the plain version and K2
+      const float x = __fsub_rn(__fmul_rn(locw[(l * P + p) * 2], (float)W), 0.5f);
+      const float y = __fsub_rn(__fmul_rn(locw[(l * P + p) * 2 + 1], (float)H), 0.5f);
       const float a = aww[l * P + p];
       const float x0f = floorf(x), y0f = floorf(y);
       const float tx = x - x0f, ty = y - y0f;

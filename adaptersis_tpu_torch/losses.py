@@ -1,7 +1,8 @@
-"""The validation losses and metrics of the main trainer (counterparts of the
-JAX package's `losses/dice.py:dc_loss`, `losses/cross_entropy.py:
-weighted_ce_pair` and `losses/iou_multi.py:pixel_accuracy`). Channel-last
-logits (B, H, W, C), integer labels (B, H, W)."""
+"""The losses and metrics of the main trainer (counterparts of the JAX
+package's `losses/dice.py:dc_loss`, `losses/cross_entropy.py:
+weighted_ce_pair` and `losses/iou_multi.py:pixel_accuracy`, and of its
+trainer's train loss). Channel-last logits (B, H, W, C), integer labels
+(B, H, W)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,13 @@ def dc_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     intersect = (p * y).sum(dim=(1, 2))
     dice = 2 * intersect / (p.sum(dim=(1, 2)) + y.sum(dim=(1, 2)) + 10e-20)
     return 1.0 - dice.mean()
+
+
+def train_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The train loss: DC of softmax(logits). DC softmaxes again, so the
+    probabilities go through a second softmax, as in the reference trainer
+    (validation feeds raw logits to DC: one softmax)."""
+    return dc_loss(torch.softmax(logits, dim=-1), target)
 
 
 def weighted_ce_pair(logits: torch.Tensor, labels: torch.Tensor,

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import upsample2x
+from .encoders import BatchNorm2d
 
 DEFAULT_FEATURES = (1024, 512, 256, 128, 64)
 
@@ -22,7 +23,7 @@ class ConvBNReluUp(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, 3, 1, 1)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = BatchNorm2d(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn(self.conv(x.permute(0, 3, 1, 2))))

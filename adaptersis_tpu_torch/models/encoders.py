@@ -11,13 +11,38 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's training semantics (eps 1e-5, flax momentum 0.9):
+    normalise with the batch mean and the biased batch variance, and update
+    the running stats as 0.9·old + 0.1·batch with the BIASED variance, where
+    torch's own update puts the unbiased one into running_var. Parameter and
+    buffer names are torch's, so the weight bridge is unchanged."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # torch's op updates copies (autograd keeps them, so the buffers may
+        # change after it): mean 0.9·old + 0.1·batch, var 0.9·old + 0.1·unbiased
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_mean.copy_(mean)
+            # (n−1)/n·var + 0.9/n·old = 0.9·old + 0.1·biased
+            self.running_var.mul_((1 - self.momentum) / n).add_(var, alpha=(n - 1) / n)
+        return y
+
+
 class ConvBNRelu(nn.Module):
     """conv (no bias) → BatchNorm (eps 1e-5) → ReLU, on NCHW tensors."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1, pad: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, pad, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5)
+        self.bn = BatchNorm2d(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))

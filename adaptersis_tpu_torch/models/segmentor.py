@@ -8,7 +8,8 @@ FeatureDecoder.
      final-LayerNormed, patch tokens only.
   3. Adapter re-walk: patch tokens without cls or pos through blocks[0:-(n-1)],
      then n rounds of {CAViT; CACNN; add the clean tap; next frozen block}.
-     One CAViT/CACNN pair serves all rounds.
+     One CAViT/CACNN pair serves all rounds. The last round's CACNN output
+     reaches no output, so it is not computed (7 MSDA calls for n = 4).
   4. Decode concat[adapter out, centre-padded c4, clean tap] (3·E channels)
      and resize the logits to the input size in fp32.
 
@@ -79,7 +80,8 @@ class AdapterSegmentor(nn.Module):
                 with torch.no_grad():
                     xa = bb.run_blocks(xa, depth - n + r, depth - n + r + 1)
             xa = self.cross_vit(xa, ref1, c, shapes1)
-            c = self.cross_cnn(c, ref2, xa, shapes2, query_level_shapes=shapes1)
+            if r < n - 1:               # the last round's c reaches no output
+                c = self.cross_cnn(c, ref2, xa, shapes2, query_level_shapes=shapes1)
             xa = xa + taps[r]
 
         h32, w32 = shapes1[2]

@@ -1,7 +1,8 @@
 """Builds the hand-written CUDA kernels of `csrc/` and loads them with ctypes.
 
-All `.cu` sources are compiled by nvcc for sm_90a into one shared library
-with a plain C interface. The build runs at first use, never at import, into
+Every `.cu` source is compiled by its own nvcc process for sm_90a, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface. The build runs at first use, never at import, into
 `build/kernels/` at the repository root, under a name derived from a hash of
 the sources, so a changed source is rebuilt and an unchanged one is reused.
 The compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
@@ -56,14 +57,26 @@ def build(force: bool = False) -> Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                               "-Xptxas", "-v", "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [(src.name, p.communicate()[0], p.returncode) for src, p in zip(sources(), procs)]
+    tmp = out.with_name(f"{tag}.tmp")
+    if all(rc == 0 for _, _, rc in logs):
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(("link", res.stdout + res.stderr, res.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(f"== {name}\n{text}" for name, text, _ in logs))
+    failed = [(name, text, rc) for name, text, rc in logs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        name, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{text[-4000:]}")
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out
 
@@ -78,6 +91,9 @@ def library() -> ctypes.CDLL:
     lib.asis_msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                   ctypes.POINTER(i), ctypes.POINTER(i), i, p]
     lib.asis_msda_fwd.restype = i
+    lib.asis_msda_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                  ctypes.POINTER(i), ctypes.POINTER(i), i, p]
+    lib.asis_msda_bwd.restype = i
     lib.asis_error_string.argtypes = [i]
     lib.asis_error_string.restype = ctypes.c_char_p
     return lib

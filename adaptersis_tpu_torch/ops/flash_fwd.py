@@ -4,6 +4,10 @@
 CUDA tensor and runs `flash_fwd_plain` on a CPU tensor. Every key is real:
 the port runs each walk at its true length (1765 tokens with cls, 1764
 without), so there is no padding and no validity mask.
+
+It has no backward, like the JAX kernel: the frozen walks run under
+`torch.no_grad()`. A call that would need a gradient raises on either device
+rather than cut the gradient silently.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """q, k, v: (B, H, N, Dh) with Dh in (16, 32, 64), bf16 or fp32.
     Returns (B, H, N, Dh) in q's dtype."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_fwd has no backward: call it under torch.no_grad() "
+                           "(the backbone walks are frozen) or on tensors that need no grad")
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale)
     if q.device.type != "cuda":

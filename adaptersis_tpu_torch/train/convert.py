@@ -1,6 +1,7 @@
-"""Where the port's parameters come from: the JAX package's flax variables
-(`load_flax_variables`, the inverse of the JAX package's `train/convert.py`
-name map), or a seeded numpy draw (`seeded_init_`).
+"""Where the port's parameters come from and go to: the JAX package's flax
+variables (`load_flax_variables`, the inverse of the JAX package's
+`train/convert.py` name map), a seeded numpy draw (`seeded_init_`), and
+back to flax variables (`state_dict_to_flax`, `save_flax_variables`).
 
   flax                                   torch
   Dense `kernel` (in, out)           →   `weight` (out, in)
@@ -89,6 +90,45 @@ def load_flax_variables(model: nn.Module, params: Mapping[str, Any],
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} != {tuple(want[k].shape)}")
     model.load_state_dict(sd, strict=False)
+
+
+def state_dict_to_flax(state) -> Dict[str, dict]:
+    """The inverse of `flax_to_state_dict`: {"params": ..., "batch_stats": ...}
+    as nested dicts of fp32 numpy arrays under flax paths. `state` is a module
+    (its state dict) or any mapping of torch names to tensors, such as the
+    gradients by parameter name. `num_batches_tracked` has no flax
+    counterpart and is left out."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state.items():
+        mod, _, leaf = name.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy().copy()   # not a view of the live tensor
+        tree = "params"
+        if leaf in ("running_mean", "running_var"):
+            tree, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and a.ndim == 2:
+            a, leaf = a.T, "kernel"
+        elif leaf == "weight" and a.ndim == 4:
+            a, leaf = a.transpose(2, 3, 1, 0), "kernel"
+        elif leaf == "weight":
+            leaf = "scale"
+        node = out[tree]
+        for k in re.sub(r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1blocks_\2", mod).split(".") \
+                if mod else []:
+            node = node.setdefault(k, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return out
+
+
+def save_flax_variables(path, model: nn.Module) -> None:
+    """Write the model's variables as one .npz of flax paths ("params/...",
+    "batch_stats/..."), the file `evaluate --flax_variables` reads."""
+    flat = {"/".join(k): a for k, a in _flatten(state_dict_to_flax(model)).items()}
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
 
 
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:

@@ -52,3 +52,18 @@ def test_other_devices_raise_instead_of_falling_back():
     q = torch.empty(1, 2, 37, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ff.flash_fwd(q, q, q, 0.125)
+
+
+def test_refuses_to_drop_a_gradient():
+    """No backward, like the JAX kernel: an input that needs a gradient
+    raises on any device (meta stands in for CUDA: the check comes first);
+    under no_grad, as the frozen walks run, the call goes through."""
+    q, k, v = (t(a) for a in _qkv(1, 2, 37, 64, seed=2))
+    k.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ff.flash_fwd(q, k, v, 0.125)
+    with torch.no_grad():
+        assert ff.flash_fwd(q, k, v, 0.125).shape == q.shape
+    qm = torch.empty(1, 2, 37, 64, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ff.flash_fwd(qm, qm, qm, 0.125)
