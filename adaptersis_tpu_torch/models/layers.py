@@ -1,6 +1,13 @@
 """Transformer layers of the DINOv2 backbone (counterpart of the JAX package's
 `models/layers.py`). Submodule and parameter names follow DINOv2 so that its
-state dicts load without remapping. Tokens are (B, N, C); images are NHWC."""
+state dicts load without remapping. Tokens are (B, N, C); images are NHWC.
+
+`Block` runs the JAX package's deployed configuration of the frozen walks
+(attn_impl "flash_fwd", qkv_impl, mlp_impl and ln_impl "pallas"): fused
+LN → qkv → head split (K4), attention (K3), then fused LN → MLP →
+LayerScale → residual (K5) with tanh GELU, or LayerNorm (K6) and the plain
+`Mlp` with exact GELU. The modules hold the parameters under their unfused
+names; the kernels read them there."""
 
 from __future__ import annotations
 
@@ -12,6 +19,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_fwd import flash_fwd
+from ..ops.fused_mlp import fused_ln_mlp
+from ..ops.fused_qkv import fused_ln_qkv
+from ..ops.layernorm import layernorm
 
 
 class PatchEmbed(nn.Module):
@@ -52,7 +62,7 @@ class LayerScale(nn.Module):
 
 
 class Attention(nn.Module):
-    """qkv Linear → forward-only attention kernel → proj Linear."""
+    """The attention's parameters: qkv and proj Linears. `Block` runs them."""
 
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -60,18 +70,10 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, C = x.shape
-        H = self.num_heads
-        Dh = C // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv)            # (B, H, N, Dh)
-        out = flash_fwd(q, k, v, 1.0 / math.sqrt(Dh))
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
-
 
 class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale."""
+    """Pre-norm transformer block with LayerScale, forward only (the walks
+    are frozen): the kernels raise when an input needs a gradient."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: float = 1e-5, gelu_approx: bool = False):
@@ -82,7 +84,19 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
         self.ls2 = LayerScale(dim, init_values)
+        self.gelu_approx = gelu_approx
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        B, N, C = x.shape
+        attn, H = self.attn, self.attn.num_heads
+        q, k, v = fused_ln_qkv(x, self.norm1.weight, self.norm1.bias, attn.qkv.weight,
+                               attn.qkv.bias, H, self.norm1.eps)       # (B, H, N, Dh)
+        out = flash_fwd(q, k, v, 1.0 / math.sqrt(C // H))
+        x = x + self.ls1(attn.proj(out.transpose(1, 2).reshape(B, N, C)))
+        if self.gelu_approx:
+            mlp = self.mlp
+            return fused_ln_mlp(x, self.norm2.weight, self.norm2.bias, mlp.fc1.weight,
+                                mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias, self.ls2.gamma,
+                                self.norm2.eps)
+        h = layernorm(x, self.norm2.weight, self.norm2.bias, self.norm2.eps)
+        return x + self.ls2(self.mlp(h))

@@ -10,6 +10,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.layernorm import layernorm
 from ..ops.resize import resize_bicubic
 from .layers import Block, PatchEmbed
 
@@ -71,7 +72,9 @@ class DinoVisionTransformer(nn.Module):
         return out
 
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(x)
+        """The LayerNorm kernel (K6): the output keeps x's dtype, also under
+        autocast, as the JAX package's fused LayerNorm does."""
+        return layernorm(x, self.norm.weight, self.norm.bias, self.norm.eps)
 
 
 ARCHS = {

@@ -33,9 +33,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """q, k, v: (B, H, N, Dh) with Dh in (16, 32, 64), bf16 or fp32.
     Returns (B, H, N, Dh) in q's dtype."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_fwd has no backward: call it under torch.no_grad() "
-                           "(the backbone walks are frozen) or on tensors that need no grad")
+    _build.forbid_grad("flash_fwd", (q, k, v))
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale)
     if q.device.type != "cuda":
@@ -58,7 +56,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = lib.asis_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                  B * H, N, Dh, float(scale), int(q.dtype == torch.bfloat16),
-                                 torch.cuda.current_stream().cuda_stream)
+                                 _build.stream())
     _build.check(lib, err, "flash_fwd")
     global launches
     launches += 1

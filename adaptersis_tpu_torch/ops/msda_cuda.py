@@ -110,7 +110,7 @@ def _fwd_kernel(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor,
         err = lib.asis_msda_fwd(value.data_ptr(), loc.data_ptr(), aw.data_ptr(),
                                 out.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
                                 int(value.dtype == torch.bfloat16),
-                                torch.cuda.current_stream().cuda_stream)
+                                _build.stream())
     _build.check(lib, err, "msda_fwd")
     global launches
     launches += 1
@@ -140,7 +140,7 @@ def msda_bwd(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor, grad: tor
                                 grad.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
                                 daw.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
                                 int(value.dtype == torch.bfloat16),
-                                torch.cuda.current_stream().cuda_stream)
+                                _build.stream())
     _build.check(lib, err, "msda_bwd")
     global bwd_launches
     bwd_launches += 1

@@ -5,10 +5,11 @@ Precision: the trainables (encoder, adapters, level_embed, decoder) and the
 SGD momentum stay fp32. Under bf16 the frozen backbone is stored in bf16,
 except pos_embed, which stays fp32 (`TrainerConfig.precast_frozen` of the JAX
 package), and the steps run under `torch.autocast(bf16)`: GEMMs and
-convolutions compute in bf16 from fp32 weights, LayerNorm and softmax in
-fp32. The kernels' dtype contracts hold under it: q, k and v come from one
-bf16 qkv projection, and the MSDA value is bf16 with fp32 locations and
-weights (`ops/ms_deform_attn.py`).
+convolutions compute in bf16 from fp32 weights, the adapters' LayerNorms
+and softmax in fp32. The kernels' dtype contracts hold under it: the frozen
+walks' kernels (LayerNorm, fused LN → qkv, attention, fused LN → MLP) take
+and return the walk's bf16 tokens, and the MSDA value is bf16 with fp32
+locations and weights (`ops/ms_deform_attn.py`).
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ drives the serving and the training path end to end, and times the kernels.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc. Phases, one result line each:
+Needs one CUDA card and nvcc. Phases, one result line each (with the
+seconds since the start):
   1. device, power limit, kernel build and its time;
   2. K3 forward-only attention vs flash_fwd_plain, bf16 and fp32, H=16
      Dh=64, N = 1765 and 1764 (the clean and the adapter walk), at batch 2
@@ -15,8 +16,13 @@ Needs one CUDA card and nvcc. Phases, one result line each:
      partly outside;
   4. K2 deformable-attention backward vs autograd of msda_plain at the same
      geometries and batches, with a seeded fp32 incoming gradient;
+  4b. K6 LayerNorm, K4 fused LN → qkv → head split and K5 fused LN → MLP →
+     LayerScale → residual vs their plain versions, bf16 and fp32, C = 1024,
+     H = 16, N = 1765 and 1764, batch 2 and 16, rows with non-zero means and
+     unequal scales, parameters stored in bf16 and in fp32; K5 per element;
   5. a narrow whole model (fp32, TF32 off), seeded: CPU (plain paths) vs
-     CUDA (kernels), eval logits and metrics;
+     CUDA (kernels), eval logits and metrics, and the launches per forward
+     (10 K3, 7 K1, 10 K4, 10 K5, 4 K6);
   6. the narrow model's training step, CPU vs CUDA: the augmentation (and
      CLAHE at 588 px), then on one augmented batch (made on the CPU) per
      step the loss, every trainable's gradient
@@ -25,14 +31,21 @@ Needs one CUDA card and nvcc. Phases, one result line each:
   7. the serving path at full width: `adaptersis_tpu_torch.evaluate`,
      vit_large, 588 px, bf16, batch 2, synthetic data; launches per forward
      (48 attention, 7 MSDA: the last round's CACNN output reaches no
-     output and is not computed);
+     output and is not computed; 48 K4, 48 K5, 4 K6);
   8. the training path at full width: `adaptersis_tpu_torch.train_seg`,
      vit_large, 588 px, bf16, batch 16, one epoch of 8 steps, then
      validation; finite losses, every trainable changed, launches per step
-     (48 attention, 7 MSDA forward, 7 MSDA backward), img/s and peak memory;
-  9. kernel, plain and library times at the bf16 shapes of phases 2-4 (CUDA
-     events), and each kernel's bound from the same inputs. The kernels line
-     gives the training path's (batch 16) numbers.
+     (48 attention, 7 MSDA forward, 7 MSDA backward, 48 K4, 48 K5, 4 K6),
+     img/s and peak memory;
+  8b. the deployed configuration's entry points at their defaults (ViT-L/14
+     at 588 px, bf16, batch 16): `adaptersis_tpu_torch.bench` (train step)
+     and `adaptersis_tpu_torch.bench_infer` (forward + argmax), their JSON
+     lines, finite values and launches per step;
+  9. kernel, plain and library times at the bf16 shapes of phases 2-4b (CUDA
+     events), and each kernel's bound from the same inputs; for K4 and K5
+     also the unfused PyTorch sequence they replace and cuBLAS's GEMMs
+     alone. The kernels line gives the training path's (batch 16) numbers
+     and the launches of `bench`'s run.
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -56,6 +69,13 @@ ROOT = Path(__file__).resolve().parent
 FULL_BATCH, FULL_BATCHES = 2, 4        # the serving path's batch
 TRAIN_BATCH = 16                        # the training path's batch
 FLASH_SHAPES = [(B, 16, N, 64) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765, 1764)]
+# the frozen walks' token blocks (B, N, C) of ViT-L/14 at 588 px, 16 heads
+ROW_SHAPES = [(B, N, 1024) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765, 1764)]
+HEADS = 16
+# per forward at full width: attention, MSDA forward, K4, K5, K6
+PER_FORWARD = {"flash_fwd": 48, "msda_fwd": 7, "fused_ln_qkv": 48, "fused_ln_mlp": 48,
+               "layernorm": 4}
+T0 = time.perf_counter()
 # (name, value shape (B, S, M, D), Lq, level shapes, P) at ViT-L/14 @ 588 px
 MSDA_CASES = [(f"{case} B={B}", (B, S, 8, 128), Lq, shapes, 4)
               for B in (FULL_BATCH, TRAIN_BATCH)
@@ -72,7 +92,7 @@ def fail(msg: str) -> None:
 
 
 def say(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0, **kw}), flush=True)
 
 
 def flash_inputs(shape, seed):
@@ -91,6 +111,63 @@ def msda_inputs(vshape, Lq, shapes, P, seed):
     aw = torch.softmax(torch.randn((B, Lq, M, L * P), generator=g), -1)
     grad = torch.randn((B, Lq, M * D), generator=g)
     return value.cuda(), loc.cuda(), aw.reshape(B, Lq, M, L, P).cuda(), grad.cuda()
+
+
+def row_inputs(shape, dtype, seed, params_dtype=torch.float32):
+    """x with non-zero row means and unequal row scales (the fast variance
+    E[x²] − E[x]² cancels digits where |mean| ≫ std), LayerNorm parameters,
+    the qkv and MLP weights ~ N(0, 1/fan_in) in x's dtype (the frozen
+    backbone's), biases ~ N(0, 0.1²), γ ~ N(0, 0.1²); the (n,) parameters
+    in `params_dtype` (bf16 as a frozen bf16 backbone stores them)."""
+    g = torch.Generator().manual_seed(seed)
+    B, N, C = shape
+
+    def rn(*s):
+        return torch.randn(s, generator=g)
+
+    x = rn(B, N, C) * (0.5 + 1.5 * torch.rand((B, N, 1), generator=g)) + 0.5 * rn(B, N, 1)
+    p = {"ln_w": 1 + 0.1 * rn(C), "ln_b": 0.1 * rn(C),
+         "w": (rn(3 * C, C) / math.sqrt(C)).to(dtype), "b": 0.1 * rn(3 * C),
+         "w1": (rn(4 * C, C) / math.sqrt(C)).to(dtype), "b1": 0.1 * rn(4 * C),
+         "w2": (rn(C, 4 * C) / math.sqrt(4 * C)).to(dtype), "b2": 0.1 * rn(C),
+         "gamma": 0.1 * rn(C)}
+    return x.to(dtype).cuda(), {k: (v if v.dim() == 2 else v.to(params_dtype)).cuda()
+                                for k, v in p.items()}
+
+
+def ulp(v, dtype):
+    """The spacing of `dtype` (bf16 or fp32) at |v|, elementwise."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - bits)
+
+
+def mlp_allowance(x, ref, p, ln, fm):
+    """Per-element bound on |K5 − plain| (phase 4b). Both round the same
+    fp32 x + γ·y once to x's dtype: where the two fp32 values straddle a
+    rounding point they differ by one ulp of |ref| + ε, so the bound is
+    ulp(|ref| + ε) + ε, with ε the largest difference of the fp32 γ·y.
+    bf16: both round the hidden h to bf16, and where their fp32 h straddle
+    a rounding point the two differ by ulp(h). Taking every one of a row's
+    Hd roundings as flipped, with random signs, y_ri moves by a sum of
+    ±ulp(h_rj)·w2_ij of standard deviation u_r·rms(w2), u_r = √Σ_j ulp(h_rj)²;
+    ε_ri = 6 such deviations × |γ_i|. fp32: the same dot products in other
+    orders, from h that differ by fc1's order and the fast variance's
+    cancellation (≈ 20 u carried into xn): ε_ri = 2e-5·|γ_i|·Σ_j |h_rj|·|w2_ij|
+    (≈ 335 u of the dot product's absolute sum). This is held per element,
+    so a γ·y that is wrong by more than ε fails where |out| is small, not
+    only against the residual x, which passes through. One flipped output
+    rounding reads ulp/(ulp + ε) of its bound, just under 1; two read ≈ 2."""
+    dt = x.dtype
+    xn = ln.ln_rows(x, p["ln_w"], p["ln_b"], 1e-6).to(dt).float()
+    h = fm.gelu_tanh(xn @ p["w1"].float().t() + p["b1"].float())
+    w2, gamma = p["w2"].float(), p["gamma"].float().abs()
+    if dt == torch.bfloat16:
+        u_r = ulp(h, dt).square().sum(-1, keepdim=True).sqrt()
+        eps = 6 * u_r * w2.square().mean().sqrt() * gamma
+    else:
+        eps = 2e-5 * gamma * (h.abs() @ w2.abs().t())
+    eps = eps.view(ref.shape)
+    return ulp(ref.float().abs() + eps, dt) + eps
 
 
 def valid_corners(loc, shapes) -> int:
@@ -142,12 +219,13 @@ def main() -> None:
     if not (ROOT / "adaptersis_tpu_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no adaptersis_tpu_torch package: run from a checkout")
     sys.path.insert(0, str(ROOT))
-    from adaptersis_tpu_torch import evaluate, train_seg
+    from adaptersis_tpu_torch import bench, bench_infer, evaluate, train_seg
     from adaptersis_tpu_torch.data.augment import (
         apply_train_augment, draw_train_augment, draws_to)
     from adaptersis_tpu_torch.data.clahe import clahe_rgb
     from adaptersis_tpu_torch.data.synthetic import SyntheticSeg
     from adaptersis_tpu_torch.ops import _build, flash_fwd as ff, msda_cuda as mc
+    from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
     from adaptersis_tpu_torch.train.convert import state_dict_to_flax
     from adaptersis_tpu_torch.train.trainer import Trainer, eval_step
 
@@ -156,10 +234,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     def reset_counts():
-        ff.launches = mc.launches = mc.bwd_launches = 0
+        ff.launches = mc.launches = mc.bwd_launches = fq.launches = fm.launches = 0
+        ln.launches = 0
 
     def counts():
-        return {"flash_fwd": ff.launches, "msda_fwd": mc.launches, "msda_bwd": mc.bwd_launches}
+        return {"flash_fwd": ff.launches, "msda_fwd": mc.launches, "msda_bwd": mc.bwd_launches,
+                "fused_ln_qkv": fq.launches, "fused_ln_mlp": fm.launches,
+                "layernorm": ln.launches}
+
+    def expect(forwards, backwards):
+        """Launches of `forwards` full-width forwards and `backwards` MSDA
+        backwards."""
+        return {**{k: v * forwards for k, v in PER_FORWARD.items()}, "msda_bwd": backwards}
 
     # ---- 1. device and build
     name = torch.cuda.get_device_name(0)
@@ -245,6 +331,99 @@ def main() -> None:
         del value, loc, aw, grad, got, want, leaves
         torch.cuda.empty_cache()
 
+    # ---- 4b. K6, K4 and K5 vs their plain versions on the same inputs, on
+    # the card; in bf16 the (n,) parameters are bf16 (as the frozen
+    # backbone stores them) at N = 1765 and fp32 at N = 1764. bf16: the
+    # kernels and the plain versions compute the same fp32 values up to
+    # summation order and rsqrt's last bits, then round once to bf16; where
+    # the two fp32 values straddle a rounding point they differ by one ulp
+    # ≤ 2⁻⁷·|out|: bound 2⁻⁷·max|out| for K6. K4 also rounds xn = LN(x) to
+    # bf16 before its product, and a few xn per row (≈ 0.25 expected at a
+    # 1e-6 relative difference over 1024) may round the other way, each
+    # moving an output by ≤ 2⁻⁷·|xn|·|w|: up to four of them,
+    # + 2⁻⁵·max|xn|·max|w|. fp32 (K6, K4): the same products in other
+    # orders and the fast variance's cancellation (E[x²]/var ≤ ≈ 20 on these
+    # rows, ≈ 1e-6·20 of the output's scale): 1e-4·max|out|. K5 is held per
+    # element: `mlp_allowance`
+    row_err = {"layernorm": 0.0, "fused_ln_qkv": 0.0, "fused_ln_mlp": 0.0}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            bf = dtype == torch.bfloat16
+            for i, shape in enumerate(ROW_SHAPES):
+                pdt = torch.bfloat16 if bf and shape[1] == 1765 else torch.float32
+                x, p = row_inputs(shape, dtype, seed=30 + i, params_dtype=pdt)
+                xn = ln.ln_rows(x, p["ln_w"], p["ln_b"], 1e-6).to(dtype).float()
+                checks = []
+                out = ln.layernorm(x, p["ln_w"], p["ln_b"])
+                ref = ln.layernorm_plain(x, p["ln_w"], p["ln_b"])
+                checks.append(("layernorm", [(out, ref)], 0.0))
+                out = fq.fused_ln_qkv(x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
+                ref = fq.fused_ln_qkv_plain(x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
+                checks.append(("fused_ln_qkv", list(zip(out, ref)),
+                               2.0 ** -5 * xn.abs().max().item()
+                               * p["w"].float().abs().max().item()))
+                mlp_args = (p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
+                out = fm.fused_ln_mlp(x, *mlp_args)
+                ref = fm.fused_ln_mlp_plain(x, *mlp_args)
+                torch.cuda.synchronize()
+                if out.shape != ref.shape or out.dtype != dtype or not out.is_contiguous():
+                    fail(f"fused_ln_mlp returned {tuple(out.shape)} {out.dtype}")
+                diff = (out.float() - ref.float()).abs()
+                allow = mlp_allowance(x, ref, p, ln, fm)
+                worst = (diff / allow).max().item()
+                report = {"fused_ln_mlp": {"max_abs_err": diff.max().item(),
+                                           "worst_share_of_bound": worst,
+                                           "bound_max": allow.max().item(),
+                                           "bound_min": allow.min().item()}}
+                if not worst <= 1.0:
+                    fail(f"fused_ln_mlp kernel disagrees with plain at {shape} {dtype}: "
+                         f"an error is {worst} of its per-element bound")
+                if i == 0:
+                    # the bound fails a wrong K5: the kernel given b2 = 0 or
+                    # an fc2 weight with a 64-wide slice of K zeroed (as if
+                    # its K loop skipped a step); in fp32 also the plain
+                    # version with the exact GELU in place of tanh's
+                    w2_cut = p["w2"].clone()
+                    w2_cut[:, 1024:1088] = 0
+                    wrong = {"b2 dropped": fm.fused_ln_mlp(x, *mlp_args[:5],
+                                                           torch.zeros_like(p["b2"]), p["gamma"]),
+                             "fc2 K slice lost": fm.fused_ln_mlp(x, *mlp_args[:4], w2_cut,
+                                                                 p["b2"], p["gamma"])}
+                    if not bf:
+                        tanh_gelu = fm.gelu_tanh
+                        fm.gelu_tanh = torch.nn.functional.gelu
+                        try:
+                            wrong["exact GELU"] = fm.fused_ln_mlp_plain(x, *mlp_args)
+                        finally:
+                            fm.gelu_tanh = tanh_gelu
+                    caught = {k: ((o.float() - ref.float()).abs() / allow).max().item()
+                              for k, o in wrong.items()}
+                    report["fused_ln_mlp"]["wrong_kernels_worst_share"] = caught
+                    if not all(v > 1.0 for v in caught.values()):
+                        fail(f"fused_ln_mlp: the bound passes a wrong kernel at {dtype}: {caught}")
+                    del wrong, w2_cut
+                if bf:
+                    row_err["fused_ln_mlp"] = max(row_err["fused_ln_mlp"], diff.max().item())
+                del diff, allow
+                for kname, pairs, extra in checks:
+                    for o, r in pairs:
+                        if o.shape != r.shape or o.dtype != dtype or not o.is_contiguous():
+                            fail(f"{kname} returned {tuple(o.shape)} {o.dtype}, plain "
+                                 f"{tuple(r.shape)} {r.dtype}")
+                    err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
+                    scale = max(r.float().abs().max().item() for _, r in pairs)
+                    bound = 2.0 ** -7 * scale + extra if bf else 1e-4 * scale
+                    report[kname] = {"max_abs_err": err, "bound": bound}
+                    if not err <= bound:
+                        fail(f"{kname} kernel disagrees with plain at {shape} {dtype}: "
+                             f"{err} > {bound}")
+                    if bf:
+                        row_err[kname] = max(row_err[kname], err)
+                say("row_kernels_check", dtype=str(dtype), params=str(pdt), shape=list(shape),
+                    heads=HEADS, **report)
+                del x, p, xn, out, ref, checks
+        torch.cuda.empty_cache()
+
     # ---- 5. narrow whole model: CPU plain paths vs CUDA kernels, fp32
     model = narrow_model()
     ds = SyntheticSeg(n=2, imsize=112, seed=5)
@@ -254,8 +433,9 @@ def main() -> None:
     reset_counts()
     gpu = eval_step(copy.deepcopy(model).cuda(), imgs.cuda(), masks.cuda())
     torch.cuda.synchronize()
-    # 5 + 2 + 3 attention calls (clean walk, adapter prefix, 3 more blocks),
-    # 4 CAViT + 3 CACNN MSDA calls
+    # 5 + 2 + 3 block applications (clean walk, adapter prefix, 3 more
+    # blocks), each one K4, K3 and K5; 4 final norms (K6); 4 CAViT + 3 CACNN
+    # MSDA calls
     small_launches = counts()
     scale = cpu["logits"].abs().max().item()
     err = (gpu["logits"].cpu() - cpu["logits"]).abs().max().item()
@@ -267,8 +447,10 @@ def main() -> None:
         fail(f"small slice: CUDA logits differ from CPU by {err} > {bound}")
     if not metric_err <= 1e-4 * max(1.0, float(cpu["loss"])):
         fail(f"small slice: CUDA metrics differ from CPU by {metric_err}")
-    if small_launches != {"flash_fwd": 10, "msda_fwd": 7, "msda_bwd": 0}:
-        fail(f"small slice: kernel launches {small_launches}, expected 10, 7 and 0")
+    small_expect = {"flash_fwd": 10, "msda_fwd": 7, "msda_bwd": 0, "fused_ln_qkv": 10,
+                    "fused_ln_mlp": 10, "layernorm": 4}
+    if small_launches != small_expect:
+        fail(f"small slice: kernel launches {small_launches}, expected {small_expect}")
     del model, cpu, gpu
 
     # ---- 6. narrow training step: CPU plain paths vs CUDA kernels, fp32
@@ -377,9 +559,10 @@ def main() -> None:
         launches=train_small_launches)
     if not param_err <= 1e-5:           # two lr·momentum updates of the gradients above
         fail(f"narrow train step: parameters differ by {param_err} after 2 steps")
-    if train_small_launches != {"flash_fwd": 10 * 2, "msda_fwd": 7 * 2, "msda_bwd": 7 * 2}:
-        fail(f"narrow train step: launches {train_small_launches}, expected 10, 7 and 7 "
-             "per step")
+    if train_small_launches != {k: 2 * (7 if k == "msda_bwd" else v)
+                                for k, v in small_expect.items()}:
+        fail(f"narrow train step: launches {train_small_launches}, expected {small_expect} "
+             "and 7 MSDA backwards per step")
     del base, trainers, named, bufs
 
     # ---- 7. the serving path at full width through its entry point
@@ -399,8 +582,8 @@ def main() -> None:
         fail("full width: non-finite logits")
     if not all(math.isfinite(stats[k]) for k in ("loss", "dice", "acc1")):
         fail(f"full width: non-finite metrics {stats}")
-    if launches != {"flash_fwd": 48 * fwd, "msda_fwd": 7 * fwd, "msda_bwd": 0}:
-        fail(f"full width: launches {launches}, expected 48, 7 and 0 per forward × {fwd}")
+    if launches != expect(fwd, 0):
+        fail(f"full width: launches {launches}, expected {expect(1, 0)} per forward × {fwd}")
     torch.cuda.empty_cache()
 
     # ---- 8. the training path at full width through its entry point; the
@@ -458,10 +641,10 @@ def main() -> None:
     if not all(math.isfinite(epoch.get(k, float("nan")))
                for k in ("test_loss", "test_dice", "test_acc1")):
         fail(f"full-width training: validation metrics not finite: {epoch}")
-    if in_train != {"flash_fwd": 48 * steps, "msda_fwd": 7 * steps, "msda_bwd": 7 * steps}:
-        fail(f"full-width training: launches {in_train} in {steps} steps, expected 48, 7 "
-             "and 7 per step")
-    if in_val != {"flash_fwd": 48 * val_calls[0], "msda_fwd": 7 * val_calls[0], "msda_bwd": 0}:
+    if in_train != expect(steps, 7 * steps):
+        fail(f"full-width training: launches {in_train} in {steps} steps, expected "
+             f"{expect(1, 7)} per step")
+    if in_val != expect(val_calls[0], 0):
         fail(f"full-width training: validation launches {in_val} in {val_calls[0]} forwards")
     # every trainable moves, the c1 projection by weight decay alone
     if unchanged:
@@ -469,9 +652,29 @@ def main() -> None:
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # ---- 8b. the deployed configuration's entry points at their defaults
+    entry = {}
+    for mod, backwards in ((bench, 7), (bench_infer, 0)):
+        reset_counts()
+        res = mod.main([])
+        got = counts()
+        n = 2 + 3 * 10                  # the defaults: 2 warm-up steps, 3 windows of 10
+        entry[mod.__name__.rsplit(".", 1)[-1]] = (res, got)
+        say("entry_point", module=mod.__name__, result=res, launches=got,
+            per_step={k: v / n for k, v in got.items()})
+        finite = [v for k, v in res.items() if k in ("value", "mfu", "peak_mem_gib", "loss",
+                                                       "ms_batch")]
+        if not all(isinstance(v, float) and math.isfinite(v) for v in finite):
+            fail(f"{mod.__name__}: values not finite: {res}")
+        if got != expect(n, backwards * n):
+            fail(f"{mod.__name__}: launches {got} in {n} steps, expected "
+                 f"{expect(1, backwards)} per step")
+        torch.cuda.empty_cache()
+    bench_launches = entry["bench"][1]
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (plain in bf16 too), and each kernel's bound from the same inputs
-    times, bounds = {}, {}
+    times, bounds, extra = {}, {}, {}
     with torch.no_grad():
         for shape in FLASH_SHAPES:
             q, k, v = flash_inputs(shape, seed=0)
@@ -507,9 +710,65 @@ def main() -> None:
                                    + grad.numel() * 4, 4 * D * corners, "fp32")
             del leaves, out
             torch.cuda.empty_cache()
+        # K6, K4 and K5 at the walks' shapes, bf16 with bf16 parameters (the
+        # frozen backbone's, read in place). Beside plain and library:
+        # the unfused PyTorch sequence each replaced (under autocast, as the
+        # training step ran it: LayerNorm to fp32, casts, F.linear, the q/k/v
+        # relayout, GELU) and cuBLAS's GEMMs alone on the normalised input
+        F = torch.nn.functional
+        for shape in ROW_SHAPES:
+            x, p = row_inputs(shape, torch.bfloat16, seed=0, params_dtype=torch.bfloat16)
+            B, N, C = shape
+            R = B * N
+            lw, lb = p["ln_w"].to(x.dtype), p["ln_b"].to(x.dtype)
+            xn = F.layer_norm(x, (C,), lw, lb, 1e-6)
+            xb, pe = x.numel() * x.element_size(), p["ln_w"].element_size()
+            key = f"layernorm B={B} N={N}"
+            times[key] = (cuda_ms(lambda: ln.layernorm(x, p["ln_w"], p["ln_b"])),
+                          cuda_ms(lambda: ln.layernorm_plain(x, p["ln_w"], p["ln_b"])),
+                          cuda_ms(lambda: F.layer_norm(x, (C,), lw, lb, 1e-6)))
+            # reads x, w, b; writes y; ≈ 8 fp32 operations per element
+            bounds[key] = bound_ms(2 * xb + 2 * C * pe, 8 * R * C, "fp32")
+
+            def unfused_qkv():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    y = F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w"], p["b"])
+                qkv = y.reshape(B, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4)
+                return [t.contiguous() for t in qkv]
+
+            key = f"fused_ln_qkv B={B} N={N}"
+            qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
+            times[key] = (cuda_ms(lambda: fq.fused_ln_qkv(*qkv_args)),
+                          cuda_ms(lambda: fq.fused_ln_qkv_plain(*qkv_args)), None)
+            extra[key] = {"unfused": cuda_ms(unfused_qkv),
+                          "cublas_gemm": cuda_ms(lambda: F.linear(xn, p["w"], p["b"].to(x.dtype)))}
+            # reads x, the LN parameters, w, b; writes q, k, v (3·x)
+            bounds[key] = bound_ms(4 * xb + p["w"].numel() * 2 + (2 + 3) * C * pe,
+                                   2 * R * C * 3 * C, "bf16")
+
+            def unfused_mlp():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    h = F.gelu(F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w1"], p["b1"]),
+                               approximate="tanh")
+                    return x + p["gamma"].to(x.dtype) * F.linear(h, p["w2"], p["b2"])
+
+            h = F.gelu(F.linear(xn, p["w1"], p["b1"].to(x.dtype)), approximate="tanh")
+            key = f"fused_ln_mlp B={B} N={N}"
+            mlp_args = (x, p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
+            times[key] = (cuda_ms(lambda: fm.fused_ln_mlp(*mlp_args)),
+                          cuda_ms(lambda: fm.fused_ln_mlp_plain(*mlp_args)), None)
+            extra[key] = {"unfused": cuda_ms(unfused_mlp),
+                          "cublas_gemm": cuda_ms(lambda: (F.linear(xn, p["w1"]),
+                                                          F.linear(h, p["w2"])))}
+            # reads x, the LN parameters, w1, b1, w2, b2, γ; writes out
+            bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe,
+                                   2 * 2 * R * C * 4 * C, "bf16")
+            del x, p, xn, h
+            torch.cuda.empty_cache()
     say("kernel_times", device=name, nvidia_smi=smi[0] if smi else "unavailable",
         ms={k: {"kernel": a, "plain": b, "library": c, "bound": bounds[k][0],
-                "bound_by": bounds[k][1]} for k, (a, b, c) in times.items()})
+                "bound_by": bounds[k][1], **extra.get(k, {})}
+            for k, (a, b, c) in times.items()})
 
     def on_path(key, prefix):
         return key.startswith(prefix) and f"B={TRAIN_BATCH}" in key
@@ -523,17 +782,23 @@ def main() -> None:
         return sum(t for t, _ in vals) / len(vals), vals[0][1]
 
     # per-call means over the training path's mix at batch 16: equal numbers
-    # of calls at each attention length and of each MSDA case; launches of
-    # the training run
+    # of calls at each walk length and of each MSDA case; launches of the
+    # deployed configuration's training run (phase 8b, `bench`)
     rows = []
     for kname, src, replaces, err in (
             ("flash_fwd", "flash_fwd.cu", "adaptersis_tpu/ops/flash_fwd.py:73", flash_err),
             ("msda_fwd", "msda_fwd.cu", "adaptersis_tpu/ops/msda_pallas.py:477", msda_err),
-            ("msda_bwd", "msda_bwd.cu", "adaptersis_tpu/ops/msda_pallas.py:1305", bwd_err)):
+            ("msda_bwd", "msda_bwd.cu", "adaptersis_tpu/ops/msda_pallas.py:1305", bwd_err),
+            ("fused_ln_qkv", "ln_gemm.cu", "adaptersis_tpu/ops/fused_qkv.py:51",
+             row_err["fused_ln_qkv"]),
+            ("fused_ln_mlp", "ln_gemm.cu", "adaptersis_tpu/ops/fused_mlp.py:48",
+             row_err["fused_ln_mlp"]),
+            ("layernorm", "layernorm.cu", "adaptersis_tpu/ops/layernorm.py:49",
+             row_err["layernorm"])):
         b_ms, b_by = mean_bound(kname)
         rows.append({"name": kname, "route": "cuda",
                      "source": f"adaptersis_tpu_torch/csrc/{src}", "replaces": replaces,
-                     "launches": train_launches[kname], "max_abs_err": err,
+                     "launches": bench_launches[kname], "max_abs_err": err,
                      "ms": mean(kname, 0), "plain_ms": mean(kname, 1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": mean(kname, 2)})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -13,6 +13,9 @@ import torch
 import jax
 
 import adaptersis_tpu.ops.flash_fwd as jax_flash
+import adaptersis_tpu.ops.fused_mlp as jax_fused_mlp
+import adaptersis_tpu.ops.fused_qkv as jax_fused_qkv
+import adaptersis_tpu.ops.layernorm as jax_layernorm
 import adaptersis_tpu.ops.msda_pallas as jax_msda
 from adaptersis_tpu_torch.train.convert import load_flax_variables
 
@@ -21,13 +24,15 @@ from adaptersis_tpu_torch.train.convert import load_flax_variables
 def interpret_pallas():
     """Run the JAX package's Pallas kernels in interpret mode, as its own
     tests do on the CPU."""
-    saved = (jax_flash._FORCE_INTERPRET, jax_msda._FORCE_INTERPRET)
-    jax_flash._FORCE_INTERPRET = True
-    jax_msda._FORCE_INTERPRET = True
+    mods = (jax_flash, jax_msda, jax_fused_qkv, jax_fused_mlp, jax_layernorm)
+    saved = [m._FORCE_INTERPRET for m in mods]
+    for m in mods:
+        m._FORCE_INTERPRET = True
     try:
         yield
     finally:
-        jax_flash._FORCE_INTERPRET, jax_msda._FORCE_INTERPRET = saved
+        for m, v in zip(mods, saved):
+            m._FORCE_INTERPRET = v
 
 
 @pytest.fixture
