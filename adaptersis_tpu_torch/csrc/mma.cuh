@@ -43,6 +43,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
+// The B fragments (b0, b1) of a 16×8 tile whose k rows are rows of a
+// row-major bf16 array in shared memory: lane l gives the address of row
+// l % 16 of the tile (b0 covers rows 0-7, b1 rows 8-15).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_addr(p)));
+}
+
 // 16 bytes global → shared, asynchronous; src_bytes = 0 fills zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),

@@ -1,9 +1,11 @@
-"""The epoch sampler of the trainer: a numpy copy of the JAX package's
-`data/samplers.py:EpochSampler` (its package imports jax). A deterministic
-shuffled permutation per epoch, sharded across ranks."""
+"""Samplers: numpy copies of the JAX package's `data/samplers.py` (its
+package imports jax). `EpochSampler`, the trainer's deterministic shuffled
+permutation per epoch, sharded across ranks; `ShardedInfiniteSampler`, the
+SSL pretraining's resumable endless stream."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterator
 
 import numpy as np
@@ -38,3 +40,42 @@ class EpochSampler:
         if self.drop_last:
             shard = shard[:len(self)]
         return iter(shard.tolist())
+
+
+def _make_seed(seed: int, start: int, iter_count: int) -> int:
+    return seed + start + (iter_count << 24)
+
+
+class ShardedInfiniteSampler:
+    """One global permutation seeded with `seed`; each rank takes the slice
+    perm[rank::world_size], cut to size // world_size. Every window of that
+    slice is reshuffled with the seed _make_seed(seed, rank, window), so
+    whole windows can be skipped; `advance` skips advance // size windows
+    and then advance % size yields of the rank's stream."""
+
+    def __init__(self, size: int, shuffle: bool = True, seed: int = 0,
+                 rank: int = 0, world_size: int = 1, advance: int = 0):
+        self.size = size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
+        self.advance = advance
+
+    def _windows(self, iter_count: int) -> Iterator[int]:
+        perm = (np.random.default_rng(self.seed).permutation(self.size) if self.shuffle
+                else np.arange(self.size))
+        count = self.size // self.world_size
+        shard = perm[self.rank + np.arange(count) * self.world_size]
+        while True:
+            if self.shuffle:
+                rng = np.random.default_rng(_make_seed(self.seed, self.rank, iter_count))
+                yield from rng.permutation(shard).tolist()
+            else:
+                yield from shard.tolist()
+            iter_count += 1
+
+    def __iter__(self) -> Iterator[int]:
+        iter_count = self.advance // self.size
+        remainder = self.advance - iter_count * self.size
+        return itertools.islice(self._windows(iter_count), remainder, None)

@@ -2,12 +2,19 @@
 `models/layers.py`). Submodule and parameter names follow DINOv2 so that its
 state dicts load without remapping. Tokens are (B, N, C); images are NHWC.
 
-`Block` runs the JAX package's deployed configuration of the frozen walks
-(attn_impl "flash_fwd", qkv_impl, mlp_impl and ln_impl "pallas"): fused
-LN → qkv → head split (K4), attention (K3), then fused LN → MLP →
-LayerScale → residual (K5) with tanh GELU, or LayerNorm (K6) and the plain
-`Mlp` with exact GELU. The modules hold the parameters under their unfused
-names; the kernels read them there."""
+`Block` runs one of the two configurations that the JAX package's entry
+points run, named by the JAX fields (attn_impl, ln_impl, qkv_impl,
+mlp_impl):
+  * the deployed configuration of the frozen walks ("flash_fwd" and three
+    "pallas", the default): fused LN → qkv → head split (K4), forward-only
+    attention (K3), then fused LN → MLP → LayerScale → residual (K5) with
+    tanh GELU, or LayerNorm (K6) and the plain `Mlp` with exact GELU;
+  * the SSL step's trained configuration ("flash" and three "xla"):
+    `nn.LayerNorm`, the qkv Linear, flash attention with segment ids (K7,
+    forward and backward), proj, the `Mlp` with exact GELU, LayerScale, all
+    differentiable.
+The modules hold the parameters under their unfused names; the kernels read
+them there."""
 
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attn import flash_attn
 from ..ops.flash_fwd import flash_fwd
 from ..ops.fused_mlp import fused_ln_mlp
 from ..ops.fused_qkv import fused_ln_qkv
@@ -71,13 +79,30 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
 
+# (attn_impl, ln_impl, qkv_impl, mlp_impl) of the two configurations
+DEPLOYED = ("flash_fwd", "pallas", "pallas", "pallas")
+TRAINED = ("flash", "xla", "xla", "xla")
+
+
+def check_impls(attn_impl: str, ln_impl: str, qkv_impl: str, mlp_impl: str) -> None:
+    impls = (attn_impl, ln_impl, qkv_impl, mlp_impl)
+    if impls not in (DEPLOYED, TRAINED):
+        raise ValueError(f"(attn_impl, ln_impl, qkv_impl, mlp_impl) = {impls} is not ported: "
+                         f"the port runs {DEPLOYED} (the frozen walks) or {TRAINED} (SSL)")
+
+
 class Block(nn.Module):
-    """Pre-norm transformer block with LayerScale, forward only (the walks
-    are frozen): the kernels raise when an input needs a gradient."""
+    """Pre-norm transformer block with LayerScale. The deployed
+    configuration is forward only (the walks are frozen): its kernels raise
+    when an input needs a gradient. The trained one takes `segment_ids`
+    (B, N) int32: a token attends only to tokens of its own segment."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 init_values: float = 1e-5, gelu_approx: bool = False):
+                 init_values: float = 1e-5, gelu_approx: bool = False,
+                 attn_impl: str = "flash_fwd", ln_impl: str = "pallas",
+                 qkv_impl: str = "pallas", mlp_impl: str = "pallas"):
         super().__init__()
+        check_impls(attn_impl, ln_impl, qkv_impl, mlp_impl)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
         self.ls1 = LayerScale(dim, init_values)
@@ -85,8 +110,13 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu_approx)
         self.ls2 = LayerScale(dim, init_values)
         self.gelu_approx = gelu_approx
+        self.attn_impl = attn_impl
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, segment_ids: torch.Tensor = None) -> torch.Tensor:
+        if self.attn_impl == "flash":
+            return self._trained(x, segment_ids)
+        if segment_ids is not None:
+            raise ValueError("the deployed configuration takes no segment ids")
         B, N, C = x.shape
         attn, H = self.attn, self.attn.num_heads
         q, k, v = fused_ln_qkv(x, self.norm1.weight, self.norm1.bias, attn.qkv.weight,
@@ -100,3 +130,12 @@ class Block(nn.Module):
                                 self.norm2.eps)
         h = layernorm(x, self.norm2.weight, self.norm2.bias, self.norm2.eps)
         return x + self.ls2(self.mlp(h))
+
+    def _trained(self, x: torch.Tensor, segment_ids) -> torch.Tensor:
+        B, N, C = x.shape
+        attn, H = self.attn, self.attn.num_heads
+        qkv = attn.qkv(self.norm1(x)).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+        q, k, v = (t.contiguous() for t in qkv)                     # (B, H, N, Dh)
+        out = flash_attn(q, k, v, 1.0 / math.sqrt(C // H), segment_ids)
+        x = x + self.ls1(attn.proj(out.transpose(1, 2).reshape(B, N, C)))
+        return x + self.ls2(self.mlp(self.norm2(x)))

@@ -1,11 +1,17 @@
 """DINOv2 Vision Transformer backbone (counterpart of the JAX package's
 `models/vit.py`), split into `embed` / `run_blocks` / `final_norm` so the
-adapter segmentor can interleave its adapters between the last blocks."""
+adapter segmentor can interleave its adapters between the last blocks.
+
+Two configurations (`layers.Block`): the deployed frozen walks (the
+default) and the SSL step's trained backbone (attn_impl="flash", ln_impl,
+qkv_impl and mlp_impl "xla"), which adds the iBOT mask-token substitution
+(`embed(..., masks=)`, `forward_with_masks`) and the packed multicrop
+forward (`forward_packed_crops`)."""
 
 from __future__ import annotations
 
 from functools import partial
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -18,8 +24,12 @@ from .layers import Block, PatchEmbed
 class DinoVisionTransformer(nn.Module):
     def __init__(self, img_size: int = 518, patch_size: int = 14, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
-                 init_values: float = 1e-5, gelu_approx: bool = False):
+                 init_values: float = 1e-5, gelu_approx: bool = False,
+                 attn_impl: str = "flash_fwd", ln_impl: str = "pallas",
+                 qkv_impl: str = "pallas", mlp_impl: str = "pallas"):
         super().__init__()
+        impls = dict(attn_impl=attn_impl, ln_impl=ln_impl, qkv_impl=qkv_impl, mlp_impl=mlp_impl)
+        self.ln_impl = ln_impl
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.depth = depth
@@ -30,7 +40,7 @@ class DinoVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_base + 1, embed_dim))
         nn.init.trunc_normal_(self.pos_embed, std=0.02, a=-0.04, b=0.04)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, init_values, gelu_approx)
+            Block(embed_dim, num_heads, mlp_ratio, init_values, gelu_approx, **impls)
             for _ in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
@@ -45,21 +55,59 @@ class DinoVisionTransformer(nn.Module):
         grid = resize_bicubic(grid, (hp, wp), scales=((hp + 0.1) / m, (wp + 0.1) / m))
         return torch.cat([pe[:, :1], grid.reshape(1, hp * wp, self.embed_dim)], dim=1)
 
-    def embed(self, x: torch.Tensor, with_pos_cls: bool = True
-              ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    def embed(self, x: torch.Tensor, with_pos_cls: bool = True,
+              masks: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Tuple[int, int]]:
         """Patch-embed NHWC x. with_pos_cls=False gives the adapter re-walk's
-        tokens: no cls token and no positional embedding."""
+        tokens: no cls token and no positional embedding. `masks` (B, hp·wp)
+        bool replaces masked patch tokens by the mask token before cls and
+        pos (the iBOT substitution)."""
         tokens, (hp, wp) = self.patch_embed(x)
+        if masks is not None:
+            tokens = torch.where(masks[..., None], self.mask_token.to(tokens.dtype), tokens)
         if not with_pos_cls:
             return tokens, (hp, wp)
         cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
         tokens = torch.cat([cls, tokens], dim=1)
         return tokens + self.interpolate_pos_encoding(hp, wp).to(tokens.dtype), (hp, wp)
 
-    def run_blocks(self, x: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    def run_blocks(self, x: torch.Tensor, start: int, stop: int,
+                   segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         for blk in self.blocks[start:stop]:
-            x = blk(x)
+            x = blk(x, segment_ids)
         return x
+
+    def forward_with_masks(self, x: torch.Tensor, masks: Optional[torch.Tensor] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """The full forward: the normed cls and patch tokens."""
+        tokens, _ = self.embed(x, with_pos_cls=True, masks=masks)
+        normed = self.final_norm(self.run_blocks(tokens, 0, self.depth))
+        return {"x_norm_clstoken": normed[:, 0], "x_norm_patchtokens": normed[:, 1:]}
+
+    def forward_packed_crops(self, g: torch.Tensor, l: torch.Tensor,
+                             masks: Optional[torch.Tensor] = None
+                             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """All crops through one attention call per block: row r packs
+        global crop r (masks apply here) with local crops r·k .. r·k + k − 1,
+        each in a segment of its own (segment ids 0, 1, .., k), so each
+        crop's tokens attend only to its own. g: (2B, Sg, Sg, 3), l: (k·2B,
+        Sl, Sl, 3). Returns the global and the local crops' normed cls and
+        patch tokens."""
+        tg, _ = self.embed(g, with_pos_cls=True, masks=masks)
+        tl, _ = self.embed(l, with_pos_cls=True)
+        B2, Ng, C = tg.shape
+        nB, Nl, _ = tl.shape
+        if nB % B2:
+            raise ValueError(f"{nB} local crops not divisible by {B2} global rows")
+        k = nB // B2
+        x = torch.cat([tg, tl.to(tg.dtype).reshape(B2, k * Nl, C)], dim=1)
+        seg = torch.cat([torch.zeros(Ng, dtype=torch.int32, device=x.device),
+                         torch.arange(1, k + 1, dtype=torch.int32,
+                                      device=x.device).repeat_interleave(Nl)])
+        x = self.run_blocks(x, 0, self.depth, seg.expand(B2, -1).contiguous())
+        x = self.final_norm(x)
+        xg, xl = x[:, :Ng], x[:, Ng:].reshape(nB, Nl, C)
+        return ({"x_norm_clstoken": xg[:, 0], "x_norm_patchtokens": xg[:, 1:]},
+                {"x_norm_clstoken": xl[:, 0], "x_norm_patchtokens": xl[:, 1:]})
 
     def collect_block_outputs(self, x: torch.Tensor, taps: Sequence[int]) -> List[torch.Tensor]:
         """Run all blocks; return the un-normed outputs of the blocks in `taps`."""
@@ -72,8 +120,11 @@ class DinoVisionTransformer(nn.Module):
         return out
 
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """The LayerNorm kernel (K6): the output keeps x's dtype, also under
-        autocast, as the JAX package's fused LayerNorm does."""
+        """Deployed: the LayerNorm kernel (K6), whose output keeps x's dtype,
+        also under autocast, as the JAX package's fused LayerNorm does. SSL:
+        the plain `nn.LayerNorm` (K6 is forward only)."""
+        if self.ln_impl == "xla":
+            return self.norm(x)
         return layernorm(x, self.norm.weight, self.norm.bias, self.norm.eps)
 
 

@@ -96,6 +96,10 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.asis_flash_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, p]
     lib.asis_flash_fwd.restype = i
+    lib.asis_flash_attn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+    lib.asis_flash_attn_fwd.restype = i
+    lib.asis_flash_attn_bwd.argtypes = [p] * 10 + [i, i, i, i, ctypes.c_float, i, p]
+    lib.asis_flash_attn_bwd.restype = i
     lib.asis_msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                   ctypes.POINTER(i), ctypes.POINTER(i), i, p]
     lib.asis_msda_fwd.restype = i

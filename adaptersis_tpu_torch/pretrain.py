@@ -1,0 +1,211 @@
+"""DINOv2 SSL pretraining: the counterpart of the JAX package's `pretrain.py`.
+
+    python -m adaptersis_tpu_torch.pretrain --bf16          # ViT-S/14, batch 32, on the card
+
+The flag surface of `pretrain.py`, plus `--device` (default cuda; the run
+exits when there is no card, `--device cpu` runs the plain paths) and
+`--bf16` (the backbones under bf16 autocast with fp32 parameters and heads,
+the configuration of `tools/bench_ssl_step.py`). The learning rate is
+scaled by sqrt(batch/1024); five per-iteration schedules (lr with warm-up,
+weight decay, teacher momentum, teacher temperature, last-layer lr frozen
+for `--freeze_last_layer_epochs`); per iteration a batch of synthetic
+frames from the resumable infinite sampler, the multi-crop augmentation on
+the device, the seeded iBOT masks (seed·100000 + iteration) and one
+`SSLMetaArch.train_step`; a NaN loss aborts. Each epoch prints one JSON
+line: the mean losses, img/s over its steps after the first (host clock,
+one synchronise per step on the loss) and the peak device memory.
+
+Not ported yet, and the run exits when asked for them: checkpoint and
+resume (`--output_dir`, `--saveckp_freq`), real image folders
+(`--data_path`), more than one device (`--fsdp` > 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .data.augment import draws_to
+from .data.samplers import ShardedInfiniteSampler
+from .data.synthetic import SyntheticSeg
+from .models.layers import TRAINED
+from .models.vit import build_backbone
+from .ssl.augment import apply_multicrop, draw_multicrop
+from .ssl.masking import MaskingGenerator, collate_masks_with_indices
+from .ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to, schedule_values
+from .train.schedules import cosine_scheduler
+
+
+
+def get_args_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        "adaptersis-torch-pretrain",
+        epilog="Checkpoint and resume, real image folders and more than one device are not "
+               "ported yet: each run starts from a seeded initialisation on synthetic frames.")
+    p.add_argument("--arch", default="vit_small")
+    p.add_argument("--patch_size", default=14, type=int)
+    p.add_argument("--global_crops_size", default=224, type=int)
+    p.add_argument("--local_crops_size", default=98, type=int)
+    p.add_argument("--local_crops_number", default=8, type=int)
+    p.add_argument("--batch_size_per_gpu", default=32, type=int)
+    p.add_argument("--epochs", default=100, type=int)
+    p.add_argument("--warmup_epochs", default=10, type=int)
+    p.add_argument("--lr", default=4e-3, type=float)
+    p.add_argument("--weight_decay", default=0.04, type=float)
+    p.add_argument("--weight_decay_end", default=0.4, type=float)
+    p.add_argument("--teacher_temp", default=0.07, type=float)
+    p.add_argument("--warmup_teacher_temp", default=0.04, type=float)
+    p.add_argument("--warmup_teacher_temp_epochs", default=30, type=int)
+    p.add_argument("--momentum_teacher", default=0.992, type=float)
+    p.add_argument("--freeze_last_layer_epochs", default=1, type=int)
+    p.add_argument("--dino_out_dim", default=65536, type=int)
+    p.add_argument("--koleo_loss_weight", default=0.1, type=float)
+    p.add_argument("--data_path", default="", type=str,
+                   help="an image folder: not ported yet, the run uses synthetic frames")
+    p.add_argument("--output_dir", default=None, type=str,
+                   help="checkpoint directory: not ported yet, the run exits when it is given")
+    p.add_argument("--saveckp_freq", default=None, type=int,
+                   help="epochs between checkpoints: not ported yet, the run exits when it is "
+                        "given")
+    p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic frames (the only data the port reads yet)")
+    p.add_argument("--fsdp", default=1, type=int,
+                   help="parameter sharding over this many devices: only 1 is ported")
+    p.add_argument("--official_epoch_length", default=1250, type=int,
+                   help="iterations per epoch (schedules are iteration-keyed)")
+    p.add_argument("--scaling_rule", default="sqrt_wrt_1024", choices=["sqrt_wrt_1024", "none"],
+                   help="lr *= sqrt(global_batch/1024)")
+    p.add_argument("--steps_per_epoch", default=0, type=int,
+                   help="override official_epoch_length (smoke tests)")
+    p.add_argument("--device", default="cuda", type=str)
+    p.add_argument("--bf16", action="store_true",
+                   help="backbones under bf16 autocast (fp32 parameters and heads)")
+    return p
+
+
+def setup(args) -> torch.device:
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.exit("error: no CUDA device is available (use --device cpu for the plain path)")
+    if args.fsdp != 1:
+        sys.exit(f"error: --fsdp {args.fsdp}: sharding over several devices is not ported yet "
+                 "(ROADMAP.md, M10: data parallelism)")
+    if args.data_path:
+        sys.exit("error: --data_path: real image folders are not ported yet; use --synthetic")
+    for flag in ("output_dir", "saveckp_freq"):
+        if getattr(args, flag) is not None:
+            sys.exit(f"error: --{flag}: checkpoint and resume are not ported yet; the run "
+                     "starts from a seeded initialisation and saves nothing")
+    for size in (args.global_crops_size, args.local_crops_size):
+        if size % args.patch_size:
+            sys.exit(f"error: crop size {size} is not divisible by --patch_size "
+                     f"{args.patch_size}")
+    return device
+
+
+def build_arch(args) -> SSLMetaArch:
+    """The student (seeded with args.seed) and its teacher copy, on the CPU."""
+    torch.manual_seed(args.seed)
+    attn_impl, ln_impl, qkv_impl, mlp_impl = TRAINED
+    backbone = build_backbone(args.arch, img_size=args.global_crops_size,
+                              patch_size=args.patch_size, attn_impl=attn_impl, ln_impl=ln_impl,
+                              qkv_impl=qkv_impl, mlp_impl=mlp_impl)
+    cfg = SSLConfig(dino_out_dim=args.dino_out_dim, ibot_out_dim=args.dino_out_dim,
+                    n_local_crops=args.local_crops_number,
+                    koleo_loss_weight=args.koleo_loss_weight)
+    return SSLMetaArch(backbone, cfg, bf16=args.bf16)
+
+
+def make_schedules(args, niter_per_ep: int) -> dict:
+    total = args.epochs * niter_per_ep
+    warm_tt = min(args.warmup_teacher_temp_epochs, args.epochs) * niter_per_ep
+    return {
+        "lr": cosine_scheduler(args.lr, 1e-6, args.epochs, niter_per_ep,
+                               warmup_epochs=args.warmup_epochs),
+        "wd": cosine_scheduler(args.weight_decay, args.weight_decay_end, args.epochs,
+                               niter_per_ep),
+        "momentum": cosine_scheduler(args.momentum_teacher, 1.0, args.epochs, niter_per_ep),
+        "teacher_temp": np.concatenate([
+            np.linspace(args.warmup_teacher_temp, args.teacher_temp, warm_tt),
+            np.full(max(total - warm_tt, 0), args.teacher_temp)]),
+        "last_layer_lr": cosine_scheduler(
+            args.lr, 1e-6, args.epochs, niter_per_ep, warmup_epochs=args.warmup_epochs,
+            freeze_iters=args.freeze_last_layer_epochs * niter_per_ep),
+    }
+
+
+def run(args) -> Tuple[SSLMetaArch, List[dict]]:
+    """Train as the flags say; returns the trained meta-architecture and the
+    per-epoch stats."""
+    device = setup(args)
+    global_batch = args.batch_size_per_gpu
+    if args.scaling_rule == "sqrt_wrt_1024":
+        base_lr = args.lr
+        args.lr = base_lr * math.sqrt(global_batch / 1024.0)
+        print(f"sqrt scaling learning rate; base: {base_lr}, new: {args.lr}", flush=True)
+    arch = build_arch(args).to(device)
+
+    ds = SyntheticSeg(n=max(global_batch * 4, 64), imsize=args.global_crops_size + 32,
+                      seed=args.seed)
+    niter_per_ep = args.steps_per_epoch or args.official_epoch_length
+    total = args.epochs * niter_per_ep
+    schedules = make_schedules(args, niter_per_ep)
+    grid = args.global_crops_size // args.patch_size
+    n_tokens = grid * grid
+    mask_gen = MaskingGenerator((grid, grid), num_masking_patches=n_tokens // 2)
+    samples = iter(ShardedInfiniteSampler(len(ds), seed=args.seed))
+    gen = torch.Generator().manual_seed(args.seed)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    history, sums, it = [], {}, 0
+    t_first = None
+    while it < total:
+        imgs = np.stack([ds[next(samples)][0] for _ in range(global_batch)])
+        imgs = torch.from_numpy(imgs).to(device)
+        g, l = apply_multicrop(imgs, draws_to(draw_multicrop(gen, global_batch,
+                                                             args.local_crops_number), device),
+                               args.global_crops_size, args.local_crops_size)
+        masks = collate_masks_with_indices(g.shape[0], n_tokens, mask_gen,
+                                           seed=args.seed * 100000 + it)
+        metrics = arch.train_step(g, l, masks_to(masks, device),
+                                  **schedule_values(schedules, min(it, total - 1)))
+        values = {k: float(v) for k, v in metrics.items()}     # waits for the step
+        if math.isnan(values["total_loss"]):
+            raise RuntimeError(f"NaN loss at iteration {it}")
+        for k, v in values.items():
+            sums[k] = sums.get(k, 0.0) + v
+        it += 1
+        in_epoch = (it - 1) % niter_per_ep + 1
+        if in_epoch == 1:
+            t_first = time.perf_counter()
+        if in_epoch == niter_per_ep:
+            seconds = time.perf_counter() - t_first
+            stats = {"epoch": it // niter_per_ep - 1, "steps": niter_per_ep,
+                     **{k: v / niter_per_ep for k, v in sums.items()},
+                     "img_per_s": (global_batch * (niter_per_ep - 1) / seconds
+                                   if niter_per_ep > 1 else None),
+                     "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                                        if device.type == "cuda" else None),
+                     "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                                else "cpu")}
+            print(json.dumps(stats), flush=True)
+            history.append(stats)
+            sums = {}
+    return arch, history
+
+
+def main(argv: Optional[List[str]] = None) -> List[dict]:
+    return run(get_args_parser().parse_args(argv))[1]
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,13 @@ back to flax variables (`state_dict_to_flax`, `save_flax_variables`).
   LayerNorm / BatchNorm `scale`      →   `weight`
   batch_stats `mean` / `var`         →   `running_mean` / `running_var`
   `blocks_N`                         →   `blocks.N`
-  anything else (`bias`, `gamma`, `cls_token`, `pos_embed`, `level_embed`, ...)
-                                     →   its own name
+  anything else (`bias`, `gamma`, `cls_token`, `pos_embed`, `level_embed`,
+  `last_layer_v`, `dino_center`, ...)  →   its own name
+
+The SSL state of the JAX package's `SSLMetaArch.init_state` ({student,
+teacher} × {backbone, dino_head}, dino_center, ibot_center) loads into the
+port's `SSLMetaArch` with `load_ssl_state`;
+`state_dict_to_flax(arch)["params"]` gives the same tree back.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ def flax_to_state_dict(params: Mapping[str, Any],
             name, a = fn(path, a)
             if name in sd:
                 raise ValueError(f"two flax entries map to {name}")
-            sd[name] = torch.from_numpy(np.ascontiguousarray(a))
+            sd[name] = torch.from_numpy(np.array(a))   # a copy: device_get arrays are read-only
     return sd
 
 
@@ -129,6 +134,14 @@ def save_flax_variables(path, model: nn.Module) -> None:
     flat = {"/".join(k): a for k, a in _flatten(state_dict_to_flax(model)).items()}
     with open(path, "wb") as f:
         np.savez(f, **flat)
+
+
+def load_ssl_state(arch: nn.Module, state: Mapping[str, Any]) -> None:
+    """Load a JAX SSL state tree into the port's `SSLMetaArch`: the student,
+    the teacher and both centres, strictly. The Adam state is not read: the
+    tree of `init_state` holds zero moments, as a new `SSLMetaArch` does."""
+    load_flax_variables(arch, {k: state[k] for k in ("student", "teacher", "dino_center",
+                                                     "ibot_center")}, {})
 
 
 def seeded_init_(model: nn.Module, seed: int) -> nn.Module:

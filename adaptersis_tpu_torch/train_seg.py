@@ -90,7 +90,7 @@ def _validate(trainer: Trainer, ds: SyntheticSeg, batch: int, device: torch.devi
     return {k: v / n_images for k, v in sums.items()}
 
 
-def _profile_table(prof, device: torch.device, steps: int, seconds: float) -> str:
+def profile_table(prof, device: torch.device, steps: int, seconds: float) -> str:
     """The device's activities (kernels, copies, memsets) summed by name per
     step, their total against the window's host time (the idle share), then
     torch's own table of operators."""
@@ -169,7 +169,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         if prof is not None:
             prof.stop()
             (out_dir / "profile.txt").write_text(
-                _profile_table(prof, device, n_steps - 1, t_end - t_start))
+                profile_table(prof, device, n_steps - 1, t_end - t_start))
         step_losses = torch.stack(losses).tolist()
         stats = {"train_loss": sum(step_losses) / len(step_losses),
                  "train_lr": trainer.lr_fn(epoch), "epoch": epoch,

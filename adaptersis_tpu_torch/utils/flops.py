@@ -1,5 +1,7 @@
-"""Analytic FLOP count of the adapter-segmentation train step (the port's own
-copy of the JAX package's `utils/flops.py`; the port imports nothing of it).
+"""Analytic FLOP counts of the adapter-segmentation train step (the port's
+own copy of the JAX package's `utils/flops.py`; the port imports nothing of
+it) and of the SSL train step (`ssl_step_flops`, the copy of
+`tools/bench_ssl_step.py`'s).
 
 Matmul and convolution MACs from the model geometry, 2 FLOPs per MAC, so the
 MFU that `bench.py` reports does not depend on how the kernels compute them.
@@ -107,3 +109,32 @@ def train_step_flops(batch: int, imsize: int = 588, patch: int = 14,
     adapters = n_last_blocks * adapter_round_flops(n_vit, n_cnn, embed_dim)
     dec = decoder_flops(hp, wp, embed_dim, num_classes)
     return batch * (frozen + 3.0 * (adapters + enc + dec))
+
+
+def ssl_step_flops(batch: int, embed_dim: int, depth: int, upperbound: int,
+                   global_size: int = 224, local_size: int = 98, n_local: int = 8,
+                   patch: int = 14, out_dim: int = 65536, hidden_dim: int = 2048,
+                   bottleneck_dim: int = 256) -> float:
+    """FLOPs (2·MACs) of one SSL train step, conservative as above: the
+    student's backbone forward and backward (3× its forward) over 2B global
+    and n_local·B local crops, the teacher's forward over the 2B global
+    crops, the patch-embed convolutions, and the DINO/iBOT heads on the cls
+    tokens and the `upperbound` gathered masked rows (student 3×, teacher
+    1×). Attention is counted at each crop's own segment length: the masked
+    cross-segment pairs of the packed rows are not counted."""
+    E = embed_dim
+    tg = (global_size // patch) ** 2 + 1            # 257 tokens per global crop
+    tl = (local_size // patch) ** 2 + 1             # 50 per local crop
+
+    def backbone_macs(n_crops: int, t: int) -> float:
+        return n_crops * t * (depth * (12 * E * E + 2 * t * E) + 3 * patch * patch * E)
+
+    mac_head_tok = (E * hidden_dim + hidden_dim * hidden_dim + hidden_dim * bottleneck_dim
+                    + bottleneck_dim * out_dim)
+    s_head_tokens = (2 + n_local) * batch + upperbound
+    t_head_tokens = 2 * batch + upperbound
+    mac = (3 * (backbone_macs(2 * batch, tg) + backbone_macs(n_local * batch, tl))
+           + 3 * s_head_tokens * mac_head_tok
+           + backbone_macs(2 * batch, tg)
+           + t_head_tokens * mac_head_tok)
+    return 2.0 * mac

@@ -20,6 +20,16 @@ seconds since the start):
      LayerScale → residual vs their plain versions, bf16 and fp32, C = 1024,
      H = 16, N = 1765 and 1764, batch 2 and 16, rows with non-zero means and
      unequal scales, parameters stored in bf16 and in fp32; K5 per element;
+  4c. K7 flash attention with segment ids vs its plain version, bf16 and
+     fp32, each element against a bound from its own terms: the forward
+     (output and logsumexp), dq, dk and dv through autograd with a seeded
+     incoming gradient, and the backward kernels alone on the plain
+     forward's o and lse (bf16: at most 5 % of the elements may differ), at
+     the SSL step's shapes (ViT-S/14, batch 32): the student's packed rows
+     (64, 6, 457, 64), segments 257 + 4 × 50, the teacher's (64, 6, 257, 64)
+     without ids, and interleaved ids at scale 0.1; planted faults must
+     fail: no segment ids, di = 0, p and ds not rounded to bf16, and q
+     scaled before q·kᵀ;
   5. a narrow whole model (fp32, TF32 off), seeded: CPU (plain paths) vs
      CUDA (kernels), eval logits and metrics, and the launches per forward
      (10 K3, 7 K1, 10 K4, 10 K5, 4 K6);
@@ -28,6 +38,10 @@ seconds since the start):
      step the loss, every trainable's gradient
      (non-zero on the card), the BatchNorm statistics, the parameters after
      2 SGD steps, and the kernel launches per step;
+  6b. a narrow SSL step (fp32, TF32 off), CPU (plain) vs CUDA (kernels),
+     2 steps from the same seeded weights, augmented crops (made on the
+     CPU) and masks: loss and parts, every student gradient (non-zero on
+     the card), the teacher after the EMA, both centres, K7 launches;
   7. the serving path at full width: `adaptersis_tpu_torch.evaluate`,
      vit_large, 588 px, bf16, batch 2, synthetic data; launches per forward
      (48 attention, 7 MSDA: the last round's CACNN output reaches no
@@ -41,11 +55,20 @@ seconds since the start):
      at 588 px, bf16, batch 16): `adaptersis_tpu_torch.bench` (train step)
      and `adaptersis_tpu_torch.bench_infer` (forward + argmax), their JSON
      lines, finite values and launches per step;
-  9. kernel, plain and library times at the bf16 shapes of phases 2-4b (CUDA
+  8c. the SSL slice's entry points at full width (ViT-S/14, batch 32,
+     bf16, 65536 prototypes): `adaptersis_tpu_torch.bench_ssl` at its
+     defaults and `adaptersis_tpu_torch.pretrain --bf16 --synthetic
+     --epochs 1 --steps_per_epoch 4 --warmup_epochs 0`: finite losses,
+     every student parameter changed (but the last layer, frozen for the
+     first epoch), the teacher moved, 24 K7 forwards and 12 K7 backwards per
+     step, img/s, MFU and peak memory;
+  9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events), and each kernel's bound from the same inputs; for K4 and K5
      also the unfused PyTorch sequence they replace and cuBLAS's GEMMs
-     alone. The kernels line gives the training path's (batch 16) numbers
-     and the launches of `bench`'s run.
+     alone; for K7 PyTorch's SDPA with the boolean block-diagonal mask,
+     forward and backward. The kernels line gives the training path's
+     (batch 16) numbers and the launches of `bench`'s run for K1-K6, the
+     SSL step's numbers and the launches of `bench_ssl`'s run for K7.
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -72,6 +95,15 @@ FLASH_SHAPES = [(B, 16, N, 64) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765
 # the frozen walks' token blocks (B, N, C) of ViT-L/14 at 588 px, 16 heads
 ROW_SHAPES = [(B, N, 1024) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765, 1764)]
 HEADS = 16
+# K7 at the SSL step's shapes (ViT-S/14, batch 32: 64 global crops, 6 heads):
+# the student packs a global crop (257 tokens) with 4 local crops (50 each)
+SSL_BATCH = 32
+STUDENT_SEGMENTS, TEACHER_N = [257, 50, 50, 50, 50], 257
+K7_SHAPES = {"student": (2 * SSL_BATCH, 6, sum(STUDENT_SEGMENTS), 64),
+             "teacher": (2 * SSL_BATCH, 6, TEACHER_N, 64)}
+# per SSL step at ViT-S/14 (12 blocks): the teacher's and the student's
+# forwards, the student's backward
+SSL_PER_STEP = {"flash_attn": 24, "flash_attn_bwd": 12}
 # per forward at full width: attention, MSDA forward, K4, K5, K6
 PER_FORWARD = {"flash_fwd": 48, "msda_fwd": 7, "fused_ln_qkv": 48, "fused_ln_mlp": 48,
                "layernorm": 4}
@@ -203,6 +235,200 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def packed_ids(B: int, segments, device="cuda") -> torch.Tensor:
+    """(B, N) int32 segment ids: segment i is `segments[i]` consecutive tokens."""
+    ids = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(segments)])
+    return ids[None].expand(B, -1).contiguous().to(device)
+
+
+def k7_inputs(shape, dtype, seed):
+    """q, k, v (scores of std ≈ 2.25: peaked rows, so a mishandled segment
+    shows) and a seeded incoming gradient."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g) * s for s in (1.5, 1.5, 1.0))
+    do = torch.randn(shape, generator=g)
+    return [x.to(dtype).cuda() for x in (q, k, v, do)]
+
+
+def k7_outputs(fa, q, k, v, do, seg, plain: bool, scale: float):
+    """(o, lse, dq, dk, dv): through flash_attn's autograd (the kernels) or
+    through autograd of flash_attn_plain."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o = (fa.flash_attn_plain if plain else fa.flash_attn)(*leaves, scale, seg)
+    o.backward(do)
+    lse = (fa.flash_attn_fwd_plain if plain else fa.flash_attn_fwd_kernel)(q, k, v, scale, seg)[1]
+    return [o.detach(), lse] + [x.grad for x in leaves]
+
+
+def k7_allowances(fa, q, k, v, do, seg, ref, scale: float):
+    """Per-element bounds on |kernel − plain|, from the plain pass `ref` =
+    (o, lse, dq, dk, dv): {"fwd": [o, lse], "through": [dq, dk, dv] when the
+    backward ran on the kernel's own o and lse, "alone": [dq, dk, dv] when
+    it ran on the plain forward's}. Each is ulp(|ref| + ε) + ε: where the
+    two fp32 values straddle a rounding point of the output's dtype they
+    differ by one ulp of |ref| + ε. ε sums what each term of that output
+    may differ by, so it follows the element's own terms:
+      o = Σ_j p_ij·v_j: bf16, the kernel rounds each unnormalised p to bf16
+        before p·v, the plain version the normalised p (the library's
+        one-tile path), ≤ 2⁻⁸ of the term each: ε = (2⁻⁷ + 2⁻¹⁵)·Σ_j p_ij·
+        |v_j|, 2⁻¹⁵ for summation orders (≈ 457 fp32 ulps); fp32 2⁻¹⁵·Σ.
+      lse: fp32 in both, 2e-6·max|lse|.
+      dv = Σ_i p_ij·do_i, dq = Σ_j ds_ij·k_j, dk = Σ_i ds_ij·q_i: both round
+        p and ds at the same points (bf16), each from fp32 values that
+        differ by Δ; a flipped rounding moves the term by one ulp, ≤ 2⁻⁷ of
+        it: ε = (2⁻⁷ + 2⁻¹⁵)·Σ|term| + Σ Δ·|other factor| (fp32: no 2⁻⁷).
+        Δp ≤ p·r with r = 2⁻¹⁶ (the exponent's fp32 error), plus the lse
+        bound when the backward ran on the kernel's lse; Δds ≤ p·scale·
+        (r·(Σ_d |do_d|·|v_d| + |di|) + Δdi), Δdi = Σ_d (o's bound)·|do_d|
+        when it ran on the kernel's o, else 0.
+    A planted fault that every term shares (di = 0, a dropped mask) moves
+    an output by far more; one of half an ulp per term (ds or p not rounded)
+    stays inside these sums, and the share of differing elements catches it
+    (`K7_DIFFER_SHARE`)."""
+    f = (2.0 ** -7 if q.dtype == torch.bfloat16 else 0.0) + 2.0 ** -15
+    lse = ref[1]
+    qa, ka, va, doa = (x.float().abs() for x in (q, k, v, do))
+
+    def bound(r, e):
+        return ulp(r.float().abs() + e, r.dtype) + e
+
+    def t(x):
+        return x.transpose(-1, -2)
+
+    with torch.no_grad():
+        p = torch.exp(fa._scores(q, k, scale, seg) - lse[..., None])
+        fwd = [bound(ref[0], f * (p @ va)),
+               bound(lse, torch.full_like(lse, 2e-6 * lse.abs().max().item()))]
+        di = (ref[0].float() * do.float()).sum(-1, keepdim=True)
+        ds = ((do.float() @ t(v.float()) - di) * p * scale).abs_()
+        # p·scale·(Σ_d |do_d|·|v_d| + |di|): what Δds scales with
+        a = (doa @ t(va)).add_(di.abs()).mul_(p * scale)
+        out = {"fwd": fwd}
+        for name, r, d_di in (("alone", 2.0 ** -16, 0.0),
+                              ("through", 2.0 ** -16 + fwd[1][..., None],
+                               (fwd[0] * doa).sum(-1, keepdim=True))):
+            dsd = a * r + p * (scale * d_di)
+            out[name] = [bound(ref[2], f * (ds @ ka) + dsd @ ka),
+                         bound(ref[3], f * (t(ds) @ qa) + t(dsd) @ qa),
+                         bound(ref[4], t(p * (f + r)) @ doa)]
+            del dsd
+        del p, ds, a
+    return out
+
+
+K7_NAMES = ("o", "lse", "dq", "dk", "dv")
+# bf16, the backward alone on the plain forward's o and lse: the share of
+# dq, dk and dv elements that may differ from the plain version at all. The
+# fp32 values differ only by summation order and the exponent's error
+# (≈ 2⁻¹⁹ of p), so one p or ds rounding in ≈ 10³ flips, and an output's own
+# rounding flips rarer still: well under 1 % differ. A kernel that skips the
+# rounding of ds (or p) is off by up to half an ulp in every term, which
+# moves a quarter or more of the outputs by an ulp.
+K7_DIFFER_SHARE = 0.05
+
+
+def k7_worst(names, got, ref, allow):
+    """Each output's largest error, largest share of its bound, and the
+    share of its elements that differ at all."""
+    out = {}
+    for name, a, b, w in zip(names, got, ref, allow):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"flash_attn {name}: {tuple(a.shape)} {a.dtype}, plain {tuple(b.shape)} {b.dtype}")
+        d = (a.float() - b.float()).abs()
+        out[name] = {"max_abs_err": d.max().item(), "worst_share_of_bound": (d / w).max().item(),
+                     "differing_share": (a != b).float().mean().item()}
+    return out
+
+
+def check_k7(fa) -> dict:
+    """Phase 4c: K7 against its plain version on the same inputs, per
+    element (`k7_allowances`): the forward, the backward through the
+    kernels' own forward (autograd of flash_attn against autograd of
+    flash_attn_plain), and the backward kernels alone on the plain forward's
+    o and lse, whose bf16 outputs must also differ in at most
+    `K7_DIFFER_SHARE` of their elements. At the student's bf16 shape
+    deliberately wrong kernel inputs must fail: no segment ids (a dropped
+    mask), o = 0 (so di = 0), and the fp32 kernels on the same values (p
+    and ds not rounded to bf16); in the interleaved case, whose scale 0.1
+    is no power of two, q scaled and rounded before the product. Returns
+    the largest bf16 errors at the SSL step's shapes, forward and backward."""
+    k7_err = {"fwd": 0.0, "bwd": 0.0}
+    cases = [(name, shape, packed_ids(shape[0], STUDENT_SEGMENTS) if name == "student" else None,
+              0.125) for name, shape in K7_SHAPES.items()]
+    inter = torch.randint(0, 5, (8, 457), generator=torch.Generator().manual_seed(3),
+                          dtype=torch.int32).cuda()
+    cases.append(("interleaved ids", (8, 6, 457, 64), inter, 0.1))
+    bwd = K7_NAMES[2:]
+
+    def caught(report, names, key):
+        """The planted fault must exceed a bound on every one of `names`."""
+        return all(report[n][key] > (1.0 if key == "worst_share_of_bound" else K7_DIFFER_SHARE)
+                   for n in names)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (case, shape, seg, scale) in enumerate(cases):
+            q, k, v, do = k7_inputs(shape, dtype, seed=40 + i)
+            got = k7_outputs(fa, q, k, v, do, seg, plain=False, scale=scale)
+            torch.cuda.synchronize()
+            ref = k7_outputs(fa, q, k, v, do, seg, plain=True, scale=scale)
+            alone = list(fa.flash_attn_bwd_kernel(q, k, v, ref[0], ref[1], do, scale, seg))
+            allow = k7_allowances(fa, q, k, v, do, seg, ref, scale)
+            report = {"fwd": k7_worst(K7_NAMES[:2], got[:2], ref[:2], allow["fwd"]),
+                      "bwd_through_kernel_forward": k7_worst(bwd, got[2:], ref[2:],
+                                                             allow["through"]),
+                      "bwd_alone": k7_worst(bwd, alone, ref[2:], allow["alone"])}
+            planted = {}
+            if case == "student" and dtype == torch.bfloat16:
+                wrong = k7_outputs(fa, q, k, v, do, None, plain=False, scale=scale)
+                r = {**k7_worst(K7_NAMES[:2], wrong[:2], ref[:2], allow["fwd"]),
+                     **k7_worst(bwd, wrong[2:], ref[2:], allow["through"])}
+                planted["dropped_segment_mask"] = (r, caught(r, K7_NAMES, "worst_share_of_bound"))
+                wrong = fa.flash_attn_bwd_kernel(q, k, v, torch.zeros_like(ref[0]), ref[1], do,
+                                                 scale, seg)
+                r = k7_worst(bwd, wrong, ref[2:], allow["alone"])
+                planted["di_zero"] = (r, caught(r, ("dq", "dk"), "worst_share_of_bound"))
+                wrong = [x.to(dtype) for x in fa.flash_attn_bwd_kernel(
+                    q.float(), k.float(), v.float(), ref[0].float(), ref[1], do.float(),
+                    scale, seg)]
+                r = k7_worst(bwd, wrong, ref[2:], allow["alone"])
+                planted["p_ds_not_rounded"] = (r, caught(r, bwd, "differing_share"))
+            if case == "interleaved ids" and dtype == torch.bfloat16:
+                wrong = fa.flash_attn_fwd_kernel((q.float() * scale).to(dtype), k, v, 1.0, seg)
+                r = k7_worst(K7_NAMES[:2], wrong, ref[:2], allow["fwd"])
+                planted["scale_before_qk"] = (r, caught(r, ("lse",), "worst_share_of_bound"))
+            if planted:
+                report["planted_faults"] = {n: {**r, "caught": c} for n, (r, c) in planted.items()}
+            say("flash_attn_check", case=case, dtype=str(dtype), shape=list(shape), scale=scale,
+                **report)
+            for n, (_, c) in planted.items():
+                if not c:
+                    fail(f"flash_attn: the bound passes a planted fault ({n}, {case})")
+            for part, names in (("fwd", K7_NAMES[:2]), ("bwd_through_kernel_forward", bwd),
+                                ("bwd_alone", bwd)):
+                for n in names:
+                    r = report[part][n]
+                    if not r["worst_share_of_bound"] <= 1.0:
+                        fail(f"flash_attn kernel disagrees with plain ({case}, {dtype}, {part}, "
+                             f"{n}): {r['worst_share_of_bound']} of its bound")
+                    if (dtype == torch.bfloat16 and part == "bwd_alone"
+                            and not r["differing_share"] <= K7_DIFFER_SHARE):
+                        fail(f"flash_attn backward differs from plain in {r['differing_share']} "
+                             f"of {n}'s elements ({case}): above {K7_DIFFER_SHARE}")
+            if dtype == torch.bfloat16 and case in K7_SHAPES:
+                k7_err["fwd"] = max(k7_err["fwd"], report["fwd"]["o"]["max_abs_err"])
+                k7_err["bwd"] = max(k7_err["bwd"],
+                                    *(report["bwd_through_kernel_forward"][n]["max_abs_err"]
+                                      for n in bwd))
+            del q, k, v, do, got, ref, alone, allow
+            torch.cuda.empty_cache()
+    return k7_err
+
+
+def own_segment_pairs(B: int, H: int, segments) -> int:
+    """Query-key pairs of own segments: the attention work these ids need."""
+    return B * H * sum(n * n for n in segments)
+
+
 def narrow_model():
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
     from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
@@ -219,14 +445,19 @@ def main() -> None:
     if not (ROOT / "adaptersis_tpu_torch" / "csrc").is_dir():
         fail(f"{ROOT} holds no adaptersis_tpu_torch package: run from a checkout")
     sys.path.insert(0, str(ROOT))
-    from adaptersis_tpu_torch import bench, bench_infer, evaluate, train_seg
+    from adaptersis_tpu_torch import bench, bench_infer, bench_ssl, evaluate, pretrain, train_seg
     from adaptersis_tpu_torch.data.augment import (
         apply_train_augment, draw_train_augment, draws_to)
     from adaptersis_tpu_torch.data.clahe import clahe_rgb
     from adaptersis_tpu_torch.data.synthetic import SyntheticSeg
-    from adaptersis_tpu_torch.ops import _build, flash_fwd as ff, msda_cuda as mc
+    from adaptersis_tpu_torch.ops import _build, flash_attn as fa, flash_fwd as ff, msda_cuda as mc
     from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
-    from adaptersis_tpu_torch.train.convert import state_dict_to_flax
+    from adaptersis_tpu_torch.models.layers import TRAINED
+    from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
+    from adaptersis_tpu_torch.ssl.augment import apply_multicrop, draw_multicrop
+    from adaptersis_tpu_torch.ssl.masking import MaskingGenerator, collate_masks_with_indices
+    from adaptersis_tpu_torch.ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to
+    from adaptersis_tpu_torch.train.convert import seeded_init_, state_dict_to_flax
     from adaptersis_tpu_torch.train.trainer import Trainer, eval_step
 
     # every comparison below is against fp32 math: no TF32 anywhere
@@ -235,17 +466,23 @@ def main() -> None:
 
     def reset_counts():
         ff.launches = mc.launches = mc.bwd_launches = fq.launches = fm.launches = 0
-        ln.launches = 0
+        ln.launches = fa.launches = fa.bwd_launches = 0
 
     def counts():
         return {"flash_fwd": ff.launches, "msda_fwd": mc.launches, "msda_bwd": mc.bwd_launches,
                 "fused_ln_qkv": fq.launches, "fused_ln_mlp": fm.launches,
-                "layernorm": ln.launches}
+                "layernorm": ln.launches, "flash_attn": fa.launches,
+                "flash_attn_bwd": fa.bwd_launches}
 
     def expect(forwards, backwards):
         """Launches of `forwards` full-width forwards and `backwards` MSDA
-        backwards."""
-        return {**{k: v * forwards for k, v in PER_FORWARD.items()}, "msda_bwd": backwards}
+        backwards (the segmentation paths run no K7)."""
+        return {**{k: v * forwards for k, v in PER_FORWARD.items()}, "msda_bwd": backwards,
+                "flash_attn": 0, "flash_attn_bwd": 0}
+
+    def expect_ssl(steps, per_step=SSL_PER_STEP):
+        """Launches of `steps` SSL steps: K7 only."""
+        return {**{k: 0 for k in counts()}, **{k: v * steps for k, v in per_step.items()}}
 
     # ---- 1. device and build
     name = torch.cuda.get_device_name(0)
@@ -424,6 +661,10 @@ def main() -> None:
                 del x, p, xn, out, ref, checks
         torch.cuda.empty_cache()
 
+    # ---- 4c. K7 (flash attention with segment ids) vs its plain version
+    # (`check_k7`)
+    k7_err = check_k7(fa)
+
     # ---- 5. narrow whole model: CPU plain paths vs CUDA kernels, fp32
     model = narrow_model()
     ds = SyntheticSeg(n=2, imsize=112, seed=5)
@@ -448,7 +689,7 @@ def main() -> None:
     if not metric_err <= 1e-4 * max(1.0, float(cpu["loss"])):
         fail(f"small slice: CUDA metrics differ from CPU by {metric_err}")
     small_expect = {"flash_fwd": 10, "msda_fwd": 7, "msda_bwd": 0, "fused_ln_qkv": 10,
-                    "fused_ln_mlp": 10, "layernorm": 4}
+                    "fused_ln_mlp": 10, "layernorm": 4, "flash_attn": 0, "flash_attn_bwd": 0}
     if small_launches != small_expect:
         fail(f"small slice: kernel launches {small_launches}, expected {small_expect}")
     del model, cpu, gpu
@@ -565,6 +806,83 @@ def main() -> None:
              "and 7 MSDA backwards per step")
     del base, trainers, named, bufs
 
+    # ---- 6b. narrow SSL step: CPU plain paths vs CUDA kernels, fp32 (TF32
+    # off), 2 steps from the same seeded student, teacher and centres, on the
+    # same augmented crops (made on the CPU) and masks
+    impls = dict(zip(("attn_impl", "ln_impl", "qkv_impl", "mlp_impl"), TRAINED))
+    depth, nb, lr, mom = 2, 4, 1e-6, 0.9
+    base = SSLMetaArch(DinoVisionTransformer(img_size=56, patch_size=14, embed_dim=128,
+                                             depth=depth, num_heads=2, **impls),
+                       SSLConfig(dino_out_dim=256, ibot_out_dim=256, head_hidden_dim=64,
+                                 head_bottleneck_dim=32, n_local_crops=4))
+    seeded_init_(base.student, 3)
+    seeded_init_(base.teacher, 4)
+    crng = np.random.default_rng(8)
+    with torch.no_grad():
+        base.dino_center.copy_(torch.from_numpy(0.1 * crng.standard_normal((1, 256))))
+        base.ibot_center.copy_(torch.from_numpy(0.1 * crng.standard_normal((1, 1, 256))))
+    archs = {"cpu": base, "cuda": copy.deepcopy(base).cuda()}
+    frames = torch.from_numpy(crng.integers(0, 256, (nb, 84, 84, 3), np.uint8))
+    gen = torch.Generator().manual_seed(8)
+    mask_gen = MaskingGenerator((4, 4), num_masking_patches=8)
+    reset_counts()
+    ssl_report = []
+    for it in range(2):
+        g_, l_ = apply_multicrop(frames, draw_multicrop(gen, nb, 4), 56, 28)
+        info = collate_masks_with_indices(2 * nb, 16, mask_gen, seed=it)
+        outs = {dev: {k: float(v) for k, v in arch.train_step(
+                    g_.to(dev), l_.to(dev), masks_to(info, torch.device(dev)), lr=lr, wd=0.04,
+                    momentum=mom, teacher_temp=0.05, last_layer_lr=lr).items()}
+                for dev, arch in archs.items()}
+        torch.cuda.synchronize()
+        named = {dev: dict(a.student.named_parameters()) for dev, a in archs.items()}
+        # the first step starts from the same parameters: the losses within
+        # fp32 orders, 1e-5; after one update the students differ where
+        # Adam's u = g/(|g| + eps) flipped sign (|Δu| < 2, so |Δp| < 2·lr per
+        # element and step): the second step's losses within 1e-3
+        tol = 1e-5 if it == 0 else 1e-3
+        loss_err = {k: abs(outs["cuda"][k] - v) / max(1.0, abs(v)) for k, v in outs["cpu"].items()}
+        if not all(e <= tol for e in loss_err.values()):
+            fail(f"narrow SSL step {it}: losses {outs['cuda']} on the card, {outs['cpu']} "
+                 "on the CPU")
+        zero = [n for n, q in named["cuda"].items() if not q.grad.abs().max() > 0]
+        if zero:
+            fail(f"narrow SSL step {it}: zero gradients on the card: {zero}")
+        grad_rel = 0.0
+        if it == 0:
+            # fp32 gradients of the same parameters through two blocks, the
+            # heads' softmaxes and the losses in other orders: 1e-4 of each
+            # leaf's largest gradient (≥ 1e-4 of the step's largest)
+            top = max(q.grad.abs().max().item() for q in named["cpu"].values())
+            for n, q in named["cpu"].items():
+                sc = max(q.grad.abs().max().item(), 1e-4 * top)
+                grad_rel = max(grad_rel, (named["cuda"][n].grad.cpu() - q.grad).abs().max().item()
+                               / sc)
+            if not grad_rel <= 1e-4:
+                fail(f"narrow SSL step: gradients differ by {grad_rel} of their scale")
+        # the teacher after the EMA: t·m + s·(1 − m) of students that differ
+        # by < 2·lr per element and step
+        t_err = max((tq.detach().cpu() - cq.detach()).abs().max().item()
+                    for tq, cq in zip(archs["cuda"].teacher.parameters(),
+                                      archs["cpu"].teacher.parameters()))
+        if not t_err <= 2 * lr * (it + 1) + 1e-6:
+            fail(f"narrow SSL step {it}: teachers differ by {t_err}")
+        c_err = {c: (getattr(archs["cuda"], c).cpu() - getattr(base, c)).abs().max().item()
+                 for c in ("dino_center", "ibot_center")}
+        # the centres: EMAs of the teachers' head outputs, 1e-5 of their scale
+        if not all(e <= 1e-5 * max(1.0, getattr(base, c).abs().max().item())
+                   for c, e in c_err.items()):
+            fail(f"narrow SSL step {it}: centres differ by {c_err}")
+        ssl_report.append({"loss_cpu": outs["cpu"], "loss_rel_err": loss_err,
+                           "grad_max_rel_err": grad_rel if it == 0 else None,
+                           "teacher_max_abs_err": t_err, "centre_max_abs_err": c_err})
+    ssl_small_launches = counts()
+    say("small_ssl_step", steps=2, steps_report=ssl_report, launches=ssl_small_launches)
+    if ssl_small_launches != expect_ssl(2, {"flash_attn": 2 * depth, "flash_attn_bwd": depth}):
+        fail(f"narrow SSL step: launches {ssl_small_launches}, expected {2 * depth} K7 "
+             f"forwards and {depth} backwards per step")
+    del base, archs, named
+
     # ---- 7. the serving path at full width through its entry point
     reset_counts()
     stats = evaluate.main(["--arch", "vit_large", "--patch_size", "14", "--imsize", "588",
@@ -672,6 +990,56 @@ def main() -> None:
         torch.cuda.empty_cache()
     bench_launches = entry["bench"][1]
 
+    # ---- 8c. the SSL slice's entry points at full width: `bench_ssl` at its
+    # defaults (2 warm-up steps and 3 windows of 10), then `pretrain` for 4
+    # steps; every student parameter must change but the last layer, which
+    # `pretrain` freezes for its first epoch, and the teacher with them
+    reset_counts()
+    ssl_res = bench_ssl.main([])
+    ssl_launches = counts()
+    n = 2 + 3 * 10
+    say("entry_point", module=bench_ssl.__name__, result=ssl_res, launches=ssl_launches,
+        per_step={k: v / n for k, v in ssl_launches.items()})
+    if not all(isinstance(ssl_res[k], float) and math.isfinite(ssl_res[k])
+               for k in ("value", "mfu", "peak_mem_gib", "loss", "ms_step")):
+        fail(f"bench_ssl: values not finite: {ssl_res}")
+    if ssl_launches != expect_ssl(n):
+        fail(f"bench_ssl: launches {ssl_launches} in {n} steps, expected {SSL_PER_STEP} per step")
+    torch.cuda.empty_cache()
+    argv = ["--bf16", "--synthetic", "--epochs", "1", "--steps_per_epoch", "4",
+            "--warmup_epochs", "0"]
+    reset_counts()
+    arch, hist = pretrain.run(pretrain.get_args_parser().parse_args(argv))
+    pre_launches = counts()
+    start = pretrain.build_arch(pretrain.get_args_parser().parse_args(argv))
+    # the teacher's frozen last layer: t·m + t·(1 − m) of an unchanged t
+    # moves it by its roundings only (≤ 4 fp32 ulps)
+    moved = {}
+    for branch in ("student", "teacher"):
+        now = dict(getattr(arch, branch).named_parameters())
+        moved[branch] = {}
+        for n_, p_ in getattr(start, branch).named_parameters():
+            d = (now[n_].detach().cpu() - p_).abs()
+            rounding = branch == "teacher" and "last_layer" in n_
+            moved[branch][n_] = bool((d > (4 * ulp(p_, torch.float32) if rounding else 0)).any())
+    wrong = {b: [n_ for n_, m in ms.items() if m == ("last_layer" in n_)]
+             for b, ms in moved.items()}
+    say("entry_point", module=pretrain.__name__, argv=argv, epochs=hist, launches=pre_launches,
+        per_step={k: v / 4 for k, v in pre_launches.items()},
+        params_changed={b: sum(ms.values()) for b, ms in moved.items()},
+        params=len(moved["student"]), device=name,
+        nvidia_smi=smi[0] if smi else "unavailable")
+    if len(hist) != 1 or not all(math.isfinite(hist[0][k])
+                                 for k in ("total_loss", "dino", "ibot", "koleo", "img_per_s")):
+        fail(f"pretrain: {hist}")
+    if any(wrong.values()):
+        fail(f"pretrain: parameters changed against expectation (all but the frozen last "
+             f"layer must move): {wrong}")
+    if pre_launches != expect_ssl(4):
+        fail(f"pretrain: launches {pre_launches} in 4 steps, expected {SSL_PER_STEP} per step")
+    del arch, start
+    torch.cuda.empty_cache()
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (plain in bf16 too), and each kernel's bound from the same inputs
     times, bounds, extra = {}, {}, {}
@@ -765,6 +1133,48 @@ def main() -> None:
                                    2 * 2 * R * C * 4 * C, "bf16")
             del x, p, xn, h
             torch.cuda.empty_cache()
+        # K7 at the SSL step's shapes, bf16: forward, and backward from the
+        # forward's o and lse; beside plain, PyTorch's SDPA with the boolean
+        # block-diagonal mask (the student's; none for the teacher), forward
+        # and its backward alone (autograd.grad with the graph kept)
+        for case, shape in K7_SHAPES.items():
+            q, k, v, do = k7_inputs(shape, torch.bfloat16, seed=0)
+            B, H, N, Dh = shape
+            segs = STUDENT_SEGMENTS if case == "student" else [N]
+            seg = packed_ids(B, segs) if case == "student" else None
+            mask = None if seg is None else seg[:, None, :, None] == seg[:, None, None, :]
+            o, lse = fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg)
+            pairs = own_segment_pairs(B, H, segs)
+            tb, ib = q.numel() * q.element_size(), (0 if seg is None else seg.numel() * 4)
+            key = f"flash_attn {case}"
+            times[key] = (cuda_ms(lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg)),
+                          cuda_ms(lambda: fa.flash_attn_fwd_plain(q, k, v, 0.125, seg)),
+                          cuda_ms(lambda: F.scaled_dot_product_attention(
+                              q, k, v, attn_mask=mask, scale=0.125)))
+            # reads q, k, v and the ids; writes o and lse; q·kᵀ and p·v over
+            # the own-segment pairs
+            bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, "bf16")
+            key = f"flash_attn_bwd {case}"
+            with torch.enable_grad():
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
+                lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
+
+                def lib_both():
+                    y = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
+                    return torch.autograd.grad(y, leaves, do)
+
+                extra[key] = {"library_fwd_and_bwd": cuda_ms(lib_both)}
+            times[key] = (cuda_ms(lambda: fa.flash_attn_bwd_kernel(q, k, v, o, lse, do, 0.125,
+                                                                   seg)),
+                          cuda_ms(lambda: fa.flash_attn_bwd_plain(q, k, v, o, lse, do, 0.125,
+                                                                  seg)), lib_bwd)
+            # reads q, k, v, o, do, lse and the ids; writes dq, dk, dv; five
+            # products over the own-segment pairs (q·kᵀ, do·vᵀ, pᵀ·do,
+            # dsᵀ·q, ds·k)
+            bounds[key] = bound_ms(8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, "bf16")
+            del q, k, v, do, o, lse, leaves, out, mask
+            torch.cuda.empty_cache()
     say("kernel_times", device=name, nvidia_smi=smi[0] if smi else "unavailable",
         ms={k: {"kernel": a, "plain": b, "library": c, "bound": bounds[k][0],
                 "bound_by": bounds[k][1], **extra.get(k, {})}
@@ -801,6 +1211,20 @@ def main() -> None:
                      "launches": bench_launches[kname], "max_abs_err": err,
                      "ms": mean(kname, 0), "plain_ms": mean(kname, 1), "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": mean(kname, 2)})
+    # K7: the forward's per-call mean over the SSL step's mix (12 student and
+    # 12 teacher calls), the backward's student calls; launches of bench_ssl
+    lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    for kname, src, replaces, keys, err in (
+            ("flash_attn", "flash_attn_fwd.cu", f"{lib}:342",
+             ["flash_attn student", "flash_attn teacher"], k7_err["fwd"]),
+            ("flash_attn_bwd", "flash_attn_bwd.cu", f"{lib}:796 (dK/dV), :1146 (dQ)",
+             ["flash_attn_bwd student"], k7_err["bwd"])):
+        avg = [sum(times[k][i] for k in keys) / len(keys) for i in range(3)]
+        rows.append({"name": kname, "route": "cuda",
+                     "source": f"adaptersis_tpu_torch/csrc/{src}", "replaces": replaces,
+                     "launches": ssl_launches[kname], "max_abs_err": err, "ms": avg[0],
+                     "plain_ms": avg[1], "bound_ms": sum(bounds[k][0] for k in keys) / len(keys),
+                     "bound_by": bounds[keys[0]][1], "library_ms": avg[2]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

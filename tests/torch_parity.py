@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import jax
+import jax.experimental.pallas.tpu as pltpu
 
 import adaptersis_tpu.ops.flash_fwd as jax_flash
 import adaptersis_tpu.ops.fused_mlp as jax_fused_mlp
@@ -38,6 +39,21 @@ def interpret_pallas():
 @pytest.fixture
 def pallas_interpret():
     with interpret_pallas():
+        yield
+
+
+def interpret_library_flash():
+    """Run the library's Pallas TPU flash attention (K7), which the JAX
+    package calls without an interpret switch of its own, in the TPU
+    interpreter. Kept apart from `interpret_pallas`: under the TPU
+    interpreter the package's own MSDA training step does not finish on the
+    CPU."""
+    return pltpu.force_tpu_interpret_mode()
+
+
+@pytest.fixture
+def library_flash_interpret():
+    with interpret_library_flash():
         yield
 
 
