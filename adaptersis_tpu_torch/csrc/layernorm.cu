@@ -8,25 +8,35 @@
 //
 // What bounds it on the H100: it reads x once and writes y once, 4 bytes per
 // bf16 element and a few operations each: at the main path's (16·1765,
-// 1024) bf16 one call moves 115.7 MB, ≈ 0.035 ms at 3.35 TB/s. So the design
-// is about bytes: one warp per row, 16-byte loads and stores, the row's
-// second read (for the normalisation) served from L1, statistics in
-// registers and warp shuffles, nothing written but y.
+// 1024) bf16 one call moves 115.7 MB, ≈ 0.035 ms at 3.35 TB/s; at the
+// serving batch of 2, 14.5 MB, ≈ 0.0043 ms, less than the host takes to
+// launch a kernel. So the design is about bytes and latency: one warp per
+// row, the whole row in registers (NV 16-byte vectors per lane, a compile-
+// time count, so each lane issues all its loads before the first sum),
+// statistics from those registers and warp shuffles, then normalise and
+// store without reading the row again; nothing written but y.
 //
-// The statistics kernel is the same first pass, writing (mean, rstd) as two
-// fp32 per row: K4 and K5 normalise their A tiles with them while loading.
+// The statistics kernel is the same load and sums, writing (mean, rstd) as
+// two fp32 per row: K4 and K5 normalise their A tiles with them while
+// loading. Both sum in the same order as before the row was held in
+// registers, so the statistics are bit-equal to the two-pass version's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "rows.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;  // rows per block
+// The vectors per lane the kernels are built for; a row takes the smallest
+// that covers it, so C ≤ 16·32·V (4096 bf16, 2048 fp32).
+constexpr int kMaxVectors = 16;
 
-template <typename T>
+template <typename T, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 layernorm_kernel(const T* __restrict__ x, const void* __restrict__ w,
                  const void* __restrict__ b, bool params_bf16, T* __restrict__ y, int R, int C,
@@ -35,28 +45,71 @@ layernorm_kernel(const T* __restrict__ x, const void* __restrict__ w,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= R) return;
-  const T* xr = x + static_cast<size_t>(row) * C;
+  float v[NV][V];
+  asis::load_row<T, NV>(x + static_cast<size_t>(row) * C, C, lane, v);
+  const float2 st = asis::row_stats<T, NV>(v, C, eps, lane);
   T* yr = y + static_cast<size_t>(row) * C;
-  const float2 st = asis::warp_row_stats(xr, C, eps, lane);
-  for (int c = lane * V; c < C; c += 32 * V) {
-    float v[V], wv[V], bv[V];
-    asis::load_vec(xr + c, v);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (!asis::vec_in_row<T>(i, C, lane)) continue;
+    const int c = (32 * i + lane) * V;
+    float wv[V], bv[V];
     asis::load_param(w, c, params_bf16, wv);
     asis::load_param(b, c, params_bf16, bv);
 #pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = (v[j] - st.x) * (st.y * wv[j]) + bv[j];
-    asis::store_vec(yr + c, v);
+    for (int j = 0; j < V; ++j) v[i][j] = (v[i][j] - st.x) * (st.y * wv[j]) + bv[j];
+    asis::store_vec(yr + c, v[i]);
   }
 }
 
-template <typename T>
+template <typename T, int NV>
 __global__ void __launch_bounds__(kWarps * 32)
 row_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int R, int C, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= R) return;
-  const float2 st = asis::warp_row_stats(x + static_cast<size_t>(row) * C, C, eps, lane);
+  float v[NV][asis::Vec<T>::n];
+  asis::load_row<T, NV>(x + static_cast<size_t>(row) * C, C, lane, v);
+  const float2 st = asis::row_stats<T, NV>(v, C, eps, lane);
   if (lane == 0) stats[row] = st;
+}
+
+// Calls launch(std::integral_constant<int, NV>) with the smallest built NV
+// that holds `vectors` per lane.
+template <typename F>
+int with_vectors(int vectors, F&& launch) {
+  if (vectors <= 1) return launch(std::integral_constant<int, 1>{});
+  if (vectors <= 2) return launch(std::integral_constant<int, 2>{});
+  if (vectors <= 4) return launch(std::integral_constant<int, 4>{});
+  if (vectors <= 8) return launch(std::integral_constant<int, 8>{});
+  if (vectors <= kMaxVectors) return launch(std::integral_constant<int, kMaxVectors>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int vectors_per_lane(int C) {
+  return (C / asis::Vec<T>::n + 31) / 32;
+}
+
+template <typename T>
+int launch_layernorm(const void* x, const void* w, const void* b, bool pbf, void* y, int R,
+                     int C, float eps, cudaStream_t s) {
+  const dim3 grid((R + kWarps - 1) / kWarps);
+  return with_vectors(vectors_per_lane<T>(C), [&](auto nv) {
+    layernorm_kernel<T, decltype(nv)::value><<<grid, kWarps * 32, 0, s>>>(
+        static_cast<const T*>(x), w, b, pbf, static_cast<T*>(y), R, C, eps);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename T>
+int launch_row_stats(const void* x, void* stats, int R, int C, float eps, cudaStream_t s) {
+  const dim3 grid((R + kWarps - 1) / kWarps);
+  return with_vectors(vectors_per_lane<T>(C), [&](auto nv) {
+    row_stats_kernel<T, decltype(nv)::value><<<grid, kWarps * 32, 0, s>>>(
+        static_cast<const T*>(x), static_cast<float2*>(stats), R, C, eps);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 bool bad_shape(int R, int C, int vec) { return R <= 0 || C <= 0 || C % vec != 0; }
@@ -67,22 +120,15 @@ extern "C" {
 
 // x, y: contiguous (R, C) in one dtype (is_bf16: bfloat16, else float32);
 // w, b: (C,) bfloat16 (params_bf16) or float32, 16-byte aligned; C a
-// multiple of 8. Launches on `stream` and returns cudaGetLastError() (0 =
-// launched).
+// multiple of 8, at most 4096 (bf16) or 2048 (fp32). Launches on `stream`
+// and returns cudaGetLastError() (0 = launched).
 int asis_layernorm(const void* x, const void* w, const void* b, void* y, int R, int C,
                    float eps, int is_bf16, int params_bf16, void* stream) {
   if (bad_shape(R, C, 8)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((R + kWarps - 1) / kWarps);
   const bool pbf = params_bf16 != 0;
-  if (is_bf16)
-    layernorm_kernel<__nv_bfloat16><<<grid, kWarps * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, b, pbf, static_cast<__nv_bfloat16*>(y), R,
-        C, eps);
-  else
-    layernorm_kernel<float><<<grid, kWarps * 32, 0, s>>>(
-        static_cast<const float*>(x), w, b, pbf, static_cast<float*>(y), R, C, eps);
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_layernorm<__nv_bfloat16>(x, w, b, pbf, y, R, C, eps, s)
+                 : launch_layernorm<float>(x, w, b, pbf, y, R, C, eps, s);
 }
 
 // x: contiguous (R, C) as above; stats: (R, 2) float32, (mean, rstd) per row.
@@ -90,15 +136,8 @@ int asis_row_stats(const void* x, void* stats, int R, int C, float eps, int is_b
                    void* stream) {
   if (bad_shape(R, C, 8)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((R + kWarps - 1) / kWarps);
-  float2* st = static_cast<float2*>(stats);
-  if (is_bf16)
-    row_stats_kernel<__nv_bfloat16><<<grid, kWarps * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), st, R, C, eps);
-  else
-    row_stats_kernel<float><<<grid, kWarps * 32, 0, s>>>(static_cast<const float*>(x), st,
-                                                         R, C, eps);
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_row_stats<__nv_bfloat16>(x, stats, R, C, eps, s)
+                 : launch_row_stats<float>(x, stats, R, C, eps, s);
 }
 
 }  // extern "C"

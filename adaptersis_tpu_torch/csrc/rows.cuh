@@ -90,21 +90,38 @@ __device__ __forceinline__ void load_param(const void* p, int i, bool is_bf16, f
   }
 }
 
-// (mean, rstd) of one row of C values, computed by the 32 lanes of a warp:
-// fp32 sums of x and x², var = E[x²] − E[x]², rstd = 1/√(var + eps), as the
-// TPU kernels compute them (adaptersis_tpu/ops/layernorm.py `_ln_kernel`).
-// C must be a multiple of Vec<T>::n; every lane returns the result.
+// One row of C values held in registers by the 32 lanes of a warp: lane l's
+// i-th 16-byte vector starts at element (32·i + l)·V, V = Vec<T>::n; vectors
+// at or past C are not loaded (and must not be read). NV is a compile-time
+// count, so every load is issued before the first sum.
 template <typename T>
-__device__ __forceinline__ float2 warp_row_stats(const T* row, int C, float eps, int lane) {
-  constexpr int V = Vec<T>::n;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane * V; c < C; c += 32 * V) {
-    float v[V];
-    load_vec(row + c, v);
+__device__ __forceinline__ bool vec_in_row(int i, int C, int lane) {
+  return (32 * i + lane) * Vec<T>::n < C;
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ void load_row(const T* row, int C, int lane,
+                                         float (&v)[NV][Vec<T>::n]) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      s1 += v[j];
-      s2 += v[j] * v[j];
+  for (int i = 0; i < NV; ++i)
+    if (vec_in_row<T>(i, C, lane)) load_vec(row + (32 * i + lane) * Vec<T>::n, v[i]);
+}
+
+// (mean, rstd) of the row in registers, as the TPU kernels compute them
+// (adaptersis_tpu/ops/layernorm.py `_ln_kernel`): fp32 sums of x and x²,
+// each lane over its vectors in order, then across the warp; var = E[x²] −
+// E[x]², rstd = 1/√(var + eps). Every lane returns the result.
+template <typename T, int NV>
+__device__ __forceinline__ float2 row_stats(const float (&v)[NV][Vec<T>::n], int C, float eps,
+                                            int lane) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (!vec_in_row<T>(i, C, lane)) continue;
+#pragma unroll
+    for (int j = 0; j < Vec<T>::n; ++j) {
+      s1 += v[i][j];
+      s2 += v[i][j] * v[i][j];
     }
   }
 #pragma unroll

@@ -131,9 +131,17 @@ def forbid_grad(name: str, tensors: Iterable[torch.Tensor]) -> None:
                            "(the backbone walks are frozen) or on tensors that need no grad")
 
 
-def stream() -> int:
-    """The current CUDA stream, as the launchers take it."""
-    return torch.cuda.current_stream().cuda_stream
+def launch(t: torch.Tensor, fn, *args) -> int:
+    """Call the launcher `fn(*args, stream)` on t's card and return its
+    error code. The stream is the raw handle of that card's current stream
+    (no `torch.cuda.Stream` is built; under CUDA graph capture, the
+    capturing stream); a device guard is entered only when t's card is not
+    the current one, never on a one-card host."""
+    index = t.get_device()
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def plain(fn):
@@ -146,37 +154,46 @@ def plain(fn):
     return wrapper
 
 
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def check_rows(name: str, x: torch.Tensor) -> None:
-    """What the row kernels and the GEMMs take as x: a CUDA tensor, bf16 or
-    fp32, contiguous, 16-byte aligned, with a last axis a multiple of 64."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    """What the row kernels and the GEMMs take as x: bf16 or fp32, a last
+    axis that is a multiple of 64 and at most 4096 (bf16) or 2048 (fp32)
+    wide (a row of the statistics pass fits a warp's registers),
+    contiguous, 16-byte aligned, on a CUDA card."""
+    if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"{name}: dtype must be bf16 or fp32, got {x.dtype}")
-    if x.shape[-1] % 64:
-        raise ValueError(f"{name}: the feature width must be a multiple of 64, got {x.shape[-1]}")
+    C = x.shape[-1]
+    if C % 64 or C * x.element_size() > 8192:
+        raise ValueError(f"{name}: the feature width must be a multiple of 64 and at most "
+                         f"4096 (bf16) or 2048 (fp32), got {C} in {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be contiguous and 16-byte aligned")
-
-
-def _on(t: torch.Tensor, shape, name: str, x: torch.Tensor) -> torch.Tensor:
-    if tuple(t.shape) != tuple(shape) or t.device != x.device:
-        raise ValueError(f"{name}: expected shape {tuple(shape)} on {x.device}, got "
-                         f"{tuple(t.shape)} on {t.device}")
-    return t.detach()
+    if not x.is_cuda:
+        raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 def params(name: str, x: torch.Tensor,
            *specs: Tuple[str, torch.Tensor, int]) -> Tuple[List[torch.Tensor], int]:
     """(n,) parameters (LayerNorm scale and shift, biases, LayerScale), given
-    as (label, tensor, n), as the kernels read them: on x's card, contiguous,
-    16-byte aligned, all bf16 or all fp32. They are read as stored, so a
-    frozen bf16 backbone's cost no cast; a set of mixed dtypes is cast to
-    fp32. Returns them and 1 if they are bf16, else 0."""
-    ts = [_on(t, (n,), f"{name} {label}", x) for label, t, n in specs]
-    if len({t.dtype for t in ts}) > 1 or ts[0].dtype not in (torch.bfloat16, torch.float32):
-        ts = [t.float() for t in ts]
-    ts = [t.contiguous() for t in ts]
+    as (label, tensor, n), as the kernels read them: on x's device,
+    contiguous, 16-byte aligned, all bf16 or all fp32. They are read in
+    place when they already are, so a frozen bf16 backbone's cost no cast
+    and no copy; a set of mixed dtypes is cast to fp32. Returns them and 1
+    if they are bf16, else 0."""
+    index = x.get_device()  # a card's index, or −1 off the cards (then compare devices)
+    dtype = specs[0][1].dtype
+    in_place = dtype in _KERNEL_DTYPES
+    for label, t, n in specs:
+        if t.shape != (n,) or t.get_device() != index or (index < 0 and t.device != x.device):
+            raise ValueError(f"{name} {label}: expected shape ({n},) on {x.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        in_place = in_place and t.dtype == dtype and t.is_contiguous() and not t.data_ptr() % 16
+    if in_place:
+        return [t for _, t, _ in specs], int(dtype == torch.bfloat16)
+    cast = dtype not in _KERNEL_DTYPES or any(t.dtype != dtype for _, t, _ in specs)
+    ts = [(t.float() if cast else t).contiguous() for _, t, _ in specs]
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: the parameters must be 16-byte aligned")
     return ts, int(ts[0].dtype == torch.bfloat16)
@@ -184,8 +201,11 @@ def params(name: str, x: torch.Tensor,
 
 def mat(t: torch.Tensor, shape, name: str, x: torch.Tensor) -> torch.Tensor:
     """A Linear weight as the GEMMs read it: (N, K) contiguous in x's dtype,
-    16-byte aligned, on x's card."""
-    t = _on(t, shape, name, x).to(x.dtype).contiguous()
+    16-byte aligned, on x's device (read in place when it already is)."""
+    if t.shape != tuple(shape) or t.device != x.device:
+        raise ValueError(f"{name}: expected shape {tuple(shape)} on {x.device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    t = t.to(x.dtype).contiguous()
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the weight must be 16-byte aligned")
     return t

@@ -115,11 +115,9 @@ def flash_attn_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
     o = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.asis_flash_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      _ptr(segment_ids), o.data_ptr(), lse.data_ptr(),
-                                      B, H, N, Dh, float(scale),
-                                      int(q.dtype == torch.bfloat16), _build.stream())
+    err = _build.launch(q, lib.asis_flash_attn_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        _ptr(segment_ids), o.data_ptr(), lse.data_ptr(), B, H, N, Dh,
+                        float(scale), int(q.dtype == torch.bfloat16))
     _build.check(lib, err, "flash_attn forward")
     global launches
     launches += 1
@@ -142,12 +140,10 @@ def flash_attn_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: 
     di = (o.float() * do.float()).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.asis_flash_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                      lse.contiguous().data_ptr(), di.data_ptr(),
-                                      _ptr(segment_ids), dq.data_ptr(), dk.data_ptr(),
-                                      dv.data_ptr(), B, H, N, Dh, float(scale),
-                                      int(q.dtype == torch.bfloat16), _build.stream())
+    err = _build.launch(q, lib.asis_flash_attn_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), lse.contiguous().data_ptr(), di.data_ptr(),
+                        _ptr(segment_ids), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        B, H, N, Dh, float(scale), int(q.dtype == torch.bfloat16))
     _build.check(lib, err, "flash_attn backward")
     global bwd_launches
     bwd_launches += 1

@@ -31,18 +31,20 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
-    """q, k, v: (B, H, N, Dh) with Dh in (16, 32, 64), bf16 or fp32.
-    Returns (B, H, N, Dh) in q's dtype."""
+    """q, k, v: (B, H, N, Dh) with Dh in (16, 32, 64), bf16 or fp32; scale
+    positive (any on the CPU). Returns (B, H, N, Dh) in q's dtype."""
     _build.forbid_grad("flash_fwd", (q, k, v))
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_fwd_plain(q, k, v, scale)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     B, H, N, Dh = q.shape
     if Dh not in (16, 32, 64):
         raise ValueError(f"flash_fwd: head width must be 16, 32 or 64, got {Dh}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flash_fwd: dtype must be bf16 or fp32, got {q.dtype}")
+    if not scale > 0:  # the bf16 kernel takes the row max of the unscaled scores
+        raise ValueError(f"flash_fwd: scale must be positive, got {scale}")
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_fwd: {name} {tuple(t.shape)} {t.dtype} {t.device} "
@@ -53,10 +55,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_fwd: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _build.library()
-    with torch.cuda.device(q.device):
-        err = lib.asis_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 B * H, N, Dh, float(scale), int(q.dtype == torch.bfloat16),
-                                 _build.stream())
+    err = _build.launch(q, lib.asis_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B * H, N, Dh, float(scale),
+                        int(q.dtype == torch.bfloat16))
     _build.check(lib, err, "flash_fwd")
     global launches
     launches += 1

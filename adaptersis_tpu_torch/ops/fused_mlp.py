@@ -22,7 +22,7 @@ import math
 import torch
 
 from . import _build
-from ._build import check_rows, mat, params, plain, stream
+from ._build import check_rows, launch, mat, params, plain
 from .layernorm import ln_rows, row_stats
 
 # Kernel launches since the last reset (one per call: statistics, fc1, fc2);
@@ -72,16 +72,14 @@ def fused_ln_mlp(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: to
     out = torch.empty_like(x)
     bf16 = int(x.dtype == torch.bfloat16)
     lib = _build.library()
-    with torch.cuda.device(x.device):
-        stats = row_stats(x2, eps)
-        err = lib.asis_ln_gemm(GELU, x2.data_ptr(), stats.data_ptr(), lw.data_ptr(),
-                               lb.data_ptr(), w1d.data_ptr(), b1d.data_ptr(), R, Hd, C,
-                               hidden.data_ptr(), None, None, None, None, 0, 0, 0, bf16, pbf,
-                               stream())
-        _build.check(lib, err, "fused_ln_mlp fc1")
-        err = lib.asis_ln_gemm(RESID, hidden.data_ptr(), None, None, None, w2d.data_ptr(),
-                               b2d.data_ptr(), R, C, Hd, out.data_ptr(), None, None,
-                               x2.data_ptr(), g.data_ptr(), 0, 0, 0, bf16, pbf, stream())
+    stats = row_stats(x2, eps)
+    err = launch(x, lib.asis_ln_gemm, GELU, x2.data_ptr(), stats.data_ptr(), lw.data_ptr(),
+                 lb.data_ptr(), w1d.data_ptr(), b1d.data_ptr(), R, Hd, C, hidden.data_ptr(),
+                 None, None, None, None, 0, 0, 0, bf16, pbf)
+    _build.check(lib, err, "fused_ln_mlp fc1")
+    err = launch(x, lib.asis_ln_gemm, RESID, hidden.data_ptr(), None, None, None,
+                 w2d.data_ptr(), b2d.data_ptr(), R, C, Hd, out.data_ptr(), None, None,
+                 x2.data_ptr(), g.data_ptr(), 0, 0, 0, bf16, pbf)
     _build.check(lib, err, "fused_ln_mlp fc2")
     global launches
     launches += 1

@@ -20,7 +20,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from ._build import check_rows, mat, params, plain, stream
+from ._build import check_rows, launch, mat, params, plain
 from .layernorm import ln_rows, row_stats
 
 # Kernel launches since the last reset; chip_smoke.py reads it.
@@ -61,12 +61,11 @@ def fused_ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w: tor
                                  ("b", b, 3 * C))
     q, k, v = (x.new_empty((B, num_heads, N, Dh)) for _ in range(3))
     lib = _build.library()
-    with torch.cuda.device(x.device):
-        stats = row_stats(x.view(B * N, C), eps)
-        err = lib.asis_ln_gemm(QKV, x.data_ptr(), stats.data_ptr(), lw.data_ptr(), lb.data_ptr(),
-                               wd.data_ptr(), bias.data_ptr(), B * N, 3 * C, C,
-                               q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
-                               N, num_heads, Dh, int(x.dtype == torch.bfloat16), pbf, stream())
+    stats = row_stats(x.view(B * N, C), eps)
+    err = launch(x, lib.asis_ln_gemm, QKV, x.data_ptr(), stats.data_ptr(), lw.data_ptr(),
+                 lb.data_ptr(), wd.data_ptr(), bias.data_ptr(), B * N, 3 * C, C, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), None, None, N, num_heads, Dh,
+                 int(x.dtype == torch.bfloat16), pbf)
     _build.check(lib, err, "fused_ln_qkv")
     global launches
     launches += 1

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._build import check_rows, params, plain, stream
+from ._build import check_rows, launch, params, plain
 
 # Kernel launches since the last reset; chip_smoke.py reads it.
 launches = 0
@@ -44,8 +44,8 @@ def row_stats(x2: torch.Tensor, eps: float) -> torch.Tensor:
     R, C = x2.shape
     stats = torch.empty((R, 2), dtype=torch.float32, device=x2.device)
     lib = _build.library()
-    err = lib.asis_row_stats(x2.data_ptr(), stats.data_ptr(), R, C, float(eps),
-                             int(x2.dtype == torch.bfloat16), stream())
+    err = launch(x2, lib.asis_row_stats, x2.data_ptr(), stats.data_ptr(), R, C, float(eps),
+                 int(x2.dtype == torch.bfloat16))
     _build.check(lib, err, "row_stats")
     return stats
 
@@ -55,17 +55,16 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """LayerNorm of the last axis of x (..., C), bf16 or fp32; w, b (C,) in
     any float dtype. Returns x's shape and dtype."""
     _build.forbid_grad("layernorm", (x, w, b))
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return layernorm_plain(x, w, b, eps)
     check_rows("layernorm", x)
     C = x.shape[-1]
     (wd, bd), pbf = params("layernorm", x, ("w", w, C), ("b", b, C))
     out = torch.empty_like(x)
     lib = _build.library()
-    with torch.cuda.device(x.device):
-        err = lib.asis_layernorm(x.data_ptr(), wd.data_ptr(), bd.data_ptr(), out.data_ptr(),
-                                 x.numel() // C, C, float(eps),
-                                 int(x.dtype == torch.bfloat16), pbf, stream())
+    err = launch(x, lib.asis_layernorm, x.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+                 out.data_ptr(), x.numel() // C, C, float(eps), int(x.dtype == torch.bfloat16),
+                 pbf)
     _build.check(lib, err, "layernorm")
     global launches
     launches += 1

@@ -106,11 +106,9 @@ def _fwd_kernel(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor,
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     out = torch.empty((B, Lq, M * D), dtype=torch.float32, device=value.device)
     lib = _build.library()
-    with torch.cuda.device(value.device):
-        err = lib.asis_msda_fwd(value.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-                                out.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
-                                int(value.dtype == torch.bfloat16),
-                                _build.stream())
+    err = _build.launch(value, lib.asis_msda_fwd, value.data_ptr(), loc.data_ptr(),
+                        aw.data_ptr(), out.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
+                        int(value.dtype == torch.bfloat16))
     _build.check(lib, err, "msda_fwd")
     global launches
     launches += 1
@@ -135,12 +133,10 @@ def msda_bwd(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor, grad: tor
     dloc = torch.empty_like(loc)
     daw = torch.empty_like(aw)
     lib = _build.library()
-    with torch.cuda.device(value.device):
-        err = lib.asis_msda_bwd(value.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-                                grad.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
-                                daw.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
-                                int(value.dtype == torch.bfloat16),
-                                _build.stream())
+    err = _build.launch(value, lib.asis_msda_bwd, value.data_ptr(), loc.data_ptr(),
+                        aw.data_ptr(), grad.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
+                        daw.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
+                        int(value.dtype == torch.bfloat16))
     _build.check(lib, err, "msda_bwd")
     global bwd_launches
     bwd_launches += 1

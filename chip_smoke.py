@@ -10,7 +10,10 @@ seconds since the start):
   1. device, power limit, kernel build and its time;
   2. K3 forward-only attention vs flash_fwd_plain, bf16 and fp32, H=16
      Dh=64, N = 1765 and 1764 (the clean and the adapter walk), at batch 2
-     (the serving path's) and 16 (the training path's);
+     (the serving path's) and 16 (the training path's), each element
+     within a bound from its own terms (`k3_allowance`); in bf16 five
+     repeated calls must give the same bits and two planted faults (a
+     dropped tail key, a stale K/V ring stage) must break the bound;
   3. K1 deformable-attention forward vs msda_plain at the CAViT and CACNN
      geometries of ViT-L/14 at 588 px, batch 2 and 16, bf16 values, points
      partly outside;
@@ -63,14 +66,25 @@ seconds since the start):
      first epoch), the teacher moved, 24 K7 forwards and 12 K7 backwards per
      step, img/s, MFU and peak memory;
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
-     events), and each kernel's bound from the same inputs; for K4 and K5
-     also the unfused PyTorch sequence they replace and cuBLAS's GEMMs
-     alone; for K7 PyTorch's SDPA with the boolean block-diagonal mask,
-     forward and backward. The kernels line gives the training path's
-     (batch 16) numbers and the launches of `bench`'s run for K1-K6, the
-     SSL step's numbers and the launches of `bench_ssl`'s run for K7.
+     events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
+     library calls' device time alone (20 calls captured in a CUDA graph and
+     replayed, `device_ms`), for K3, SDPA, K6 and F.layer_norm the host's
+     µs per call (`host_us`), and each kernel's bound from the same inputs;
+     for K4 and K5 also the unfused PyTorch sequence they replace and
+     cuBLAS's GEMMs alone; for K7 PyTorch's SDPA with the boolean
+     block-diagonal mask, forward and backward. The kernels line gives the
+     training path's (batch 16) numbers and the launches of `bench`'s run
+     for K1-K6, the SSL step's numbers and the launches of `bench_ssl`'s run
+     for K7.
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
+
+    python3 chip_smoke.py --times
+
+runs the build and phase 9 alone, with no checks, and prints sha256
+prefixes of K6's and the row statistics' outputs on seeded rows: to compare
+two trees' kernels on one card (copy this script into the other tree's root
+and run both in one call).
 """
 
 from __future__ import annotations
@@ -233,6 +247,241 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, replays=5, stream=None):
+    """Device time per call alone: `iters` calls captured in one CUDA graph,
+    replayed `replays` times between two events, so that the host's launch
+    path (Python, argument checks, allocation, ctypes) is not in it.
+    `stream` is the stream to capture on: a backward's must be the stream
+    its forward ran on."""
+    s = stream or torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(fn, calls=1000):
+    """Host time per call: a host clock over `calls` calls with no
+    synchronise inside. Where the device takes longer per call, the launch
+    queue fills and the device's pace shows through."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def kernel_times(ff, mc, fq, fm, ln, fa):
+    """Phase 9: kernel, plain and library times at the bf16 shapes of phases
+    2-4c, and each kernel's bound from the same inputs. `times[key]` =
+    (kernel, plain, library) back-to-back calls between CUDA events
+    (`cuda_ms`), `dev[key]` = (kernel, library) from graph replay
+    (`device_ms`), `host[key]` = (kernel, library) µs per call
+    (`host_us`, for K3 and SDPA, K6 and F.layer_norm); `extra[key]` holds
+    what else a kernel replaced."""
+    F = torch.nn.functional
+    times, bounds, extra, dev, host = {}, {}, {}, {}, {}
+
+    def timed(key, kernel, plain, library=None, host_too=False, library_capture=None):
+        """library_capture: (fn, stream) to graph in place of `library`."""
+        times[key] = (cuda_ms(kernel), cuda_ms(plain),
+                      None if library is None else cuda_ms(library))
+        lib_dev = library_capture or (library, None)
+        dev[key] = (device_ms(kernel),
+                    None if library is None else device_ms(lib_dev[0], stream=lib_dev[1]))
+        if host_too:
+            host[key] = (host_us(kernel), None if library is None else host_us(library))
+
+    with torch.no_grad():
+        for shape in FLASH_SHAPES:
+            q, k, v = flash_inputs(shape, seed=0)
+            B, H, N, Dh = shape
+            timed(f"flash_fwd B={B} N={N}", lambda: ff.flash_fwd(q, k, v, 0.125),
+                  lambda: ff.flash_fwd_plain(q, k, v, 0.125),
+                  lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125), host_too=True)
+            bounds[f"flash_fwd B={B} N={N}"] = bound_ms(4 * q.numel() * q.element_size(),
+                                                        4 * B * H * N * N * Dh, "bf16")
+            del q, k, v
+            torch.cuda.empty_cache()
+        for i, (case, vshape, Lq, shapes, P) in enumerate(MSDA_CASES):
+            value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, seed=10 + i)
+            D = vshape[3]
+            corners = valid_corners(loc, shapes)
+            small = (loc.numel() + aw.numel()) * 4
+            key = f"msda_fwd {case}"
+            timed(key, lambda: mc.msda_fwd(value, loc, aw, shapes),
+                  lambda: mc.msda_plain(value, loc, aw, shapes))
+            bounds[key] = bound_ms(value.numel() * value.element_size() + small
+                                   + grad.numel() * 4, 2 * D * corners, "fp32")
+            key = f"msda_bwd {case}"
+            with torch.enable_grad():
+                leaves = [value.float().requires_grad_(), loc.clone().requires_grad_(),
+                          aw.clone().requires_grad_()]
+                out = mc.msda_plain(*leaves, shapes)
+                timed(key, lambda: mc.msda_bwd(value, loc, aw, grad, shapes),
+                      lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True))
+            # reads value, loc, aw, g; writes dvalue (value's dtype), dloc, daw
+            bounds[key] = bound_ms(2 * value.numel() * value.element_size() + 2 * small
+                                   + grad.numel() * 4, 4 * D * corners, "fp32")
+            del leaves, out
+            torch.cuda.empty_cache()
+        # K6, K4 and K5 at the walks' shapes, bf16 with bf16 parameters (the
+        # frozen backbone's, read in place). Beside plain and library:
+        # the unfused PyTorch sequence each replaced (under autocast, as the
+        # training step ran it: LayerNorm to fp32, casts, F.linear, the q/k/v
+        # relayout, GELU) and cuBLAS's GEMMs alone on the normalised input
+        for shape in ROW_SHAPES:
+            x, p = row_inputs(shape, torch.bfloat16, seed=0, params_dtype=torch.bfloat16)
+            B, N, C = shape
+            R = B * N
+            lw, lb = p["ln_w"].to(x.dtype), p["ln_b"].to(x.dtype)
+            xn = F.layer_norm(x, (C,), lw, lb, 1e-6)
+            xb, pe = x.numel() * x.element_size(), p["ln_w"].element_size()
+            key = f"layernorm B={B} N={N}"
+            timed(key, lambda: ln.layernorm(x, p["ln_w"], p["ln_b"]),
+                  lambda: ln.layernorm_plain(x, p["ln_w"], p["ln_b"]),
+                  lambda: F.layer_norm(x, (C,), lw, lb, 1e-6), host_too=True)
+            # reads x, w, b; writes y; ≈ 8 fp32 operations per element
+            bounds[key] = bound_ms(2 * xb + 2 * C * pe, 8 * R * C, "fp32")
+
+            def unfused_qkv():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    y = F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w"], p["b"])
+                qkv = y.reshape(B, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4)
+                return [t.contiguous() for t in qkv]
+
+            key = f"fused_ln_qkv B={B} N={N}"
+            qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
+            timed(key, lambda: fq.fused_ln_qkv(*qkv_args),
+                  lambda: fq.fused_ln_qkv_plain(*qkv_args))
+            extra[key] = {"unfused": cuda_ms(unfused_qkv),
+                          "cublas_gemm": cuda_ms(lambda: F.linear(xn, p["w"], p["b"].to(x.dtype)))}
+            # reads x, the LN parameters, w, b; writes q, k, v (3·x)
+            bounds[key] = bound_ms(4 * xb + p["w"].numel() * 2 + (2 + 3) * C * pe,
+                                   2 * R * C * 3 * C, "bf16")
+
+            def unfused_mlp():
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    h = F.gelu(F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w1"], p["b1"]),
+                               approximate="tanh")
+                    return x + p["gamma"].to(x.dtype) * F.linear(h, p["w2"], p["b2"])
+
+            h = F.gelu(F.linear(xn, p["w1"], p["b1"].to(x.dtype)), approximate="tanh")
+            key = f"fused_ln_mlp B={B} N={N}"
+            mlp_args = (x, p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
+            timed(key, lambda: fm.fused_ln_mlp(*mlp_args),
+                  lambda: fm.fused_ln_mlp_plain(*mlp_args))
+            extra[key] = {"unfused": cuda_ms(unfused_mlp),
+                          "cublas_gemm": cuda_ms(lambda: (F.linear(xn, p["w1"]),
+                                                          F.linear(h, p["w2"])))}
+            # reads x, the LN parameters, w1, b1, w2, b2, γ; writes out
+            bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe,
+                                   2 * 2 * R * C * 4 * C, "bf16")
+            del x, p, xn, h
+            torch.cuda.empty_cache()
+        # K7 at the SSL step's shapes, bf16: forward, and backward from the
+        # forward's o and lse; beside plain, PyTorch's SDPA with the boolean
+        # block-diagonal mask (the student's; none for the teacher), forward
+        # and its backward alone (autograd.grad with the graph kept; graphed
+        # on the stream its forward ran on)
+        for case, shape in K7_SHAPES.items():
+            q, k, v, do = k7_inputs(shape, torch.bfloat16, seed=0)
+            B, H, N, Dh = shape
+            segs = STUDENT_SEGMENTS if case == "student" else [N]
+            seg = packed_ids(B, segs) if case == "student" else None
+            mask = None if seg is None else seg[:, None, :, None] == seg[:, None, None, :]
+            o, lse = fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg)
+            pairs = own_segment_pairs(B, H, segs)
+            tb, ib = q.numel() * q.element_size(), (0 if seg is None else seg.numel() * 4)
+            key = f"flash_attn {case}"
+            timed(key, lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg),
+                  lambda: fa.flash_attn_fwd_plain(q, k, v, 0.125, seg),
+                  lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125))
+            # reads q, k, v and the ids; writes o and lse; q·kᵀ and p·v over
+            # the own-segment pairs
+            bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, "bf16")
+            key = f"flash_attn_bwd {case}"
+            side = torch.cuda.Stream()
+            with torch.enable_grad():
+                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
+                # the graphed backward's own leaves and forward, made on the
+                # capture stream: autograd runs a node on its forward's stream
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    leaves_side = [x.clone().requires_grad_() for x in (q, k, v)]
+                    out_side = F.scaled_dot_product_attention(*leaves_side, attn_mask=mask,
+                                                              scale=0.125)
+                torch.cuda.current_stream().wait_stream(side)
+
+                def lib_both():
+                    y = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
+                    return torch.autograd.grad(y, leaves, do)
+
+                extra[key] = {"library_fwd_and_bwd": cuda_ms(lib_both)}
+                timed(key, lambda: fa.flash_attn_bwd_kernel(q, k, v, o, lse, do, 0.125, seg),
+                      lambda: fa.flash_attn_bwd_plain(q, k, v, o, lse, do, 0.125, seg),
+                      lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                      library_capture=(lambda: torch.autograd.grad(out_side, leaves_side, do,
+                                                                   retain_graph=True), side))
+            # reads q, k, v, o, do, lse and the ids; writes dq, dk, dv; five
+            # products over the own-segment pairs (q·kᵀ, do·vᵀ, pᵀ·do,
+            # dsᵀ·q, ds·k)
+            bounds[key] = bound_ms(8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, "bf16")
+            del q, k, v, do, o, lse, leaves, out, leaves_side, out_side, mask
+            torch.cuda.empty_cache()
+    return times, bounds, extra, dev, host
+
+
+def say_times(name, smi, times, bounds, extra, dev, host):
+    say("kernel_times", device=name, nvidia_smi=smi[0] if smi else "unavailable",
+        ms={k: {"kernel": a, "plain": b, "library": c, "kernel_device": dev[k][0],
+                "library_device": dev[k][1], "bound": bounds[k][0], "bound_by": bounds[k][1],
+                **({"kernel_host_us": host[k][0], "library_host_us": host[k][1]}
+                   if k in host else {}),
+                **extra.get(k, {})}
+            for k, (a, b, c) in times.items()})
+
+
+def row_hashes(ln) -> dict:
+    """sha256 prefixes of K6's output and of the row statistics on seeded
+    rows (bf16 and fp32, C = 1024 and 384): equal hashes from two builds
+    show bit-equal outputs."""
+    import hashlib
+    out = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            for C in (1024, 384):
+                x, p = row_inputs((2, 1765, C), dtype, seed=60 + C, params_dtype=dtype)
+                y = ln.layernorm(x, p["ln_w"], p["ln_b"])
+                st = ln.row_stats(x.view(-1, C), 1e-6)
+                torch.cuda.synchronize()
+                out[f"{str(dtype)[6:]} C={C}"] = [
+                    hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                    .hexdigest()[:16] for t in (y, st)]
+    return out
 
 
 def packed_ids(B: int, segments, device="cuda") -> torch.Tensor:
@@ -424,6 +673,79 @@ def check_k7(fa) -> dict:
     return k7_err
 
 
+def k3_allowance(q, k, v, ref, scale: float):
+    """Per-element bound on |K3 − plain| (phase 2), from the plain fp32 pass
+    `ref` on the same (bf16 or fp32) values: ulp(|ref| + ε) + ε in q's
+    dtype, as K7's forward (`k7_allowances`). Where the two fp32 values
+    straddle a rounding point of the output's dtype they differ by one ulp
+    of |ref| + ε; ε sums what the terms of o_i = Σ_j p_ij·v_j may differ
+    by: in bf16 the kernel rounds each unnormalised p to bf16 before p·v
+    and the plain version rounds none here (its bf16 run would round the
+    normalised p), ≤ 2⁻⁸ of the term each, so (2⁻⁷ + 2⁻¹⁵)·Σ_j p_ij·|v_j|,
+    2⁻¹⁵ for the exponent's error and the summation orders; in fp32
+    2⁻¹⁵·Σ_j p_ij·|v_j|. Computed one batch element at a time (the fp32
+    scores of batch 16 take 3.2 GB)."""
+    f = (2.0 ** -7 if q.dtype == torch.bfloat16 else 0.0) + 2.0 ** -15
+    out = torch.empty_like(ref)
+    with torch.no_grad():
+        for b in range(q.shape[0]):
+            s = (q[b].float() * scale) @ k[b].float().transpose(-1, -2)
+            eps = f * (torch.softmax(s, dim=-1) @ v[b].float().abs())
+            out[b] = ulp(ref[b].abs() + eps, q.dtype) + eps
+            del s, eps
+    return out
+
+
+def check_k3(ff) -> float:
+    """Phase 2: K3 against its plain version (fp32 on the same values) at
+    the walks' shapes (H = 16, Dh = 64, N = 1765 and 1764, batch 2 and 16),
+    bf16 and fp32, each element within `k3_allowance`. In bf16 also: five
+    more calls give the same bits (a race in the K/V ring would change them
+    from run to run), and two planted faults must break the bound: the last
+    key's v row zeroed (a dropped tail) and keys 128-255 given the v of
+    keys 0-127 (a stale ring stage). Returns the largest bf16 error."""
+    flash_err = 0.0
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            for i, shape in enumerate(FLASH_SHAPES):
+                q, k, v = (x.to(dtype) for x in flash_inputs(shape, seed=i))
+                out = ff.flash_fwd(q, k, v, 0.125)
+                torch.cuda.synchronize()
+                if out.shape != q.shape or out.dtype != dtype or not out.is_contiguous():
+                    fail(f"flash_fwd returned {tuple(out.shape)} {out.dtype} at {shape} {dtype}")
+                ref = ff.flash_fwd_plain(q.float(), k.float(), v.float(), 0.125)
+                allow = k3_allowance(q, k, v, ref, 0.125)
+                d = (out.float() - ref).abs()
+                report = {"max_abs_err": d.max().item(),
+                          "worst_share_of_bound": (d / allow).max().item(),
+                          "bound_max": allow.max().item(), "bound_min": allow.min().item()}
+                del d
+                if dtype == torch.bfloat16:
+                    report["repeats_bit_identical"] = all(
+                        torch.equal(ff.flash_fwd(q, k, v, 0.125), out) for _ in range(5))
+                    tail, stale = v.clone(), v.clone()
+                    tail[:, :, -1] = 0
+                    stale[:, :, 128:256] = v[:, :, :128]
+                    report["planted_faults_worst_share"] = {
+                        n: ((ff.flash_fwd(q, k, w, 0.125).float() - ref).abs() / allow).max().item()
+                        for n, w in (("dropped_tail", tail), ("stale_stage", stale))}
+                    del tail, stale
+                say("flash_fwd_check", dtype=str(dtype), shape=list(shape), **report)
+                if not report["worst_share_of_bound"] <= 1.0:
+                    fail(f"flash_fwd kernel disagrees with plain at {shape} {dtype}: an error is "
+                         f"{report['worst_share_of_bound']} of its per-element bound")
+                if dtype == torch.bfloat16:
+                    if not report["repeats_bit_identical"]:
+                        fail(f"flash_fwd: repeated calls differ at {shape}")
+                    for n, w in report["planted_faults_worst_share"].items():
+                        if not w > 1.0:
+                            fail(f"flash_fwd: the bound passes a planted fault ({n}, {shape}): {w}")
+                    flash_err = max(flash_err, report["max_abs_err"])
+                del q, k, v, out, ref, allow
+                torch.cuda.empty_cache()
+    return flash_err
+
+
 def own_segment_pairs(B: int, H: int, segments) -> int:
     """Query-key pairs of own segments: the attention work these ids need."""
     return B * H * sum(n * n for n in segments)
@@ -497,28 +819,9 @@ def main() -> None:
         nvidia_smi=smi[0] if smi else "unavailable", torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, library=lib_path.name)
 
-    # ---- 2. forward-only attention vs plain, on the card; the plain version
-    # runs on the same inputs in fp32. bf16 (the tensor-core path): P is
-    # rounded to bf16 before P·V (≤ 2⁻⁹·max|v|) and the output to bf16
-    # (≤ 2⁻⁹·|o|), so bound 2⁻⁸·(max|o| + max|v|). fp32 (the CUDA-core path):
-    # summation order and exp rounding only, bound 1e-5·(max|o| + max|v|)
-    flash_err = 0.0
-    with torch.no_grad():
-        for dtype, rel in ((torch.bfloat16, 2.0 ** -8), (torch.float32, 1e-5)):
-            for i, shape in enumerate(FLASH_SHAPES):
-                q, k, v = (x.to(dtype) for x in flash_inputs(shape, seed=i))
-                out = ff.flash_fwd(q, k, v, 0.125)
-                torch.cuda.synchronize()
-                ref = ff.flash_fwd_plain(q.float(), k.float(), v.float(), 0.125)
-                err = (out.float() - ref).abs().max().item()
-                bound = rel * (ref.abs().max().item() + v.float().abs().max().item())
-                say("flash_fwd_check", dtype=str(dtype), shape=list(shape), max_abs_err=err,
-                    bound=bound)
-                if not err <= bound:
-                    fail(f"flash_fwd kernel disagrees with plain at {shape} {dtype}: "
-                         f"{err} > {bound}")
-                if dtype == torch.bfloat16:
-                    flash_err = max(flash_err, err)
+    # ---- 2. K3 (forward-only attention) vs its plain version, per element
+    # (`check_k3`)
+    flash_err = check_k3(ff)
 
     # ---- 3. deformable attention forward vs plain, on the card
     # both accumulate the same fp32 products of the same bf16 values; only
@@ -1041,150 +1344,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
-    # (plain in bf16 too), and each kernel's bound from the same inputs
-    times, bounds, extra = {}, {}, {}
-    with torch.no_grad():
-        for shape in FLASH_SHAPES:
-            q, k, v = flash_inputs(shape, seed=0)
-            B, H, N, Dh = shape
-            key = f"flash_fwd B={B} N={N}"
-            times[key] = (cuda_ms(lambda: ff.flash_fwd(q, k, v, 0.125)),
-                          cuda_ms(lambda: ff.flash_fwd_plain(q, k, v, 0.125)),
-                          cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                              q, k, v, scale=0.125)))
-            bounds[key] = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * N * N * Dh,
-                                   "bf16")
-        for i, (case, vshape, Lq, shapes, P) in enumerate(MSDA_CASES):
-            value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, seed=10 + i)
-            D = vshape[3]
-            corners = valid_corners(loc, shapes)
-            small = (loc.numel() + aw.numel()) * 4
-            key = f"msda_fwd {case}"
-            times[key] = (cuda_ms(lambda: mc.msda_fwd(value, loc, aw, shapes)),
-                          cuda_ms(lambda: mc.msda_plain(value, loc, aw, shapes)), None)
-            bounds[key] = bound_ms(value.numel() * value.element_size() + small
-                                   + grad.numel() * 4, 2 * D * corners, "fp32")
-            key = f"msda_bwd {case}"
-            with torch.enable_grad():
-                leaves = [value.float().requires_grad_(), loc.clone().requires_grad_(),
-                          aw.clone().requires_grad_()]
-                out = mc.msda_plain(*leaves, shapes)
-                plain = cuda_ms(lambda: torch.autograd.grad(out, leaves, grad,
-                                                            retain_graph=True))
-            times[key] = (cuda_ms(lambda: mc.msda_bwd(value, loc, aw, grad, shapes)), plain,
-                          None)
-            # reads value, loc, aw, g; writes dvalue (value's dtype), dloc, daw
-            bounds[key] = bound_ms(2 * value.numel() * value.element_size() + 2 * small
-                                   + grad.numel() * 4, 4 * D * corners, "fp32")
-            del leaves, out
-            torch.cuda.empty_cache()
-        # K6, K4 and K5 at the walks' shapes, bf16 with bf16 parameters (the
-        # frozen backbone's, read in place). Beside plain and library:
-        # the unfused PyTorch sequence each replaced (under autocast, as the
-        # training step ran it: LayerNorm to fp32, casts, F.linear, the q/k/v
-        # relayout, GELU) and cuBLAS's GEMMs alone on the normalised input
-        F = torch.nn.functional
-        for shape in ROW_SHAPES:
-            x, p = row_inputs(shape, torch.bfloat16, seed=0, params_dtype=torch.bfloat16)
-            B, N, C = shape
-            R = B * N
-            lw, lb = p["ln_w"].to(x.dtype), p["ln_b"].to(x.dtype)
-            xn = F.layer_norm(x, (C,), lw, lb, 1e-6)
-            xb, pe = x.numel() * x.element_size(), p["ln_w"].element_size()
-            key = f"layernorm B={B} N={N}"
-            times[key] = (cuda_ms(lambda: ln.layernorm(x, p["ln_w"], p["ln_b"])),
-                          cuda_ms(lambda: ln.layernorm_plain(x, p["ln_w"], p["ln_b"])),
-                          cuda_ms(lambda: F.layer_norm(x, (C,), lw, lb, 1e-6)))
-            # reads x, w, b; writes y; ≈ 8 fp32 operations per element
-            bounds[key] = bound_ms(2 * xb + 2 * C * pe, 8 * R * C, "fp32")
-
-            def unfused_qkv():
-                with torch.autocast("cuda", dtype=torch.bfloat16):
-                    y = F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w"], p["b"])
-                qkv = y.reshape(B, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4)
-                return [t.contiguous() for t in qkv]
-
-            key = f"fused_ln_qkv B={B} N={N}"
-            qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
-            times[key] = (cuda_ms(lambda: fq.fused_ln_qkv(*qkv_args)),
-                          cuda_ms(lambda: fq.fused_ln_qkv_plain(*qkv_args)), None)
-            extra[key] = {"unfused": cuda_ms(unfused_qkv),
-                          "cublas_gemm": cuda_ms(lambda: F.linear(xn, p["w"], p["b"].to(x.dtype)))}
-            # reads x, the LN parameters, w, b; writes q, k, v (3·x)
-            bounds[key] = bound_ms(4 * xb + p["w"].numel() * 2 + (2 + 3) * C * pe,
-                                   2 * R * C * 3 * C, "bf16")
-
-            def unfused_mlp():
-                with torch.autocast("cuda", dtype=torch.bfloat16):
-                    h = F.gelu(F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w1"], p["b1"]),
-                               approximate="tanh")
-                    return x + p["gamma"].to(x.dtype) * F.linear(h, p["w2"], p["b2"])
-
-            h = F.gelu(F.linear(xn, p["w1"], p["b1"].to(x.dtype)), approximate="tanh")
-            key = f"fused_ln_mlp B={B} N={N}"
-            mlp_args = (x, p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
-            times[key] = (cuda_ms(lambda: fm.fused_ln_mlp(*mlp_args)),
-                          cuda_ms(lambda: fm.fused_ln_mlp_plain(*mlp_args)), None)
-            extra[key] = {"unfused": cuda_ms(unfused_mlp),
-                          "cublas_gemm": cuda_ms(lambda: (F.linear(xn, p["w1"]),
-                                                          F.linear(h, p["w2"])))}
-            # reads x, the LN parameters, w1, b1, w2, b2, γ; writes out
-            bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe,
-                                   2 * 2 * R * C * 4 * C, "bf16")
-            del x, p, xn, h
-            torch.cuda.empty_cache()
-        # K7 at the SSL step's shapes, bf16: forward, and backward from the
-        # forward's o and lse; beside plain, PyTorch's SDPA with the boolean
-        # block-diagonal mask (the student's; none for the teacher), forward
-        # and its backward alone (autograd.grad with the graph kept)
-        for case, shape in K7_SHAPES.items():
-            q, k, v, do = k7_inputs(shape, torch.bfloat16, seed=0)
-            B, H, N, Dh = shape
-            segs = STUDENT_SEGMENTS if case == "student" else [N]
-            seg = packed_ids(B, segs) if case == "student" else None
-            mask = None if seg is None else seg[:, None, :, None] == seg[:, None, None, :]
-            o, lse = fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg)
-            pairs = own_segment_pairs(B, H, segs)
-            tb, ib = q.numel() * q.element_size(), (0 if seg is None else seg.numel() * 4)
-            key = f"flash_attn {case}"
-            times[key] = (cuda_ms(lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg)),
-                          cuda_ms(lambda: fa.flash_attn_fwd_plain(q, k, v, 0.125, seg)),
-                          cuda_ms(lambda: F.scaled_dot_product_attention(
-                              q, k, v, attn_mask=mask, scale=0.125)))
-            # reads q, k, v and the ids; writes o and lse; q·kᵀ and p·v over
-            # the own-segment pairs
-            bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, "bf16")
-            key = f"flash_attn_bwd {case}"
-            with torch.enable_grad():
-                leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
-                lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True))
-
-                def lib_both():
-                    y = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=0.125)
-                    return torch.autograd.grad(y, leaves, do)
-
-                extra[key] = {"library_fwd_and_bwd": cuda_ms(lib_both)}
-            times[key] = (cuda_ms(lambda: fa.flash_attn_bwd_kernel(q, k, v, o, lse, do, 0.125,
-                                                                   seg)),
-                          cuda_ms(lambda: fa.flash_attn_bwd_plain(q, k, v, o, lse, do, 0.125,
-                                                                  seg)), lib_bwd)
-            # reads q, k, v, o, do, lse and the ids; writes dq, dk, dv; five
-            # products over the own-segment pairs (q·kᵀ, do·vᵀ, pᵀ·do,
-            # dsᵀ·q, ds·k)
-            bounds[key] = bound_ms(8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, "bf16")
-            del q, k, v, do, o, lse, leaves, out, mask
-            torch.cuda.empty_cache()
-    say("kernel_times", device=name, nvidia_smi=smi[0] if smi else "unavailable",
-        ms={k: {"kernel": a, "plain": b, "library": c, "bound": bounds[k][0],
-                "bound_by": bounds[k][1], **extra.get(k, {})}
-            for k, (a, b, c) in times.items()})
+    # (`kernel_times`)
+    times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
+    say_times(name, smi, times, bounds, extra, dev, host)
 
     def on_path(key, prefix):
         return key.startswith(prefix) and f"B={TRAIN_BATCH}" in key
 
-    def mean(prefix, i):
-        vals = [v[i] for k, v in times.items() if on_path(k, prefix)]
+    def mean(prefix, i, table=times):
+        vals = [v[i] for k, v in table.items() if on_path(k, prefix)]
         return None if None in vals else sum(vals) / len(vals)
 
     def mean_bound(prefix):
@@ -1210,7 +1378,8 @@ def main() -> None:
                      "source": f"adaptersis_tpu_torch/csrc/{src}", "replaces": replaces,
                      "launches": bench_launches[kname], "max_abs_err": err,
                      "ms": mean(kname, 0), "plain_ms": mean(kname, 1), "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": mean(kname, 2)})
+                     "bound_by": b_by, "library_ms": mean(kname, 2),
+                     "device_ms": mean(kname, 0, dev)})
     # K7: the forward's per-call mean over the SSL step's mix (12 student and
     # 12 teacher calls), the backward's student calls; launches of bench_ssl
     lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -1224,12 +1393,40 @@ def main() -> None:
                      "source": f"adaptersis_tpu_torch/csrc/{src}", "replaces": replaces,
                      "launches": ssl_launches[kname], "max_abs_err": err, "ms": avg[0],
                      "plain_ms": avg[1], "bound_ms": sum(bounds[k][0] for k in keys) / len(keys),
-                     "bound_by": bounds[keys[0]][1], "library_ms": avg[2]})
+                     "bound_by": bounds[keys[0]][1], "library_ms": avg[2],
+                     "device_ms": sum(dev[k][0] for k in keys) / len(keys)})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 
 
+def times_only() -> None:
+    """`--times`: the build and phase 9 alone, plus `row_hashes`, with no
+    checks: to compare two trees' kernels in one call on one card."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch.ops import _build, flash_attn as fa, flash_fwd as ff, msda_cuda as mc
+    from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.library()
+    say("device", name=name, root=str(ROOT), nvidia_smi=smi[0] if smi else "unavailable",
+        torch=torch.__version__, cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+    say("row_hashes", **row_hashes(ln))
+    say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--times"]:
+        times_only()
+    elif sys.argv[1:]:
+        fail(f"usage: python3 chip_smoke.py [--times], got {sys.argv[1:]}")
+    else:
+        main()

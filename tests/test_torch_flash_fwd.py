@@ -27,7 +27,9 @@ def _qkv(B, H, N, Dh, seed):
     return [rng.standard_normal((B, H, N, Dh)).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("N", [117, 116, 128, 200])
+# 117/116 stand in for the walks' ragged lengths; 127, 128, 129 and 257
+# sit around the CUDA kernel's 128-row query and key tiles
+@pytest.mark.parametrize("N", [117, 116, 127, 128, 129, 200, 257])
 def test_plain_matches_jax_kernel(N):
     B, H, Dh = 2, 2, 64
     q, k, v = _qkv(B, H, N, Dh, seed=N)
