@@ -19,14 +19,14 @@
 // N = 457 packed tokens, Dh = 64, bf16) the counting rule bounds it by bytes
 // (q, k, v, do, the row statistics read once, dq, dk, dv written once:
 // ≈ 158 MB, ≈ 47 µs at 3.35 TB/s) over operations (5 products of the
-// own-segment pairs, 18.7 GFLOP, ≈ 19 µs at 989 TFLOP/s). The kernels
-// recompute the scores and skip no masked tile: they do the full 457²
-// square, ≈ 64 % of it masked by the packed layout (257² + 4·50² = 76 049 of
-// 208 849 pairs per row), the dQ kernel recomputing q·kᵀ and do·vᵀ that the
-// dK/dV kernel also computes; at mma.sync rates those operations, and at
-// these short sequences the latency of the 8 tiles each block walks in
-// order, bound them. Skipping tiles whose segments cannot meet is the first
-// redesign for a later PR.
+// own-segment pairs, 18.7 GFLOP, ≈ 19 µs at 989 TFLOP/s). The packed layout
+// leaves ≈ 64 % of the 457² square masked (257² + 4·50² = 76 049 of 208 849
+// pairs per row); the kernels walk only the 64 × 64 tile pairs whose
+// segments can meet (34 of 64), and do 7 products on each (the dQ kernel
+// recomputes S and dP rather than exchange them through memory), with the
+// softmax's exp2 between the products; at 1 to 6 walked tiles per unit the
+// latency of each tile's dependent chain S → P → dV, dP → dS → dK bounds a
+// warpgroup, so two consumer warpgroups per SM interleave theirs.
 //
 // Rounding points follow the library kernels: p and ds are computed in fp32
 // and rounded to the input dtype before the products dv = pᵀ·do, dk = dsᵀ·q
@@ -34,24 +34,26 @@
 // unrounded p; the outputs are rounded once to the input dtype.
 //
 // Two paths, as in the forward:
-//   * bf16 with Dh = 64: blocks of 4 warps, mma.sync m16n8k16 bf16 products
-//     with fp32 accumulators (fa_bwd_dkv_mma_kernel, fa_bwd_dq_mma_kernel);
+//   * bf16 with Dh = 64: wgmma products fed by TMA, tiles whose segments
+//     cannot meet skipped (fa_bwd_wgmma_kernel<true> for dK/dV, <false> for
+//     dQ, below);
 //   * fp32, or Dh of 16 or 32: one thread per key (dK/dV) or query (dQ)
 //     row, fp32 FMAs on the CUDA cores (fa_bwd_dkv_kernel, fa_bwd_dq_kernel).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "flash_attn.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using asis::kLog2e;
-using asis::ld_pair;
-using asis::ldmatrix_x2_trans;
-using asis::mma_bf16;
 using asis::pack_bf16;
 using asis::round_as;
 using asis::segment_of;
@@ -211,247 +213,405 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// ---- tensor-core path: bf16, Dh = 64 ---------------------------------------
+// ---- Hopper path: bf16, Dh = 64 (every SSL call) ---------------------------
 //
-// Blocks of 4 warps; warp w owns rows 16w..16w+15 of the block's 64-row
-// tile, each row held by the 4 lanes of a quad. Tiles of 64 rows of the
-// other side are staged in shared memory (rows padded to 72 elements), with
-// their segment ids and row statistics. Scores and probabilities stay in C
-// fragments; p and ds are rounded to bf16 and repacked as A fragments for
-// the second products, whose B fragments come transposed out of row-major
-// shared memory (ldmatrix .trans).
+// The split of the library kernels, on K3's machinery (flash_fwd.cu): a
+// dK/dV kernel whose units are 64 keys of one head, walking the query
+// tiles, and a dQ kernel whose units are 64 queries, walking the key tiles;
+// every tile is 64 rows, and only the tiles whose segment range meets the
+// unit's are walked (`next_live`). Each output element is summed by one
+// thread in a fixed order: no atomics, and the bits are the same from call
+// to call. Both are one kernel template (kDkv): one persistent CTA of three
+// warpgroups per SM; each of the two consumer warpgroups walks its own
+// units (`unit_at`) with its own pipeline, fed by one warp of the producer
+// warpgroup. Lane 0 of that warp loads the unit's own two tiles by TMA into
+// one of two buffers (K and V, or Q and dO), then streams the walked tiles
+// into a 3-stage ring (Q, dO and the lse and di slices; or K and V), each
+// stage with a header naming its tile, whether it needs the per-element
+// segment mask and whether it is the unit's last.
+//
+// dK/dV, per walked query tile, for the warpgroup's 64 keys (rows) and the
+// tile's 64 queries (columns), all as wgmma with fp32 accumulators:
+//   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ   (m64n64k16, both operands K-major in shared
+//                                memory, issued together),
+//   Pᵀ = exp2(Sᵀ·scale·log2e − lse·log2e)   (once Sᵀ is in, while dPᵀ runs),
+//   dV += Pᵀ·dO                 (m64n64k16, Pᵀ rounded to bf16 in registers
+//                                as the A operand, dO MN-major),
+//   dSᵀ = Pᵀ ⊙ (dPᵀ − di)·scale,
+//   dK += dSᵀ·Q                 (dSᵀ rounded to bf16 in registers, Q MN-major).
+// dQ, per walked key tile, for the warpgroup's 64 queries and the tile's 64
+// keys: S = Q·Kᵀ and dP = dO·Vᵀ, P, dS, then dQ += dS·K (K MN-major: the
+// same shared tile serves both products). A 64-wide bf16 row is one
+// 128-byte swizzle atom, so every tile is written by TMA in the layout the
+// wgmma descriptors name (hopper.cuh `sw128_desc`). Pairs of different
+// segments (on a straddling tile) and columns ≥ N (in the last tile) get
+// p = 0 and ds = 0; rows ≥ N are not stored. The 3-D tensor maps (B·H, N,
+// 64) zero the rows past a head's N; the lse and di slices come through a
+// 1-D map over the B·H·N values, whose columns past N are masked.
 
-constexpr int kWarps = 4;
-constexpr int kTile = 16 * kWarps;  // rows per block and per staged tile
-constexpr int kD = 64;              // head width
-constexpr int kPad = kD + 8;        // padded shared-memory row (elements)
+namespace hw = asis::hopper;
+using asis::kLast;
+using asis::kUniform;
+using asis::next_live;
+using asis::unit_at;
 
-using Tile = __nv_bfloat16[kTile][kPad];
+constexpr int kTileRows = 64;                 // rows per unit and per walked tile
+constexpr int kBufs = 2;                  // own-tile buffers per consumer warpgroup
+constexpr int kStages = 3;                // ring depth per consumer warpgroup
+constexpr int kTileBytes = kTileRows * 64 * 2;
+constexpr int kRegion = (2 * kBufs + 2 * kStages) * kTileBytes;  // per consumer warpgroup
+constexpr int kThreads = 3 * 128;
 
-// 64 rows × 64 dims of a (N, 64) bf16 head into shared memory, zeros past N.
-__device__ __forceinline__ void stage(Tile& dst, const __nv_bfloat16* __restrict__ src, int r0,
-                                      int N) {
-  for (int i = threadIdx.x; i < kTile * kD / 8; i += kWarps * 32) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < N) x = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * kD + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = x;
-  }
+struct BwdCtl {
+  uint64_t own_full[kBufs], own_empty[kBufs], full[kStages], empty[kStages];
+  int tile[kStages], flags[kStages];
+};
+// The dK/dV kernel's lse and di slices of each stage. TMA takes a 1-D box
+// only from a 16-byte aligned start, so a slice is loaded from the start
+// rounded down to 4 values, 4 more than the tile's 64, and read at the
+// offset the rounding took off; each lands 128-byte aligned, as TMA
+// requires of its destination.
+constexpr int kVecBox = kTileRows + 4;
+struct alignas(128) BwdVec {
+  float lse[kStages][96], di[kStages][96];
+};
+constexpr int kSmemBytes = 2 * kRegion + 2 * static_cast<int>(sizeof(BwdVec)) +
+                           2 * static_cast<int>(sizeof(BwdCtl)) + 1024;
+
+// The products of one walked tile, as groups of four k-steps over the head
+// width (ss: both from shared memory) or over the tile's 64 rows (rs: A from
+// registers, B MN-major). Each group's register operands are pinned before
+// wgmma.fence and after the commit, as CUTLASS fences them.
+__device__ __forceinline__ void issue_ss2(float (&c0)[32], uint64_t a0, uint64_t b0,
+                                          float (&c1)[32], uint64_t a1, uint64_t b1) {
+  hw::fence_regs(c0);
+  hw::fence_regs(c1);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hw::wgmma_m64n64k16_ss(c0, a0 + 2 * kk, b0 + 2 * kk, kk);
+  hw::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hw::wgmma_m64n64k16_ss(c1, a1 + 2 * kk, b1 + 2 * kk, kk);
+  hw::wgmma_commit();
+  hw::fence_regs(c0);
+  hw::fence_regs(c1);
 }
 
-// The A fragment of rows row..row+15 (this warp's), dims 16kk..16kk+15 of a
-// staged tile.
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const Tile& t, int row, int kk,
-                                       int gid, int tig) {
-  const int c = kk * 16 + tig * 2;
-  a[0] = ld_pair(&t[row + gid][c]);
-  a[1] = ld_pair(&t[row + gid + 8][c]);
-  a[2] = ld_pair(&t[row + gid][c + 8]);
-  a[3] = ld_pair(&t[row + gid + 8][c + 8]);
+__device__ __forceinline__ void issue_rs(float (&acc)[32], uint32_t (&a)[16], uint64_t b) {
+  hw::fence_regs(acc);
+  hw::fence_regs(a);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hw::wgmma_m64n64k16_rs(acc, a + 4 * kk, b + 128 * kk);
+  hw::wgmma_commit();
+  hw::fence_regs(acc);
+  hw::fence_regs(a);
 }
 
-// c[nt] += A(16 × 64) · B(64 × 64)ᵀ where B's rows are the staged tile's
-// rows: 8 fragments of 16 rows × 8 of the tile's rows.
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
-                                        const Tile& b, int gid, int tig) {
+// fp32 accumulator (64 × 64) as bf16 A fragments over its columns.
+__device__ __forceinline__ void pack(const float (&c)[32], uint32_t (&a)[16]) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const __nv_bfloat16* br = &b[nt * 8 + gid][kk * 16 + tig * 2];
-      mma_bf16(c[nt], a[kk], ld_pair(br), ld_pair(br + 8));
-    }
-  }
+  for (int i = 0; i < 16; ++i) a[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
 }
 
-// acc[nt] += A(16 × 64 tile rows) · B(64 tile rows × 64 dims), B staged.
-__device__ __forceinline__ void mma_ab(float (&acc)[8][4], const uint32_t (&a)[4][4],
-                                       const Tile& b, int lane) {
+// Store an accumulator's rows r0 (registers 4i, 4i + 1) and r0 + 8 (4i + 2,
+// 4i + 3) at columns 8i + 2·tig (+1) as bf16, rows < N only.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ head,
+                                           const float (&c)[32], int r0, int N, int tig) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, &b[kk * 16 + (lane & 15)][nt * 8]);
-      mma_bf16(acc[nt], a[kk], b0, b1);
-    }
-  }
-}
-
-// C fragments (16 rows × 64 columns) as bf16 A fragments over those columns.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    a[nt >> 1][(nt & 1) * 2] = pack_bf16(c[nt][0], c[nt][1]);
-    a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(c[nt][2], c[nt][3]);
-  }
-}
-
-// Store C fragments of rows r0 (regs 0, 1) and r0 + 8 (regs 2, 3) as bf16.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out, const float (&c)[8][4],
-                                           int r0, int N, int tig) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = nt * 8 + tig * 2;
+  for (int i = 0; i < 8; ++i) {
+    const int col = i * 8 + tig * 2;
     if (r0 < N)
-      *reinterpret_cast<uint32_t*>(out + (size_t)r0 * kD + col) = pack_bf16(c[nt][0], c[nt][1]);
+      *reinterpret_cast<uint32_t*>(head + static_cast<size_t>(r0) * 64 + col) =
+          pack_bf16(c[4 * i], c[4 * i + 1]);
     if (r0 + 8 < N)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * kD + col) =
-          pack_bf16(c[nt][2], c[nt][3]);
+      *reinterpret_cast<uint32_t*>(head + static_cast<size_t>(r0 + 8) * 64 + col) =
+          pack_bf16(c[4 * i + 2], c[4 * i + 3]);
   }
 }
 
-// Own tile = 64 keys; walks the queries. Per query tile, for this warp's 16
-// keys: Sᵀ = K·Qᵀ → Pᵀ; dV += Pᵀ·dO; dPᵀ = V·dOᵀ → dSᵀ; dK += dSᵀ·Q.
-__global__ void __launch_bounds__(kWarps * 32)
-fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ di,
-                      const int* __restrict__ seg, __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int N, int H, float scale) {
-  __shared__ __align__(16) Tile ks, vs, qs, dos;
-  __shared__ float lse_s[kTile], di_s[kTile];
-  __shared__ int qid[kTile];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y;
-  const size_t head = (size_t)bh * N * kD;
-  const int* sg = seg ? seg + (size_t)(bh / H) * N : nullptr;
-  const int kb = blockIdx.x * kTile;
-  const int kr0 = kb + warp * 16 + gid, kr1 = kr0 + 8;  // this thread's two keys
-  const int kid0 = kr0 < N ? segment_of(sg, kr0) : 0;
-  const int kid1 = kr1 < N ? segment_of(sg, kr1) : 0;
-  const float scale_log2 = scale * kLog2e;
-  stage(ks, k + head, kb, N);
-  stage(vs, v + head, kb, N);
-
-  float dka[8][4], dva[8][4];
+// dK/dV: Pᵀ in place of Sᵀ and dSᵀ in place of dPᵀ, once each is in. Rows
+// are this thread's keys kr0, kr0 + 8, columns the tile's queries q0 + col;
+// lse2 = lse·log2e and di per column from the stage's slices. kMasked: a
+// straddling tile, or one past N on either side.
+template <bool kMasked>
+__device__ __forceinline__ void p_transposed(float (&st)[32], const float* __restrict__ lse_s,
+                                             const int* __restrict__ sg, int q0, int kr0,
+                                             int kid0, int kid1, int N, int tig, float sl2) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kTile) {
-    __syncthreads();  // the previous tile is no longer read
-    stage(qs, q + head, q0, N);
-    stage(dos, dout + head, q0, N);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      const bool in = r < N;
-      lse_s[threadIdx.x] = in ? lse[(size_t)bh * N + r] * kLog2e : 0.f;
-      di_s[threadIdx.x] = in ? di[(size_t)bh * N + r] : 0.f;
-      qid[threadIdx.x] = in ? segment_of(sg, r) : 0;
-    }
-    __syncthreads();
-
-    uint32_t a[4][4];
-    float p[8][4];  // Sᵀ, then Pᵀ in fp32: rows = keys, columns = queries
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) a_frag(a[kk], ks, warp * 16, kk, gid, tig);
-    mma_abt(p, a, qs, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + tig * 2 + (e & 1);
-        const bool ok = q0 + j < N && (e < 2 ? kr0 < N && qid[j] == kid0
-                                             : kr1 < N && qid[j] == kid1);
-        p[nt][e] = ok ? exp2f(p[nt][e] * scale_log2 - lse_s[j]) : 0.f;
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * tig + e;
+      const float l2 = lse_s[col] * kLog2e;
+      float p0 = hw::ex2(fmaf(st[4 * j + e], sl2, -l2));
+      float p1 = hw::ex2(fmaf(st[4 * j + 2 + e], sl2, -l2));
+      if (kMasked) {
+        const int q = q0 + col;
+        const int qid = q < N ? (sg ? __ldg(sg + q) : 0) : 0;
+        p0 = q < N && kr0 < N && qid == kid0 ? p0 : 0.f;
+        p1 = q < N && kr0 + 8 < N && qid == kid1 ? p1 : 0.f;
       }
+      st[4 * j + e] = p0;
+      st[4 * j + 2 + e] = p1;
     }
-    uint32_t pa[4][4];
-    to_a(pa, p);
-    mma_ab(dva, pa, dos, lane);
-
-    float ds[8][4];  // dPᵀ, then dSᵀ
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) a_frag(a[kk], vs, warp * 16, kk, gid, tig);
-    mma_abt(ds, a, dos, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + tig * 2 + (e & 1);
-        ds[nt][e] = (ds[nt][e] - di_s[j]) * p[nt][e] * scale;
-      }
-    }
-    to_a(pa, ds);
-    mma_ab(dka, pa, qs, lane);
   }
-  store_rows(dk + head, dka, kr0, N, tig);
-  store_rows(dv + head, dva, kr0, N, tig);
 }
 
-// Own tile = 64 queries; walks the keys. Per key tile, for this warp's 16
-// queries: S = Q·Kᵀ → P; dP = dO·Vᵀ → dS; dQ += dS·K.
-__global__ void __launch_bounds__(kWarps * 32)
-fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int N, int H,
-                     float scale) {
-  __shared__ __align__(16) Tile qs, dos, ks, vs;
-  __shared__ int kid[kTile];
+__device__ __forceinline__ void ds_transposed(float (&dp)[32], const float (&p)[32],
+                                              const float* __restrict__ di_s, int tig,
+                                              float scale) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float d = di_s[8 * j + 2 * tig + e];
+      dp[4 * j + e] = (dp[4 * j + e] - d) * p[4 * j + e] * scale;
+      dp[4 * j + 2 + e] = (dp[4 * j + 2 + e] - d) * p[4 * j + 2 + e] * scale;
+    }
+  }
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y;
-  const size_t head = (size_t)bh * N * kD;
-  const int* sg = seg ? seg + (size_t)(bh / H) * N : nullptr;
-  const int qb = blockIdx.x * kTile;
-  const int r0 = qb + warp * 16 + gid, r1 = r0 + 8;  // this thread's two queries
-  const int id0 = r0 < N ? segment_of(sg, r0) : 0;
-  const int id1 = r1 < N ? segment_of(sg, r1) : 0;
-  const float scale_log2 = scale * kLog2e;
-  const float lse0 = r0 < N ? lse[(size_t)bh * N + r0] * kLog2e : 0.f;
-  const float lse1 = r1 < N ? lse[(size_t)bh * N + r1] * kLog2e : 0.f;
-  const float di0 = r0 < N ? di[(size_t)bh * N + r0] : 0.f;
-  const float di1 = r1 < N ? di[(size_t)bh * N + r1] : 0.f;
-  stage(qs, q + head, qb, N);
-  stage(dos, dout + head, qb, N);
+// dQ: P in place of S. Rows are this thread's queries r0, r0 + 8 (lse2 per
+// row), columns the tile's keys k0 + col.
+template <bool kMasked>
+__device__ __forceinline__ void p_rows(float (&s)[32], const int* __restrict__ sg, int k0,
+                                       int r0, int id0, int id1, float l20, float l21, int N,
+                                       int tig, float sl2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float p0 = hw::ex2(fmaf(s[4 * j + e], sl2, -l20));
+      float p1 = hw::ex2(fmaf(s[4 * j + 2 + e], sl2, -l21));
+      if (kMasked) {
+        const int key = k0 + 8 * j + 2 * tig + e;
+        const int kid = key < N ? (sg ? __ldg(sg + key) : 0) : 0;
+        p0 = key < N && r0 < N && kid == id0 ? p0 : 0.f;
+        p1 = key < N && r0 + 8 < N && kid == id1 ? p1 : 0.f;
+      }
+      s[4 * j + e] = p0;
+      s[4 * j + 2 + e] = p1;
+    }
+  }
+}
+
+// kDkv: the dK/dV kernel (own = K, V; walked = Q, dO with the lse and di
+// slices; outputs dK, dV). Else the dQ kernel (own = Q, dO; walked = K, V;
+// output dQ; lse and di read per row).
+template <bool kDkv>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap own0, const __grid_constant__ CUtensorMap own1,
+                    const __grid_constant__ CUtensorMap walk0,
+                    const __grid_constant__ CUtensorMap walk1,
+                    const __grid_constant__ CUtensorMap lse_map,
+                    const __grid_constant__ CUtensorMap di_map, const float* __restrict__ lse,
+                    const float* __restrict__ di, const int* __restrict__ seg,
+                    __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1,
+                    int* __restrict__ walked, int BH, int H, int N, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (hw::smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = hw::smem_u32(smem);
+  BwdVec* vec = reinterpret_cast<BwdVec*>(smem + 2 * kRegion);
+  BwdCtl* ctl = reinterpret_cast<BwdCtl*>(smem + 2 * kRegion + 2 * sizeof(BwdVec));
+
+  const int units = (N + kTileRows - 1) / kTileRows;  // per head; also walked tiles per unit
+  const int total = BH * units;
+  const int G = 2 * gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kStageBytes = 2 * kTileBytes + (kDkv ? 2 * kVecBox * 4 : 0);
+
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < 2; ++g) {
+      BwdCtl& c = ctl[g];
+      for (int b = 0; b < kBufs; ++b) {
+        hw::mbar_init(hw::smem_u32(&c.own_full[b]), 1);
+        hw::mbar_init(hw::smem_u32(&c.own_empty[b]), 4);
+      }
+      for (int s = 0; s < kStages; ++s) {
+        hw::mbar_init(hw::smem_u32(&c.full[s]), 1);
+        hw::mbar_init(hw::smem_u32(&c.empty[s]), 4);
+      }
+    }
+    hw::mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qa[4][4], doa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a_frag(qa[kk], qs, warp * 16, kk, gid, tig);
-    a_frag(doa[kk], dos, warp * 16, kk, gid, tig);
-  }
 
-  float dqa[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) dqa[nt][0] = dqa[nt][1] = dqa[nt][2] = dqa[nt][3] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kTile) {
-    __syncthreads();
-    stage(ks, k + head, k0, N);
-    stage(vs, v + head, k0, N);
-    if (threadIdx.x < kTile) {
-      const int r = k0 + threadIdx.x;
-      kid[threadIdx.x] = r < N ? segment_of(sg, r) : 0;
-    }
-    __syncthreads();
-
-    float p[8][4], ds[8][4];  // S → P, and dP → dS: rows = queries, columns = keys
-    mma_abt(p, qa, ks, gid, tig);
-    mma_abt(ds, doa, vs, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + tig * 2 + (e & 1);
-        const bool lo = e < 2;
-        const bool ok = k0 + j < N && (lo ? r0 < N && kid[j] == id0 : r1 < N && kid[j] == id1);
-        const float pe = ok ? exp2f(p[nt][e] * scale_log2 - (lo ? lse0 : lse1)) : 0.f;
-        ds[nt][e] = (ds[nt][e] - (lo ? di0 : di1)) * pe * scale;
+  // region of warpgroup g: own0[kBufs], own1[kBufs], walk0[kStages],
+  // walk1[kStages], one tile each. Unit k of a warpgroup uses own buffer
+  // k % kBufs (phase (k / kBufs) & 1); its kv-th walked tile ring stage
+  // kv % kStages (phase (kv / kStages) & 1).
+  if (warp < 4) {
+    // ---- producer: warp g feeds consumer warpgroup g
+    hw::regs_dealloc<40>();
+    if (warp < 2) {
+      BwdCtl& c = ctl[warp];
+      BwdVec& v = vec[warp];
+      const uint32_t region = base + warp * kRegion;
+      const uint32_t sO0 = region, sO1 = sO0 + kBufs * kTileBytes;
+      const uint32_t sW0 = sO1 + kBufs * kTileBytes, sW1 = sW0 + kStages * kTileBytes;
+      const int w = 2 * blockIdx.x + warp;
+      int kv = 0;
+      for (int k = 0;; ++k) {
+        const int u = unit_at(w, k, G);
+        if (u >= total) break;
+        const int bh = u / units, r0 = (u % units) * kTileRows, b = k % kBufs;
+        const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+        const int2 own = sg ? asis::id_range(sg, r0, kTileRows, N, lane) : make_int2(0, 0);
+        if (lane == 0) {
+          const uint32_t full = hw::smem_u32(&c.own_full[b]);
+          // the buffer's previous unit has had its last products
+          hw::mbar_wait(hw::smem_u32(&c.own_empty[b]), ((k / kBufs) & 1) ^ 1);
+          hw::mbar_expect_tx(full, 2 * kTileBytes);
+          hw::tma_load_3d(sO0 + b * kTileBytes, &own0, full, 0, r0, bh);
+          hw::tma_load_3d(sO1 + b * kTileBytes, &own1, full, 0, r0, bh);
+        }
+        bool uni, uni_next;
+        int j = next_live(sg, own, 0, units, kTileRows, N, lane, uni);
+        while (j < units) {
+          const int nxt = next_live(sg, own, j + 1, units, kTileRows, N, lane, uni_next);
+          if (lane == 0) {
+            const int s = kv % kStages;
+            const uint32_t full = hw::smem_u32(&c.full[s]);
+            // the stage's previous tile has been read (passes at once in round 0)
+            hw::mbar_wait(hw::smem_u32(&c.empty[s]), ((kv / kStages) & 1) ^ 1);
+            c.tile[s] = j;
+            c.flags[s] = (uni ? kUniform : 0) | (nxt >= units ? kLast : 0);
+            hw::mbar_expect_tx(full, kStageBytes);
+            hw::tma_load_3d(sW0 + s * kTileBytes, &walk0, full, 0, j * kTileRows, bh);
+            hw::tma_load_3d(sW1 + s * kTileBytes, &walk1, full, 0, j * kTileRows, bh);
+            if (kDkv) {
+              const int at = (bh * N + j * kTileRows) & ~3;
+              hw::tma_load_1d(hw::smem_u32(v.lse[s]), &lse_map, full, at);
+              hw::tma_load_1d(hw::smem_u32(v.di[s]), &di_map, full, at);
+            }
+          }
+          __syncwarp();
+          ++kv;
+          j = nxt;
+          uni = uni_next;
+        }
       }
+      if (walked != nullptr && lane == 0) atomicAdd(walked, kv);
     }
-    uint32_t dsa[4][4];
-    to_a(dsa, ds);
-    mma_ab(dqa, dsa, ks, lane);
+    return;
   }
-  store_rows(dq + head, dqa, r0, N, tig);
+
+  // ---- consumer warpgroup g
+  hw::regs_alloc<232>();
+  const int g = (warp >> 2) - 1;
+  BwdCtl& c = ctl[g];
+  const BwdVec& v = vec[g];
+  const uint32_t region = base + g * kRegion;
+  const uint32_t sO0 = region, sO1 = sO0 + kBufs * kTileBytes;
+  const uint32_t sW0 = sO1 + kBufs * kTileBytes, sW1 = sW0 + kStages * kTileBytes;
+  const int w = 2 * blockIdx.x + g;
+  const int tig = lane & 3, row = (warp & 3) * 16 + (lane >> 2);  // and row + 8
+  const float sl2 = scale * kLog2e;
+  float acc0[32], acc1[32], s[32], dp[32];
+  uint32_t pa[16], dsa[16];
+
+  int kv = 0;
+  for (int k = 0;; ++k) {
+    const int u = unit_at(w, k, G);
+    if (u >= total) break;
+    const int bh = u / units, u0 = (u % units) * kTileRows, b = k % kBufs;
+    const int r0 = u0 + row;  // this thread's own rows r0, r0 + 8
+    const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+    const int id0 = sg && r0 < N ? __ldg(sg + r0) : 0;
+    const int id1 = sg && r0 + 8 < N ? __ldg(sg + r0 + 8) : 0;
+    // dQ: the own rows' lse (log2 domain) and di; rows ≥ N are not stored
+    const size_t at = static_cast<size_t>(bh) * N;
+    const float l20 = !kDkv && r0 < N ? lse[at + r0] * kLog2e : 0.f;
+    const float l21 = !kDkv && r0 + 8 < N ? lse[at + r0 + 8] * kLog2e : 0.f;
+    const float di0 = !kDkv && r0 < N ? di[at + r0] : 0.f;
+    const float di1 = !kDkv && r0 + 8 < N ? di[at + r0 + 8] : 0.f;
+    const uint64_t d_own0 = hw::sw128_desc(sO0 + b * kTileBytes);
+    const uint64_t d_own1 = hw::sw128_desc(sO1 + b * kTileBytes);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+    hw::mbar_wait(hw::smem_u32(&c.own_full[b]), (k / kBufs) & 1);
+
+    for (bool last = false; !last; ++kv) {
+      const int st = kv % kStages;
+      hw::mbar_wait(hw::smem_u32(&c.full[st]), (kv / kStages) & 1);
+      const int flags = c.flags[st], t0 = c.tile[st] * kTileRows;
+      last = flags & kLast;
+      const bool masked = !(flags & kUniform) || t0 + kTileRows > N || u0 + kTileRows > N;
+      const int off = static_cast<int>((at + t0) & 3);  // dK/dV: where the slices start
+      const uint64_t d_w0 = hw::sw128_desc(sW0 + st * kTileBytes);
+      const uint64_t d_w1 = hw::sw128_desc(sW1 + st * kTileBytes);
+      // dK/dV: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ; dQ: S = Q·Kᵀ, dP = dO·Vᵀ
+      issue_ss2(s, d_own0, d_w0, dp, d_own1, d_w1);
+      hw::wgmma_wait<1>();
+      hw::fence_regs(s);
+      if (kDkv) {
+        if (masked) {
+          p_transposed<true>(s, v.lse[st] + off, sg, t0, r0, id0, id1, N, tig, sl2);
+        } else {
+          p_transposed<false>(s, v.lse[st] + off, sg, t0, r0, id0, id1, N, tig, sl2);
+        }
+        pack(s, pa);
+        issue_rs(acc1, pa, d_w1);  // dV += Pᵀ·dO
+        hw::wgmma_wait<1>();       // dPᵀ is in; dV may still run
+        hw::fence_regs(dp);
+        ds_transposed(dp, s, v.di[st] + off, tig, scale);
+        pack(dp, dsa);
+        issue_rs(acc0, dsa, d_w0);  // dK += dSᵀ·Q
+      } else {
+        if (masked) {
+          p_rows<true>(s, sg, t0, r0, id0, id1, l20, l21, N, tig, sl2);
+        } else {
+          p_rows<false>(s, sg, t0, r0, id0, id1, l20, l21, N, tig, sl2);
+        }
+        hw::wgmma_wait<0>();
+        hw::fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = (dp[i] - ((i & 2) ? di1 : di0)) * s[i] * scale;
+        pack(dp, dsa);
+        issue_rs(acc0, dsa, d_w0);  // dQ += dS·K
+      }
+      // the own tiles' last products are in: the buffer may take the next unit
+      if (last && lane == 0) hw::mbar_arrive(hw::smem_u32(&c.own_empty[b]));
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc0);
+      hw::fence_regs(acc1);
+      hw::fence_regs(pa);
+      hw::fence_regs(dsa);
+      if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.empty[st]));
+    }
+    store_rows(out0 + at * 64, acc0, r0, N, tig);
+    if (kDkv) store_rows(out1 + at * 64, acc1, r0, N, tig);
+  }
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 const float* di, const int* seg, void* dq, void* dk, void* dv, int* walked,
+                 int BH, int H, int N, float scale, cudaStream_t stream) {
+  static hw::LaunchCache dkv_cache, dq_cache;
+  int sms = 0;
+  cudaError_t err = hw::prepare(dkv_cache, fa_bwd_wgmma_kernel<true>, kSmemBytes, &sms);
+  if (err == cudaSuccess) err = hw::prepare(dq_cache, fa_bwd_wgmma_kernel<false>, kSmemBytes, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t n = static_cast<size_t>(BH) * N;
+  if (n >= (1u << 31)) return static_cast<int>(cudaErrorInvalidValue);  // TMA's int coordinates
+  CUtensorMap qm, km, vm, dom, lm, dm;
+  if (!hw::head_map(&qm, q, BH, N, kTileRows) || !hw::head_map(&km, k, BH, N, kTileRows) ||
+      !hw::head_map(&vm, v, BH, N, kTileRows) || !hw::head_map(&dom, dout, BH, N, kTileRows) ||
+      !hw::vec_map(&lm, lse, n, kVecBox) || !hw::vec_map(&dm, di, n, kVecBox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  const int total = BH * ((N + kTileRows - 1) / kTileRows);
+  const int grid = std::min((total + 1) / 2, sms);
+  fa_bwd_wgmma_kernel<true><<<grid, kThreads, kSmemBytes, stream>>>(
+      km, vm, qm, dom, lm, dm, lse, di, seg, static_cast<bf*>(dk), static_cast<bf*>(dv), walked,
+      BH, H, N, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fa_bwd_wgmma_kernel<false><<<grid, kThreads, kSmemBytes, stream>>>(
+      qm, dom, km, vm, lm, dm, lse, di, seg, static_cast<bf*>(dq), nullptr,
+      walked ? walked + 1 : nullptr, BH, H, N, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int kDh>
@@ -490,29 +650,22 @@ extern "C" {
 // q, k, v, do and dq, dk, dv: contiguous (B·H, N, Dh) in one dtype (is_bf16:
 // bfloat16, else float32), Dh one of 16, 32, 64; lse (the forward's, natural
 // log) and di = Σ o·do: (B·H, N) float32; seg: contiguous (B, N) int32
-// segment ids, or null for one segment. Launches the dK/dV kernel, then the
-// dQ kernel, on `stream`; returns the first cudaGetLastError() that is not 0.
+// segment ids, or null for one segment; walked: null, or two int32 to which
+// the bf16 Dh-64 kernels add the (64, 64) tile pairs they walked, the dK/dV
+// kernel's first, counted by the producer warps as the forward's (the
+// CUDA-core paths walk every pair and leave them as they are). Launches the
+// dK/dV kernel, then the dQ kernel, on `stream`; returns the first
+// cudaGetLastError() that is not 0.
 int asis_flash_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* di, const int* seg, void* dq, void* dk,
-                        void* dv, int B, int H, int N, int Dh, float scale, int is_bf16,
-                        void* stream) {
+                        void* dv, int* walked, int B, int H, int N, int Dh, float scale,
+                        int is_bf16, void* stream) {
   const int BH = B * H;
   if (B <= 0 || H <= 0 || N <= 0 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && Dh == kD) {
-    using bf = __nv_bfloat16;
-    const dim3 grid((N + kTile - 1) / kTile, BH);
-    const bf *tq = static_cast<const bf*>(q), *tk = static_cast<const bf*>(k);
-    const bf *tv = static_cast<const bf*>(v), *tdo = static_cast<const bf*>(dout);
-    fa_bwd_dkv_mma_kernel<<<grid, kWarps * 32, 0, s>>>(tq, tk, tv, tdo, lse, di, seg,
-                                                       static_cast<bf*>(dk), static_cast<bf*>(dv),
-                                                       N, H, scale);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    fa_bwd_dq_mma_kernel<<<grid, kWarps * 32, 0, s>>>(tq, tk, tv, tdo, lse, di, seg,
-                                                      static_cast<bf*>(dq), N, H, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (is_bf16 && Dh == 64)
+    return launch_wgmma(q, k, v, dout, lse, di, seg, dq, dk, dv, walked, BH, H, N, scale,
+                       s);
   return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, dout, lse, di, seg, dq, dk, dv, BH, H, N, Dh,
                                            scale, s)
                  : dispatch<float>(q, k, v, dout, lse, di, seg, dq, dk, dv, BH, H, N, Dh, scale,
@@ -520,3 +673,4 @@ int asis_flash_attn_bwd(const void* q, const void* k, const void* v, const void*
 }
 
 }  // extern "C"
+

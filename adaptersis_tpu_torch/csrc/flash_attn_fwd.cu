@@ -15,12 +15,14 @@
 // and 4 × 50 of local crops; the teacher's 64·6 heads of 257) the counting
 // rule bounds it by bytes (q, k, v, o read or written once: ≈ 90 MB for the
 // student, ≈ 27 µs at 3.35 TB/s) over operations (7.5 GFLOP at own-segment
-// length, ≈ 8 µs at 989 TFLOP/s). The kernel does not skip masked tiles, so
-// it computes the full 457² square of scores: the packed layout leaves ≈ 64 %
-// of it masked (257² + 4·50² = 76 049 of 208 849 pairs per row), and at
-// mma.sync rates those operations, plus the latency of 8 key tiles a block
-// walks in order and the launch, bound it. Skipping tiles whose segments
-// cannot meet is the first redesign for a later PR; wgmma/TMA the second.
+// length, ≈ 8 µs at 989 TFLOP/s). The packed layout leaves ≈ 64 % of the
+// student's 457² square masked (257² + 4·50² = 76 049 of 208 849 pairs per
+// row); the kernel walks only the tile pairs whose segments can meet (20 of
+// 32 at 64 queries × 128 keys), and on those the softmax's exp2 on the
+// MUFU pipes costs as much as the two products on the tensor cores, so the
+// design overlaps them (below). At these short rows (1 to 4 key tiles per
+// unit) the ramp of each unit, its first loads and its epilogue, is hidden
+// by the persistent CTA's pipeline running on across units.
 //
 // Numerics follow the library kernel: s = (q·kᵀ in fp32) × scale, the scale
 // applied after the product; pairs of different segments get the additive
@@ -33,20 +35,22 @@
 // No padding to 128: the ragged tail (N = 457, 257) is masked in the kernel.
 //
 // Two paths:
-//   * bf16 with Dh = 64 (every SSL call): one block of 4 warps per (b·h,
-//     64-query tile), mma.sync m16n8k16 bf16 products with fp32
-//     accumulators, an online softmax in the log2 domain over 64-key tiles
-//     staged in shared memory (fa_fwd_mma_kernel);
+//   * bf16 with Dh = 64 (every SSL call): wgmma products fed by TMA, tiles
+//     whose segments cannot meet skipped (fa_fwd_wgmma_kernel, below);
 //   * fp32, or Dh of 16 or 32 (the parity checks and the narrow models):
 //     one thread per query row, fp32 FMAs on the CUDA cores
 //     (fa_fwd_kernel), p rounded to bf16 for bf16 inputs.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "flash_attn.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -54,9 +58,6 @@ namespace {
 using asis::kLn2;
 using asis::kLog2e;
 using asis::kMaskValue;
-using asis::ld_pair;
-using asis::ldmatrix_x2_trans;
-using asis::mma_bf16;
 using asis::pack_bf16;
 using asis::round_as;
 using asis::segment_of;
@@ -147,166 +148,400 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-// ---- tensor-core path: bf16, Dh = 64 ---------------------------------------
+// ---- Hopper path: bf16, Dh = 64 (every SSL call) ---------------------------
 //
-// One block of 4 warps per (b·h, 64-query tile); warp w owns query rows
-// 16w..16w+15, each held by the 4 lanes of a quad. Q stays in registers as
-// mma A fragments; per 64-key tile, K and V are staged in shared memory
-// (rows padded to 72 elements so fragment reads hit 32 distinct banks) with
-// the keys' segment ids, S = Q·Kᵀ and O += P·V run as mma.sync m16n8k16 with
-// fp32 accumulators, and the online softmax keeps the running row max in the
-// log2 domain.
+// K3's design (flash_fwd.cu) with segment ids, the row logsumexp and a finer
+// schedule. One persistent CTA of three warpgroups per SM. Each of the two
+// consumer warpgroups walks its own units, 64 query rows of one head (the
+// height of a wgmma; `unit_at` deals them), so the teacher's ragged tail
+// (N = 257 = 4·64 + 1) costs one 64-row unit, not a 128-row tile. Each has
+// its own pipeline, fed by one warp of the producer warpgroup: lane 0 loads
+// the unit's Q by TMA into one of two buffers, then streams the key tiles
+// (128 keys × 64) whose segment range meets the unit's (`next_live`: the
+// whole warp reduces the ids' ranges) into a 2-stage K/V ring, each stage
+// with a header naming its tile, whether it needs the per-element mask and
+// whether it is the unit's last. The consumers follow the headers: they
+// never walk a skipped tile.
+//
+// Per key tile a consumer warpgroup issues S = Q·Kᵀ as four wgmma
+// m64n128k16 (both operands in shared memory) together with the previous
+// tile's O += P·V (eight wgmma m64n64k16, P from registers, V MN-major), runs
+// the softmax of S while P·V is in flight, then rescales O. The softmax is
+// in the log2 domain with the running max m of the scaled scores. On a
+// uniform tile it takes the max of the raw scores (scale > 0 keeps the
+// order) and p = exp2(s·scale·log2e − m) is one FFMA and one exp2; on a tile
+// straddling a segment boundary each pair compares its ids, and a pair of
+// different segments scores kMaskValue (finite in the log2 domain, so a row
+// whose tile holds no key of its own keeps finite m and l, rescaled away by
+// exp2(kMaskValue − m) = 0 at its first own key). Keys ≥ N (zeros from the
+// tensor map) score −inf, in the last tile only. P is rounded to bf16 in
+// registers before P·V; l sums the unrounded p. The epilogue stores O / l
+// rounded once to bf16, and lse = (m + log2 l)·ln 2, for rows < N.
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaBQ = 16 * kMmaWarps;  // queries per block
-constexpr int kMmaBK = 64;              // keys per tile
-constexpr int kMmaD = 64;               // head width
-constexpr int kPad = kMmaD + 8;         // padded shared-memory row (elements)
+namespace hw = asis::hopper;
+using asis::kLast;
+using asis::kUniform;
+using asis::next_live;
+using asis::unit_at;
 
-__global__ void __launch_bounds__(kMmaWarps * 32)
-fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int N, int H,
-                  float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kMmaBK][kPad];
-  __shared__ __align__(16) __nv_bfloat16 vs[kMmaBK][kPad];
-  __shared__ int kid[kMmaBK];
+constexpr int kUnit = 64;                          // query rows per unit
+constexpr int kKeys = 128;                         // keys per tile
+constexpr int kStages = 2;                         // K/V ring depth per consumer warpgroup
+constexpr int kQBytes = kUnit * 64 * 2;            // one 64 × 64 bf16 tile
+constexpr int kKVBytes = kKeys * 64 * 2;           // one 128 × 64 bf16 tile
+constexpr int kRegion = 2 * kQBytes + 2 * kStages * kKVBytes;  // per consumer warpgroup
+constexpr int kThreads = 3 * 128;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
-  const int bh = blockIdx.y;
-  const size_t head = (size_t)bh * N * kMmaD;
-  const int* sg = seg ? seg + (size_t)(bh / H) * N : nullptr;
-  const int r0 = blockIdx.x * kMmaBQ + warp * 16 + gid;  // this thread's two rows
-  const int r1 = r0 + 8;
-  const int id0 = r0 < N ? segment_of(sg, r0) : 0;
-  const int id1 = r1 < N ? segment_of(sg, r1) : 0;
+struct FwdCtl {
+  uint64_t q_full[2], q_empty[2], k_full[kStages], v_full[kStages], empty[kStages];
+  int tile[kStages], flags[kStages];
+};
+constexpr int kSmemBytes = 2 * kRegion + 2 * static_cast<int>(sizeof(FwdCtl)) + 1024;
 
-  // Q as A fragments: qa[kk] covers head dims 16kk..16kk+15
-  uint32_t qa[4][4];
+// This thread's share of a 64 × 128 score tile: rows r0 (registers 4j,
+// 4j + 1) and r0 + 8 (4j + 2, 4j + 3) at keys k0 + 8j + 2·tig (+1).
+
+// A uniform tile (no segment mask; keys ≥ N masked when kTail): the new
+// running maxima n0, n1 (log2 domain), S → P in place, P's row sums.
+template <bool kTail>
+__device__ __forceinline__ void softmax_uniform(float (&sc)[64], int k0, int N, int tig,
+                                                float sl2, float m0, float m1, float& n0,
+                                                float& n1, float& ln0, float& ln1) {
+  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qa[kk][0] = r0 < N ? ld_pair(q + head + (size_t)r0 * kMmaD + c) : 0u;
-    qa[kk][1] = r1 < N ? ld_pair(q + head + (size_t)r1 * kMmaD + c) : 0u;
-    qa[kk][2] = r0 < N ? ld_pair(q + head + (size_t)r0 * kMmaD + c + 8) : 0u;
-    qa[kk][3] = r1 < N ? ld_pair(q + head + (size_t)r1 * kMmaD + c + 8) : 0u;
+  for (int j = 0; j < 16; ++j) {
+    float* s = sc + 4 * j;
+    if (kTail) {
+      const int key = k0 + 8 * j + 2 * tig;
+      if (key >= N) s[0] = s[2] = -CUDART_INF_F;
+      if (key + 1 >= N) s[1] = s[3] = -CUDART_INF_F;
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[0], s[1]));
+    mx1 = fmaxf(mx1, fmaxf(s[2], s[3]));
   }
-
-  float acc[8][4];  // O: 16 rows × 64 dims per warp, as 8 C fragments
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max (log2 domain), rows r0, r1
-  float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
-
-  for (int k0 = 0; k0 < N; k0 += kMmaBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kMmaBK * kMmaD / 8; i += kMmaWarps * 32) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;  // keys past N: zeros
-      if (k0 + r < N) {
-        const size_t off = head + (size_t)(k0 + r) * kMmaD + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-      *reinterpret_cast<uint4*>(&vs[r][c]) = vv;
-    }
-    if (threadIdx.x < kMmaBK && k0 + threadIdx.x < N) kid[threadIdx.x] = segment_of(sg, k0 + threadIdx.x);
-    __syncthreads();
-
-    // S = Q·Kᵀ: 8 fragments of 16 rows × 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* kr = &ks[nt * 8 + gid][kk * 16 + tig * 2];
-        mma_bf16(s[nt], qa[kk], ld_pair(kr), ld_pair(kr + 8));
-      }
-    }
-
-    // scale into the log2 domain, mask, row max over the quad
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = nt * 8 + tig * 2 + (e & 1);
-        const int id = e < 2 ? id0 : id1;
-        s[nt][e] = k0 + key >= N ? -CUDART_INF_F
-                                 : (kid[key] == id ? s[nt][e] * scale_log2 : kMaskValue);
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    // key k0 < N exists, so the tile max is finite (≥ kMaskValue)
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);  // 0 on the first tile
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      acc[nt][0] *= a0;
-      acc[nt][1] *= a0;
-      acc[nt][2] *= a1;
-      acc[nt][3] *= a1;
-    }
-
-    // P = exp2(S − m), packed straight into A fragments: keys 16kk..16kk+15
-    // are C fragments 2kk (A regs 0, 1) and 2kk+1 (A regs 2, 3)
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = exp2f(s[nt][0] - m0), p1 = exp2f(s[nt][1] - m0);
-      const float p2 = exp2f(s[nt][2] - m1), p3 = exp2f(s[nt][3] - m1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pa[nt >> 1][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O += P·V; V's B fragments come transposed out of row-major shared memory
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, &vs[kk * 16 + (lane & 15)][nt * 8]);
-        mma_bf16(acc[nt], pa[kk], b0, b1);
-      }
-    }
-  }
-
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
   }
-  // each row's own key is in its segment: m is a real score and l ≥ 1
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  // key k0 < N is real, so the raw maxima are finite
+  n0 = fmaxf(m0, mx0 * sl2);
+  n1 = fmaxf(m1, mx1 * sl2);
+  ln0 = ln1 = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int c = nt * 8 + tig * 2;
-    if (r0 < N)
-      *reinterpret_cast<uint32_t*>(o + head + (size_t)r0 * kMmaD + c) =
-          pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    if (r1 < N)
-      *reinterpret_cast<uint32_t*>(o + head + (size_t)r1 * kMmaD + c) =
-          pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
+  for (int j = 0; j < 16; ++j) {
+    float* s = sc + 4 * j;
+    // exp2(−inf) = 0 for the masked tail
+    s[0] = hw::ex2(fmaf(s[0], sl2, -n0));
+    s[1] = hw::ex2(fmaf(s[1], sl2, -n0));
+    s[2] = hw::ex2(fmaf(s[2], sl2, -n1));
+    s[3] = hw::ex2(fmaf(s[3], sl2, -n1));
+    ln0 += s[0] + s[1];
+    ln1 += s[2] + s[3];
   }
-  if (tig == 0) {
-    if (r0 < N) lse[(size_t)bh * N + r0] = (m0 + log2f(l0)) * kLn2;
-    if (r1 < N) lse[(size_t)bh * N + r1] = (m1 + log2f(l1)) * kLn2;
+}
+
+// A tile straddling a segment boundary: each pair compares its ids.
+__device__ __forceinline__ void softmax_ids(float (&sc)[64], const int* __restrict__ sg, int k0,
+                                            int N, int tig, float sl2, int id0, int id1,
+                                            float m0, float m1, float& n0, float& n1, float& ln0,
+                                            float& ln1) {
+  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float* s = sc + 4 * j;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + 8 * j + 2 * tig + e;
+      const int kid = key < N ? __ldg(sg + key) : 0;
+      s[e] = key >= N ? -CUDART_INF_F : (kid == id0 ? s[e] * sl2 : kMaskValue);
+      s[e + 2] = key >= N ? -CUDART_INF_F : (kid == id1 ? s[e + 2] * sl2 : kMaskValue);
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[0], s[1]));
+    mx1 = fmaxf(mx1, fmaxf(s[2], s[3]));
   }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  n0 = fmaxf(m0, mx0);  // ≥ kMaskValue: finite
+  n1 = fmaxf(m1, mx1);
+  ln0 = ln1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float* s = sc + 4 * j;
+    s[0] = hw::ex2(s[0] - n0);
+    s[1] = hw::ex2(s[1] - n0);
+    s[2] = hw::ex2(s[2] - n1);
+    s[3] = hw::ex2(s[3] - n1);
+    ln0 += s[0] + s[1];
+    ln1 += s[2] + s[3];
+  }
+}
+
+// One tile's softmax: S becomes P, m the new running maxima, O's correction
+// factors a = exp2(m_old − m_new) (0 on the first tile), l the row sums.
+__device__ __forceinline__ void softmax(float (&sc)[64], int flags, const int* sg, int k0, int N,
+                                        int tig, float sl2, int id0, int id1, float& m0,
+                                        float& m1, float& a0, float& a1, float& l0, float& l1) {
+  float n0, n1, ln0, ln1;
+  if (!(flags & kUniform)) {
+    softmax_ids(sc, sg, k0, N, tig, sl2, id0, id1, m0, m1, n0, n1, ln0, ln1);
+  } else if (k0 + kKeys > N) {
+    softmax_uniform<true>(sc, k0, N, tig, sl2, m0, m1, n0, n1, ln0, ln1);
+  } else {
+    softmax_uniform<false>(sc, k0, N, tig, sl2, m0, m1, n0, n1, ln0, ln1);
+  }
+  a0 = hw::ex2(m0 - n0);
+  a1 = hw::ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  l0 = l0 * a0 + ln0;
+  l1 = l1 * a1 + ln1;
+}
+
+// P as bf16 A fragments: keys 16kk..16kk+15 of rows r0 and r0 + 8 are
+// pa[4kk..4kk+3], the accumulator's layout.
+__device__ __forceinline__ void pack_p(const float (&sc)[64], uint32_t (&pa)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+__device__ __forceinline__ void rescale(float (&acc)[32], float a0, float a1) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    acc[4 * i] *= a0;
+    acc[4 * i + 1] *= a0;
+    acc[4 * i + 2] *= a1;
+    acc[4 * i + 3] *= a1;
+  }
+}
+
+// Each group of wgmmas is fenced as CUTLASS fences it: its register
+// operands are pinned before wgmma.fence and after the commit.
+__device__ __forceinline__ void issue_qk(float (&sc)[64], uint64_t dq, uint64_t dk) {
+  hw::fence_regs(sc);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hw::wgmma_m64n128k16_ss(sc, dq + 2 * kk, dk + 2 * kk, kk);
+  hw::wgmma_commit();
+  hw::fence_regs(sc);
+}
+
+__device__ __forceinline__ void issue_pv(float (&acc)[32], uint32_t (&pa)[32], uint64_t dv) {
+  hw::fence_regs(acc);
+  hw::fence_regs(pa);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) hw::wgmma_m64n64k16_rs(acc, pa + 4 * kk, dv + 128 * kk);
+  hw::wgmma_commit();
+  hw::fence_regs(acc);
+  hw::fence_regs(pa);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int* __restrict__ walked, int BH, int H, int N, float sl2) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (hw::smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t base = hw::smem_u32(smem);
+  FwdCtl* ctl = reinterpret_cast<FwdCtl*>(smem + 2 * kRegion);
+
+  const int units = (N + kUnit - 1) / kUnit;  // per head
+  const int total = BH * units;
+  const int tiles = (N + kKeys - 1) / kKeys;  // key tiles per head
+  const int G = 2 * gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < 2; ++g) {
+      FwdCtl& c = ctl[g];
+      for (int b = 0; b < 2; ++b) {
+        hw::mbar_init(hw::smem_u32(&c.q_full[b]), 1);
+        hw::mbar_init(hw::smem_u32(&c.q_empty[b]), 4);
+      }
+      for (int s = 0; s < kStages; ++s) {
+        hw::mbar_init(hw::smem_u32(&c.k_full[s]), 1);
+        hw::mbar_init(hw::smem_u32(&c.v_full[s]), 1);
+        hw::mbar_init(hw::smem_u32(&c.empty[s]), 4);
+      }
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // unit k of warpgroup w uses Q buffer k % 2 (phase (k / 2) & 1); the kv-th
+  // walked tile uses ring stage kv % kStages (phase (kv / kStages) & 1)
+  if (warp < 4) {
+    // ---- producer: warp g feeds consumer warpgroup g
+    hw::regs_dealloc<40>();
+    if (warp < 2) {
+      FwdCtl& c = ctl[warp];
+      const uint32_t region = base + warp * kRegion;
+      const uint32_t sK = region + 2 * kQBytes, sV = sK + kStages * kKVBytes;
+      const int w = 2 * blockIdx.x + warp;
+      int kv = 0;
+      for (int k = 0;; ++k) {
+        const int u = unit_at(w, k, G);
+        if (u >= total) break;
+        const int bh = u / units, q0 = (u % units) * kUnit, b = k & 1;
+        const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+        const int2 own = sg ? asis::id_range(sg, q0, kUnit, N, lane) : make_int2(0, 0);
+        if (lane == 0) {
+          // the buffer's previous unit has had its last Q·Kᵀ
+          hw::mbar_wait(hw::smem_u32(&c.q_empty[b]), ((k >> 1) & 1) ^ 1);
+          hw::mbar_expect_tx(hw::smem_u32(&c.q_full[b]), kQBytes);
+          hw::tma_load_3d(region + b * kQBytes, &qmap, hw::smem_u32(&c.q_full[b]), 0, q0, bh);
+        }
+        bool uni, uni_next;
+        int j = next_live(sg, own, 0, tiles, kKeys, N, lane, uni);
+        while (j < tiles) {
+          const int nxt = next_live(sg, own, j + 1, tiles, kKeys, N, lane, uni_next);
+          if (lane == 0) {
+            const int s = kv % kStages;
+            // the stage's previous tile has been read (passes at once in round 0)
+            hw::mbar_wait(hw::smem_u32(&c.empty[s]), ((kv / kStages) & 1) ^ 1);
+            c.tile[s] = j;
+            c.flags[s] = (uni ? kUniform : 0) | (nxt >= tiles ? kLast : 0);
+            hw::mbar_expect_tx(hw::smem_u32(&c.k_full[s]), kKVBytes);
+            hw::tma_load_3d(sK + s * kKVBytes, &kmap, hw::smem_u32(&c.k_full[s]), 0, j * kKeys,
+                            bh);
+            hw::mbar_expect_tx(hw::smem_u32(&c.v_full[s]), kKVBytes);
+            hw::tma_load_3d(sV + s * kKVBytes, &vmap, hw::smem_u32(&c.v_full[s]), 0, j * kKeys,
+                            bh);
+          }
+          __syncwarp();
+          ++kv;
+          j = nxt;
+          uni = uni_next;
+        }
+      }
+      if (walked != nullptr && lane == 0) atomicAdd(walked, kv);
+    }
+  } else {
+    // ---- consumer warpgroup g
+    hw::regs_alloc<232>();
+    const int g = (warp >> 2) - 1;
+    FwdCtl& c = ctl[g];
+    const uint32_t region = base + g * kRegion;
+    const uint32_t sK = region + 2 * kQBytes, sV = sK + kStages * kKVBytes;
+    const int w = 2 * blockIdx.x + g;
+    const int tig = lane & 3, row = (warp & 3) * 16 + (lane >> 2);  // and row + 8
+    float acc[32], sc[64];
+    uint32_t pa[32];
+
+    int kv = 0;
+    for (int k = 0;; ++k) {
+      const int u = unit_at(w, k, G);
+      if (u >= total) break;
+      const int bh = u / units, r0 = (u % units) * kUnit + row, b = k & 1;
+      const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+      // rows ≥ N are not stored: any id will do
+      const int id0 = sg && r0 < N ? __ldg(sg + r0) : 0;
+      const int id1 = sg && r0 + 8 < N ? __ldg(sg + r0 + 8) : 0;
+      const uint64_t dq = hw::sw128_desc(region + b * kQBytes);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max (log2 domain)
+      float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
+      float a0, a1;
+
+      // the first walked tile: S and its softmax (O is still zero)
+      hw::mbar_wait(hw::smem_u32(&c.q_full[b]), (k >> 1) & 1);
+      int s = kv % kStages;
+      hw::mbar_wait(hw::smem_u32(&c.k_full[s]), (kv / kStages) & 1);
+      int flags = c.flags[s], k0 = c.tile[s] * kKeys;
+      issue_qk(sc, dq, hw::sw128_desc(sK + s * kKVBytes));
+      hw::wgmma_wait<0>();
+      hw::fence_regs(sc);
+      if ((flags & kLast) && lane == 0) hw::mbar_arrive(hw::smem_u32(&c.q_empty[b]));
+      softmax(sc, flags, sg, k0, N, tig, sl2, id0, id1, m0, m1, a0, a1, l0, l1);
+      pack_p(sc, pa);
+      int prev = kv++;
+
+      // the next walked tile: S_j = Q·K_jᵀ and O += P_{j−1}·V_{j−1} both in
+      // flight; the softmax of S_j runs while P·V does; once P·V is in O
+      // (the previous stage is read), O takes S_j's correction and P_j is
+      // packed
+      while (!(flags & kLast)) {
+        s = kv % kStages;
+        const int sp = prev % kStages;
+        hw::mbar_wait(hw::smem_u32(&c.k_full[s]), (kv / kStages) & 1);
+        flags = c.flags[s];
+        k0 = c.tile[s] * kKeys;
+        hw::mbar_wait(hw::smem_u32(&c.v_full[sp]), (prev / kStages) & 1);
+        issue_qk(sc, dq, hw::sw128_desc(sK + s * kKVBytes));
+        issue_pv(acc, pa, hw::sw128_desc(sV + sp * kKVBytes));
+        hw::wgmma_wait<1>();  // S_j is ready; P·V may still run
+        hw::fence_regs(sc);
+        if ((flags & kLast) && lane == 0) hw::mbar_arrive(hw::smem_u32(&c.q_empty[b]));
+        softmax(sc, flags, sg, k0, N, tig, sl2, id0, id1, m0, m1, a0, a1, l0, l1);
+        hw::wgmma_wait<0>();
+        hw::fence_regs(acc);
+        hw::fence_regs(pa);
+        if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.empty[sp]));
+        rescale(acc, a0, a1);
+        pack_p(sc, pa);
+        prev = kv++;
+      }
+
+      // the last walked tile's P·V
+      const int sl = prev % kStages;
+      hw::mbar_wait(hw::smem_u32(&c.v_full[sl]), (prev / kStages) & 1);
+      issue_pv(acc, pa, hw::sw128_desc(sV + sl * kKVBytes));
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc);
+      hw::fence_regs(pa);
+      if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.empty[sl]));
+
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      // each row's own key is in its segment: m is a real score and l ≥ 1
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      __nv_bfloat16* head = o + static_cast<size_t>(bh) * N * 64;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = i * 8 + tig * 2;
+        if (r0 < N)
+          *reinterpret_cast<uint32_t*>(head + static_cast<size_t>(r0) * 64 + col) =
+              pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+        if (r0 + 8 < N)
+          *reinterpret_cast<uint32_t*>(head + static_cast<size_t>(r0 + 8) * 64 + col) =
+              pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+      }
+      if (tig == 0) {
+        if (r0 < N) lse[static_cast<size_t>(bh) * N + r0] = (m0 + log2f(l0)) * kLn2;
+        if (r0 + 8 < N) lse[static_cast<size_t>(bh) * N + r0 + 8] = (m1 + log2f(l1)) * kLn2;
+      }
+    }
+  }
+}
+
+int launch_wgmma(const void* q, const void* k, const void* v, const int* seg, void* o,
+                 float* lse, int* walked, int BH, int H, int N, float scale,
+                 cudaStream_t stream) {
+  static hw::LaunchCache cache;
+  int sms = 0;
+  const cudaError_t err = hw::prepare(cache, fa_fwd_wgmma_kernel, kSmemBytes, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!(scale > 0.f)) return static_cast<int>(cudaErrorInvalidValue);  // the max of raw scores
+  CUtensorMap qm, km, vm;
+  if (!hw::head_map(&qm, q, BH, N, kUnit) || !hw::head_map(&km, k, BH, N, kKeys) ||
+      !hw::head_map(&vm, v, BH, N, kKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // one CTA per SM (at most one per two units), each walking its units
+  const int total = BH * ((N + kUnit - 1) / kUnit);
+  fa_fwd_wgmma_kernel<<<std::min((total + 1) / 2, sms), kThreads, kSmemBytes, stream>>>(
+      qm, km, vm, seg, static_cast<__nv_bfloat16*>(o), lse, walked, BH, H, N,
+      scale * kLog2e);  // the kernel exponentiates with exp2
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int kDh>
@@ -336,24 +571,23 @@ extern "C" {
 
 // q, k, v, o: contiguous (B·H, N, Dh) in one dtype (is_bf16: bfloat16, else
 // float32), Dh one of 16, 32, 64; seg: contiguous (B, N) int32 segment ids,
-// or null for one segment; lse: (B·H, N) float32, natural log. Launches on
+// or null for one segment; lse: (B·H, N) float32, natural log. walked:
+// null, or one int32 to which the bf16 Dh-64 kernel adds the (64-query,
+// 128-key) tile pairs it walked, counted by the producer warps that stream
+// them (the consumers follow their headers; counting there costs spills).
+// The CUDA-core paths walk every pair and leave it as it is. Launches on
 // `stream` and returns cudaGetLastError() (0 = launched).
 int asis_flash_attn_fwd(const void* q, const void* k, const void* v, const int* seg, void* o,
-                        float* lse, int B, int H, int N, int Dh, float scale, int is_bf16,
-                        void* stream) {
+                        float* lse, int* walked, int B, int H, int N, int Dh, float scale,
+                        int is_bf16, void* stream) {
   const int BH = B * H;
   if (B <= 0 || H <= 0 || N <= 0 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && Dh == kMmaD) {
-    const dim3 grid((N + kMmaBQ - 1) / kMmaBQ, BH);
-    fa_fwd_mma_kernel<<<grid, kMmaWarps * 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg, static_cast<__nv_bfloat16*>(o), lse, N, H,
-        scale * kLog2e);  // the kernel exponentiates with exp2
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (is_bf16 && Dh == 64)
+    return launch_wgmma(q, k, v, seg, o, lse, walked, BH, H, N, scale, s);
   return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, seg, o, lse, BH, H, N, Dh, scale, s)
                  : dispatch<float>(q, k, v, seg, o, lse, BH, H, N, Dh, scale, s);
 }
 
 }  // extern "C"
+

@@ -45,7 +45,6 @@
 // per chunk of 16 keys.
 
 #include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
@@ -463,66 +462,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, reached through the runtime, so
-// the library needs no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A (B·H, N, 64) bf16 tensor as 128 × 64 boxes, swizzled in 128-byte atoms;
-// rows past N read as zeros.
-bool head_map(CUtensorMap* map, const void* ptr, int BH, int N) {
-  const auto encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {kHead, static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {kHead * 2, static_cast<cuuint64_t>(N) * kHead * 2};
-  const cuuint32_t box[3] = {kHead, 128, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH, int N, float scale,
                  cudaStream_t stream) {
   // more than 48 KB of dynamic shared memory: allowed once per card, when
   // its SM count is read
-  static bool smem_set[64] = {};
-  static int sms[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static hw::LaunchCache cache;
+  int sms = 0;
+  const cudaError_t err = hw::prepare(cache, flash_fwd_wgmma_kernel, kSmemBytes, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[dev] = true;
-  }
   if (!(scale > 0.f)) return static_cast<int>(cudaErrorInvalidValue);  // the max is of raw scores
   CUtensorMap qm, km, vm;
-  if (!head_map(&qm, q, BH, N) || !head_map(&km, k, BH, N) || !head_map(&vm, v, BH, N))
+  if (!hw::head_map(&qm, q, BH, N, kRows) || !hw::head_map(&km, k, BH, N, kKeys) ||
+      !hw::head_map(&vm, v, BH, N, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   // one CTA per SM, each walking its share of the query tiles
   const int total = BH * ((N + kRows - 1) / kRows);
-  flash_fwd_wgmma_kernel<<<std::min(total, sms[dev]), kThreads, kSmemBytes, stream>>>(
+  flash_fwd_wgmma_kernel<<<std::min(total, sms), kThreads, kSmemBytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), BH, N,
       scale * 1.4426950408889634f);  // log2(e): the kernel exponentiates with exp2
   return static_cast<int>(cudaGetLastError());

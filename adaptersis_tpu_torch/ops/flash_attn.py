@@ -10,7 +10,8 @@ block-diagonal mask), the teacher walks its global crops as one segment.
 `csrc/flash_attn_fwd.cu`, which also writes the row logsumexp, and its
 backward `csrc/flash_attn_bwd.cu` (a dK/dV kernel and a dQ kernel); on a
 CPU tensor both run the plain versions here. The port runs the true lengths:
-no padding to 128, the ragged tail is masked in the kernels.
+no padding to 128, the ragged tail is masked in the kernels. The bf16
+kernels walk only the tile pairs whose segments can meet (`live_tiles`).
 
 The plain versions follow the library kernel's rounding points:
   s  = (q·kᵀ in fp32) × scale, the scale applied after the product, plus
@@ -35,6 +36,37 @@ launches = 0
 bwd_launches = 0
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+
+def live_tiles(segment_ids: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """The tile pairs the kernels walk: (B, ⌈N/rows⌉, ⌈N/cols⌉) bool, True
+    where the segment ids of query tile i (`rows` tokens) and key tile j
+    (`cols` tokens) can meet, i.e. where their ranges [min, max] overlap.
+    The last tile of each side holds the tokens up to N.
+
+    Skipping the other pairs is exact, for any ids: disjoint ranges share no
+    id, so every pair of a skipped tile is masked. In the forward such a
+    tile would add exp(mask − m) = 0 to every row (every query meets at
+    least its own key, so m is a real score once the row's walk is over; a
+    masked tile walked first is rescaled by exp(mask − m) = 0 later); in
+    the backward its p = exp(s + mask − lse) is exactly 0, and so is its
+    ds. Interleaved ids give overlapping ranges almost everywhere and
+    simply skip nothing. The kernels (`csrc/flash_attn.cuh` `next_live`)
+    reduce the same ranges from the ids."""
+    B, N = segment_ids.shape
+
+    def ranges(size):
+        n = -(-N // size)
+        info = torch.iinfo(segment_ids.dtype)
+
+        def padded(value):   # the last tile's missing tokens take no part
+            pad = segment_ids.new_full((B, n * size - N), value)
+            return torch.cat([segment_ids, pad], 1).view(B, n, size)
+
+        return padded(info.max).amin(-1), padded(info.min).amax(-1)
+
+    (qlo, qhi), (klo, khi) = ranges(rows), ranges(cols)
+    return (qlo[:, :, None] <= khi[:, None, :]) & (klo[:, None, :] <= qhi[:, :, None])
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -106,17 +138,29 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _walked(name: str, walked: Optional[torch.Tensor], n: int, device) -> None:
+    if walked is not None and (walked.dtype != torch.int32 or walked.shape != (n,)
+                               or walked.device != device or not walked.is_contiguous()):
+        raise ValueError(f"{name}: walked must be a contiguous ({n},) int32 tensor on {device}, "
+                         f"got {tuple(walked.shape)} {walked.dtype} {walked.device}")
+
+
 def flash_attn_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                          segment_ids: Optional[torch.Tensor] = None
+                          segment_ids: Optional[torch.Tensor] = None,
+                          walked: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on CUDA tensors: (o, lse) as `flash_attn_fwd_plain`."""
+    """The forward kernel on CUDA tensors: (o, lse) as `flash_attn_fwd_plain`.
+    `walked`, a (1,) int32 tensor, takes the number of (64-query, 128-key)
+    tile pairs the bf16 Dh-64 kernel walked, to hold against `live_tiles`;
+    the CUDA-core paths walk every pair and leave it as it is."""
     _check("flash_attn", q, k, v, segment_ids)
+    _walked("flash_attn", walked, 1, q.device)
     B, H, N, Dh = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     lib = _build.library()
     err = _build.launch(q, lib.asis_flash_attn_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        _ptr(segment_ids), o.data_ptr(), lse.data_ptr(), B, H, N, Dh,
+                        _ptr(segment_ids), o.data_ptr(), lse.data_ptr(), _ptr(walked), B, H, N, Dh,
                         float(scale), int(q.dtype == torch.bfloat16))
     _build.check(lib, err, "flash_attn forward")
     global launches
@@ -126,24 +170,31 @@ def flash_attn_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
 
 def flash_attn_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                           lse: torch.Tensor, do: torch.Tensor, scale: float,
-                          segment_ids: Optional[torch.Tensor] = None
+                          segment_ids: Optional[torch.Tensor] = None,
+                          walked: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels on CUDA tensors: (dq, dk, dv) as
     `flash_attn_bwd_plain`. di = Σ o·do is a plain fp32 reduction, as the
-    library computes it outside its kernels."""
+    library computes it outside its kernels. `walked`, a (2,) int32 tensor,
+    takes the number of (64, 64) tile pairs the bf16 Dh-64 dK/dV and dQ
+    kernels walked, as `flash_attn_fwd_kernel`'s."""
     _check("flash_attn backward", q, k, v, segment_ids)
+    _walked("flash_attn backward", walked, 2, q.device)
     B, H, N, Dh = q.shape
     do = do.to(q.dtype).contiguous()
     if do.shape != q.shape or lse.shape != (B, H, N) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attn backward: do {tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"{lse.dtype} do not match q {tuple(q.shape)}")
-    di = (o.float() * do.float()).sum(dim=-1)
+    # the exact fp32 products of the values, as the plain version's: a new
+    # fp32 copy of o (never o itself, which autograd saved and the caller
+    # holds) times do, one pass less than casting both
+    di = o.to(torch.float32, copy=True).mul_(do).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library()
     err = _build.launch(q, lib.asis_flash_attn_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         do.data_ptr(), lse.contiguous().data_ptr(), di.data_ptr(),
                         _ptr(segment_ids), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        B, H, N, Dh, float(scale), int(q.dtype == torch.bfloat16))
+                        _ptr(walked), B, H, N, Dh, float(scale), int(q.dtype == torch.bfloat16))
     _build.check(lib, err, "flash_attn backward")
     global bwd_launches
     bwd_launches += 1

@@ -30,9 +30,13 @@ seconds since the start):
      forward's o and lse (bf16: at most 5 % of the elements may differ), at
      the SSL step's shapes (ViT-S/14, batch 32): the student's packed rows
      (64, 6, 457, 64), segments 257 + 4 × 50, the teacher's (64, 6, 257, 64)
-     without ids, and interleaved ids at scale 0.1; planted faults must
-     fail: no segment ids, di = 0, p and ds not rounded to bf16, and q
-     scaled before q·kᵀ;
+     without ids, interleaved ids at scale 0.1, and segments whose
+     boundaries fall one token past a tile edge, their straddling keys
+     carrying most of the mass; each case prints the share of tile pairs
+     the kernels walk; planted faults must fail: no segment ids, di = 0, p
+     and ds not rounded to bf16, q scaled before q·kᵀ, and the straddling
+     tokens given the next segment's id; five more bf16 calls at the
+     student's shape give the same bits;
   5. a narrow whole model (fp32, TF32 off), seeded: CPU (plain paths) vs
      CUDA (kernels), eval logits and metrics, and the launches per forward
      (10 K3, 7 K1, 10 K4, 10 K5, 4 K6);
@@ -65,6 +69,15 @@ seconds since the start):
      every student parameter changed (but the last layer, frozen for the
      first epoch), the teacher moved, 24 K7 forwards and 12 K7 backwards per
      step, img/s, MFU and peak memory;
+  8d. the SSL step gate at full width (ViT-S/14, batch 32, bf16, 65536
+     prototypes): the step built twice from the same seeded weights with
+     every LayerScale perturbed, on the same crops and masks, once with K7
+     and once with `flash_attn_plain` patched into the model's layers; the
+     loss and its parts within 1e-2, each trainable subtree's gradients
+     (backbone blocks, patch embed, the other backbone parameters, the
+     DINO head, which iBOT shares) within 1e-1 in normalised L2 distance
+     and max relative error (the JAX gate's bf16 bound); a zero gradient
+     on the plain side fails;
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -323,6 +336,10 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                   lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125), host_too=True)
             bounds[f"flash_fwd B={B} N={N}"] = bound_ms(4 * q.numel() * q.element_size(),
                                                         4 * B * H * N * N * Dh, "bf16")
+            # K7's forward body (no ids) on K3's inputs: whether one body
+            # could serve both
+            extra[f"flash_fwd B={B} N={N}"] = {
+                "k7_fwd_device": device_ms(lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125))}
             del q, k, v
             torch.cuda.empty_cache()
         for i, (case, vshape, Lq, shapes, P) in enumerate(MSDA_CASES):
@@ -422,6 +439,8 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             # reads q, k, v and the ids; writes o and lse; q·kᵀ and p·v over
             # the own-segment pairs
             bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, "bf16")
+            if seg is None:  # K3's body on the teacher's inputs (no lse store)
+                extra[key] = {"k3_device": device_ms(lambda: ff.flash_fwd(q, k, v, 0.125))}
             key = f"flash_attn_bwd {case}"
             side = torch.cuda.Stream()
             with torch.enable_grad():
@@ -484,6 +503,24 @@ def row_hashes(ln) -> dict:
     return out
 
 
+def k3_hashes(ff) -> dict:
+    """sha256 prefixes of K3's output at the walks' bf16 shapes and at one
+    fp32 shape, on seeded inputs: equal hashes from two builds show
+    bit-equal outputs."""
+    import hashlib
+    out = {}
+    with torch.no_grad():
+        for shape, dtype in [(s, torch.bfloat16) for s in FLASH_SHAPES] + [
+                ((2, 4, 257, 64), torch.float32)]:
+            q, k, v = (x.to(dtype) for x in flash_inputs(shape, seed=70))
+            o = ff.flash_fwd(q, k, v, 0.125)
+            torch.cuda.synchronize()
+            out[f"{str(dtype)[6:]} {tuple(shape)}"] = hashlib.sha256(
+                o.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+            del q, k, v, o
+    return out
+
+
 def packed_ids(B: int, segments, device="cuda") -> torch.Tensor:
     """(B, N) int32 segment ids: segment i is `segments[i]` consecutive tokens."""
     ids = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(segments)])
@@ -499,12 +536,73 @@ def k7_inputs(shape, dtype, seed):
     return [x.to(dtype).cuda() for x in (q, k, v, do)]
 
 
+# the straddle case's segments: each boundary after the first falls one
+# token past a tile edge of both the forward's 128-key tiles and the
+# backward's 64-row tiles (tokens 128, 256 and 384 end their segments)
+STRADDLE_SEGMENTS = [129, 63, 65, 63, 65, 72]
+
+
+def straddle_tokens(ids: torch.Tensor) -> torch.Tensor:
+    """Tokens that end their segment one past a 64-token tile edge."""
+    row = ids[0].cpu()
+    t = torch.arange(64, row.numel() - 1, 64)
+    return t[(row[t] == row[t - 1]) & (row[t + 1] != row[t])]
+
+
+def straddle_inputs(shape, dtype, seed, seg):
+    """k7_inputs, with the key of each straddling token set to 3·Σ q/√n over
+    its segment's n queries: it carries about half of its segment's
+    probability mass (36–53 % on average over the segment's queries), so a
+    tile wrongly skipped (or a straddling pair masked) moves o, lse and the
+    gradients far outside their bounds. Not more: as p of one key nears 1,
+    its ds = p·(dp − di) cancels, two correct fp32 computations round it to
+    bf16 differently, and the key's large k carries that flip into the
+    whole row of dq. The plain formulas in fp32 and in float64 (rounded at
+    the same points) differ in 7.6 % of dq's elements at 4·Σ q/√n, in 2.9 %
+    at 3·Σ q/√n, against `K7_DIFFER_SHARE`."""
+    q, k, v, do = k7_inputs(shape, torch.float32, seed)
+    for t in straddle_tokens(seg).tolist():
+        own = seg[0] == seg[0, t]
+        k[:, :, t] = 3 * q[:, :, own].sum(-2) / math.sqrt(int(own.sum()))
+    return [x.to(dtype) for x in (q, k, v, do)]
+
+
+def walked_tiles(fa, seg, shape, counted=None) -> dict:
+    """The tile pairs the kernels walk by `live_tiles`'s rule: per row of the
+    batch (its first) and as a share of all, for the forward's 64 queries ×
+    128 keys and the backward's 64 × 64. `counted`: what the bf16 kernels
+    report they walked (`walked=`), the forward's count and the dK/dV and
+    dQ kernels' two, each beside the rule's total over rows and heads."""
+    B, H, N, _ = shape
+    ids = seg if seg is not None else torch.zeros((B, N), dtype=torch.int32, device="cuda")
+    out = {}
+    for name, (r, c) in (("fwd_64x128", (64, 128)), ("bwd_64x64", (64, 64))):
+        live = fa.live_tiles(ids, r, c)
+        out[name] = {"per_row": f"{int(live[0].sum())}/{live[0].numel()}",
+                     "share": live.float().mean().item()}
+        if counted is not None:
+            out[name].update(kernel_walked=counted[name], rule_total=H * int(live.sum()))
+    return out
+
+
+def kernel_walks(fa, q, k, v, do, o, lse, seg, scale: float) -> dict:
+    """The tile pairs the bf16 kernels count as walked: one forward and one
+    backward call (on the plain forward's o and lse)."""
+    fwd, bwd = (torch.zeros(n, dtype=torch.int32, device="cuda") for n in (1, 2))
+    fa.flash_attn_fwd_kernel(q, k, v, scale, seg, walked=fwd)
+    fa.flash_attn_bwd_kernel(q, k, v, o, lse, do, scale, seg, walked=bwd)
+    return {"fwd_64x128": fwd.tolist(), "bwd_64x64": bwd.tolist()}
+
+
 def k7_outputs(fa, q, k, v, do, seg, plain: bool, scale: float):
     """(o, lse, dq, dk, dv): through flash_attn's autograd (the kernels) or
     through autograd of flash_attn_plain."""
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     o = (fa.flash_attn_plain if plain else fa.flash_attn)(*leaves, scale, seg)
+    kept = o.detach().clone()
     o.backward(do)
+    if not torch.equal(o.detach(), kept):
+        fail(f"flash_attn: the backward wrote into the forward's output (plain={plain})")
     lse = (fa.flash_attn_fwd_plain if plain else fa.flash_attn_fwd_kernel)(q, k, v, scale, seg)[1]
     return [o.detach(), lse] + [x.grad for x in leaves]
 
@@ -599,14 +697,22 @@ def check_k7(fa) -> dict:
     deliberately wrong kernel inputs must fail: no segment ids (a dropped
     mask), o = 0 (so di = 0), and the fp32 kernels on the same values (p
     and ds not rounded to bf16); in the interleaved case, whose scale 0.1
-    is no power of two, q scaled and rounded before the product. Returns
-    the largest bf16 errors at the SSL step's shapes, forward and backward."""
+    is no power of two, q scaled and rounded before the product; in the
+    straddle case (`STRADDLE_SEGMENTS`, `straddle_inputs`) the straddling
+    tokens given the next segment's id in the kernel's ids only. Also in
+    bf16 at the student's shape, five more forward and backward calls must
+    give the same bits. Each case prints the share of tile pairs that
+    `live_tiles` keeps (`walked_tiles`); in bf16 the kernels' own counts of
+    the pairs they walked (`kernel_walks`) must equal the rule's. No
+    backward call may change its o. Returns the largest bf16 errors at the
+    SSL step's shapes, forward and backward."""
     k7_err = {"fwd": 0.0, "bwd": 0.0}
     cases = [(name, shape, packed_ids(shape[0], STUDENT_SEGMENTS) if name == "student" else None,
               0.125) for name, shape in K7_SHAPES.items()]
     inter = torch.randint(0, 5, (8, 457), generator=torch.Generator().manual_seed(3),
                           dtype=torch.int32).cuda()
     cases.append(("interleaved ids", (8, 6, 457, 64), inter, 0.1))
+    cases.append(("straddle", (8, 6, 457, 64), packed_ids(8, STRADDLE_SEGMENTS), 0.125))
     bwd = K7_NAMES[2:]
 
     def caught(report, names, key):
@@ -616,13 +722,18 @@ def check_k7(fa) -> dict:
 
     for dtype in (torch.bfloat16, torch.float32):
         for i, (case, shape, seg, scale) in enumerate(cases):
-            q, k, v, do = k7_inputs(shape, dtype, seed=40 + i)
+            q, k, v, do = (straddle_inputs(shape, dtype, 40 + i, seg) if case == "straddle"
+                           else k7_inputs(shape, dtype, seed=40 + i))
             got = k7_outputs(fa, q, k, v, do, seg, plain=False, scale=scale)
             torch.cuda.synchronize()
             ref = k7_outputs(fa, q, k, v, do, seg, plain=True, scale=scale)
+            ref_o = ref[0].clone()
             alone = list(fa.flash_attn_bwd_kernel(q, k, v, ref[0], ref[1], do, scale, seg))
             allow = k7_allowances(fa, q, k, v, do, seg, ref, scale)
-            report = {"fwd": k7_worst(K7_NAMES[:2], got[:2], ref[:2], allow["fwd"]),
+            counted = (kernel_walks(fa, q, k, v, do, ref[0], ref[1], seg, scale)
+                       if dtype == torch.bfloat16 else None)
+            report = {"walked_tiles": walked_tiles(fa, seg, shape, counted),
+                      "fwd": k7_worst(K7_NAMES[:2], got[:2], ref[:2], allow["fwd"]),
                       "bwd_through_kernel_forward": k7_worst(bwd, got[2:], ref[2:],
                                                              allow["through"]),
                       "bwd_alone": k7_worst(bwd, alone, ref[2:], allow["alone"])}
@@ -641,10 +752,27 @@ def check_k7(fa) -> dict:
                     scale, seg)]
                 r = k7_worst(bwd, wrong, ref[2:], allow["alone"])
                 planted["p_ds_not_rounded"] = (r, caught(r, bwd, "differing_share"))
+                first = [*fa.flash_attn_fwd_kernel(q, k, v, scale, seg),
+                         *fa.flash_attn_bwd_kernel(q, k, v, ref[0], ref[1], do, scale, seg)]
+                report["repeats_bit_identical"] = all(
+                    all(torch.equal(a, b) for a, b in zip(
+                        (*fa.flash_attn_fwd_kernel(q, k, v, scale, seg),
+                         *fa.flash_attn_bwd_kernel(q, k, v, ref[0], ref[1], do, scale, seg)),
+                        first))
+                    for _ in range(5))
+                del first
             if case == "interleaved ids" and dtype == torch.bfloat16:
                 wrong = fa.flash_attn_fwd_kernel((q.float() * scale).to(dtype), k, v, 1.0, seg)
                 r = k7_worst(K7_NAMES[:2], wrong, ref[:2], allow["fwd"])
                 planted["scale_before_qk"] = (r, caught(r, ("lse",), "worst_share_of_bound"))
+            if case == "straddle" and dtype == torch.bfloat16:
+                moved = seg.clone()
+                t = straddle_tokens(seg).cuda()
+                moved[:, t] = seg[:, t + 1]
+                wrong = k7_outputs(fa, q, k, v, do, moved, plain=False, scale=scale)
+                r = {**k7_worst(K7_NAMES[:2], wrong[:2], ref[:2], allow["fwd"]),
+                     **k7_worst(bwd, wrong[2:], ref[2:], allow["through"])}
+                planted["straddling_ids_moved"] = (r, caught(r, K7_NAMES, "worst_share_of_bound"))
             if planted:
                 report["planted_faults"] = {n: {**r, "caught": c} for n, (r, c) in planted.items()}
             say("flash_attn_check", case=case, dtype=str(dtype), shape=list(shape), scale=scale,
@@ -652,6 +780,15 @@ def check_k7(fa) -> dict:
             for n, (_, c) in planted.items():
                 if not c:
                     fail(f"flash_attn: the bound passes a planted fault ({n}, {case})")
+            if not torch.equal(ref[0], ref_o):
+                fail(f"flash_attn: a backward call wrote into its o ({case}, {dtype})")
+            for name, walk in report["walked_tiles"].items():
+                if "kernel_walked" in walk and any(n != walk["rule_total"]
+                                                   for n in walk["kernel_walked"]):
+                    fail(f"flash_attn: the kernels walked {walk['kernel_walked']} tile pairs "
+                         f"({name}, {case}), live_tiles keeps {walk['rule_total']}")
+            if report.get("repeats_bit_identical") is False:
+                fail(f"flash_attn: repeated calls differ ({case})")
             for part, names in (("fwd", K7_NAMES[:2]), ("bwd_through_kernel_forward", bwd),
                                 ("bwd_alone", bwd)):
                 for n in names:
@@ -668,7 +805,7 @@ def check_k7(fa) -> dict:
                 k7_err["bwd"] = max(k7_err["bwd"],
                                     *(report["bwd_through_kernel_forward"][n]["max_abs_err"]
                                       for n in bwd))
-            del q, k, v, do, got, ref, alone, allow
+            del q, k, v, do, got, ref, ref_o, alone, allow
             torch.cuda.empty_cache()
     return k7_err
 
@@ -749,6 +886,106 @@ def check_k3(ff) -> float:
 def own_segment_pairs(B: int, H: int, segments) -> int:
     """Query-key pairs of own segments: the attention work these ids need."""
     return B * H * sum(n * n for n in segments)
+
+
+# the JAX step gate's bf16 bound (VERIFY_STEP_ONCHIP.md): each trainable
+# subtree's normalised L2 distance and max relative error; the losses as its
+# bf16 loss bound
+SSL_GATE_BOUND, SSL_GATE_LOSS_BOUND = 1e-1, 1e-2
+
+
+def ssl_gate_subtree(name: str) -> str:
+    if name.startswith("backbone.blocks."):
+        return "backbone blocks"
+    if name.startswith("backbone.patch_embed."):
+        return "patch embed"
+    if name.startswith("backbone."):
+        return "backbone tokens and final norm"
+    return "DINO head (also the iBOT head)"
+
+
+def ssl_step_gate(fa, counts, reset_counts) -> dict:
+    """Phase 8d: the SSL step at full width (ViT-S/14, batch 32, bf16,
+    65536 prototypes, 8 local crops) built twice from the same seeded
+    weights, every LayerScale drawn from N(0, 0.1²) so that every residual
+    path carries its share, on the same augmented crops and masks (as
+    `bench_ssl` makes them). One side runs K7; the other `flash_attn_plain`,
+    patched into `adaptersis_tpu_torch.models.layers` for its step only.
+    Compared: the loss and its parts (relative, `SSL_GATE_LOSS_BOUND`), and
+    per trainable subtree the student's gradients (normalised L2 distance
+    and max|a − b| / max|b|, `SSL_GATE_BOUND`). A subtree whose gradient is
+    zero on the plain side fails, and so do K7 launches other than 24
+    forwards and 12 backwards on the kernel side and none on the plain."""
+    from adaptersis_tpu_torch.data.augment import draws_to
+    from adaptersis_tpu_torch.models import layers
+    from adaptersis_tpu_torch.models.vit import build_backbone
+    from adaptersis_tpu_torch.ssl.augment import apply_multicrop, draw_multicrop
+    from adaptersis_tpu_torch.ssl.masking import MaskingGenerator, collate_masks_with_indices
+    from adaptersis_tpu_torch.ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to
+
+    G, L, B, n_local, patch, dev = 224, 98, SSL_BATCH, 8, 14, torch.device("cuda")
+    attn_impl, ln_impl, qkv_impl, mlp_impl = layers.TRAINED
+    torch.manual_seed(0)
+    backbone = build_backbone("vit_small", img_size=G, patch_size=patch, attn_impl=attn_impl,
+                              ln_impl=ln_impl, qkv_impl=qkv_impl, mlp_impl=mlp_impl)
+    rng = np.random.default_rng(21)
+    with torch.no_grad():
+        for n, p in backbone.named_parameters():
+            if n.endswith(".gamma"):
+                p.copy_(torch.from_numpy(0.1 * rng.standard_normal(p.shape, np.float32)))
+    cfg = SSLConfig(dino_out_dim=65536, ibot_out_dim=65536, n_local_crops=n_local)
+    kernel_side = SSLMetaArch(backbone, cfg, bf16=True).to(dev)
+    sides = {"kernel": kernel_side, "plain": copy.deepcopy(kernel_side)}
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (B, G + 32, G + 32, 3),
+                                                              np.uint8)).to(dev)
+    draws = draws_to(draw_multicrop(torch.Generator().manual_seed(1), B, n_local), dev)
+    g, l = apply_multicrop(imgs, draws, G, L)
+    grid = G // patch
+    masks = masks_to(collate_masks_with_indices(
+        g.shape[0], grid * grid,
+        MaskingGenerator((grid, grid), num_masking_patches=grid * grid // 2), seed=7), dev)
+    step = dict(lr=1e-3, wd=0.04, momentum=0.992, teacher_temp=0.07, last_layer_lr=1e-3)
+    losses, launches, kernel_attn = {}, {}, layers.flash_attn
+    for side, meta in sides.items():
+        reset_counts()
+        if side == "plain":
+            layers.flash_attn = fa.flash_attn_plain
+        try:
+            losses[side] = {k: float(v) for k, v in meta.train_step(g, l, masks, **step).items()}
+        finally:
+            layers.flash_attn = kernel_attn
+        launches[side] = {k: counts()[k] for k in ("flash_attn", "flash_attn_bwd")}
+    grads = {}
+    for side, meta in sides.items():
+        grads[side] = {}
+        for n, p in meta.student.named_parameters():
+            grads[side].setdefault(ssl_gate_subtree(n), []).append(p.grad.double().flatten())
+    report, dead = {}, []
+    for sub, parts in grads["plain"].items():
+        a, b = torch.cat(grads["kernel"][sub]), torch.cat(parts)
+        nb = b.norm().item()
+        if not nb > 0:
+            dead.append(sub)
+        report[sub] = {"l2_dist": ((a - b).norm() / max(nb, 1e-30)).item(),
+                       "max_rel": ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(),
+                       "norm_plain": nb}
+    loss_err = {k: abs(losses["kernel"][k] - v) / max(abs(v), 1e-30)
+                for k, v in losses["plain"].items()}
+    out = {"losses": losses, "loss_rel_err": loss_err, "subtrees": report,
+           "launches": launches, "bound": SSL_GATE_BOUND, "loss_bound": SSL_GATE_LOSS_BOUND}
+    say("ssl_step_gate", arch="vit_small", batch=B, dtype="bf16", prototypes=65536, **out)
+    if dead:
+        fail(f"SSL step gate: zero gradient on the plain side in {dead}")
+    if launches != {"kernel": SSL_PER_STEP, "plain": {"flash_attn": 0, "flash_attn_bwd": 0}}:
+        fail(f"SSL step gate: K7 launches {launches}")
+    if not all(math.isfinite(v) and v <= SSL_GATE_LOSS_BOUND for v in loss_err.values()):
+        fail(f"SSL step gate: losses differ {loss_err}")
+    for sub, r in report.items():
+        if not (r["l2_dist"] <= SSL_GATE_BOUND and r["max_rel"] <= SSL_GATE_BOUND):
+            fail(f"SSL step gate: {sub} gradients differ: {r}")
+    del sides, kernel_side, grads
+    torch.cuda.empty_cache()
+    return out
 
 
 def narrow_model():
@@ -1343,6 +1580,10 @@ def main() -> None:
     del arch, start
     torch.cuda.empty_cache()
 
+    # ---- 8d. the SSL step at full width, K7 against its plain version
+    # (`ssl_step_gate`)
+    ssl_step_gate(fa, counts, reset_counts)
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
@@ -1402,8 +1643,9 @@ def main() -> None:
 
 
 def times_only() -> None:
-    """`--times`: the build and phase 9 alone, plus `row_hashes`, with no
-    checks: to compare two trees' kernels in one call on one card."""
+    """`--times`: the build and phase 9 alone, plus `row_hashes` and
+    `k3_hashes`, with no checks: to compare two trees' kernels in one call
+    on one card."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, str(ROOT))
@@ -1420,6 +1662,7 @@ def times_only() -> None:
     say("device", name=name, root=str(ROOT), nvidia_smi=smi[0] if smi else "unavailable",
         torch=torch.__version__, cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
     say("row_hashes", **row_hashes(ln))
+    say("k3_hashes", **k3_hashes(ff))
     say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa))
 
 
