@@ -49,7 +49,7 @@
 
 #include "flash_attn.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
+#include "bf16.cuh"
 
 namespace {
 

@@ -51,7 +51,7 @@
 
 #include "flash_attn.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
+#include "bf16.cuh"
 
 namespace {
 

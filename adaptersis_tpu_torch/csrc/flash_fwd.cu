@@ -53,7 +53,7 @@
 #include <algorithm>
 
 #include "hopper.cuh"
-#include "mma.cuh"
+#include "bf16.cuh"
 
 namespace {
 

@@ -1,17 +1,19 @@
 // GEMMs with a LayerNorm prologue and fused epilogues: the frozen ViT
-// block's fused LN → qkv → head split (K4) and fused LN → fc1 → tanh-GELU →
-// fc2 → LayerScale → residual (K5, as two GEMMs).
+// block's LN → qkv → head split (K4) and LN → fc1 → tanh-GELU → fc2 →
+// LayerScale → residual (K5, as two GEMMs).
 //
 // Replaces:
 //   * K4: adaptersis_tpu/ops/fused_qkv.py `_kernel` (via `_fwd_impl`);
 //   * K5: adaptersis_tpu/ops/fused_mlp.py `_kernel` (via `_fwd_impl`).
 //
 // Every call computes out = epilogue(A·Wᵀ + bias) for A (M, K) and the torch
-// Linear weight W (N, K), both contiguous along K. Where the call gives row
-// statistics (from layernorm.cu's row-stats kernel), A is x and each A
-// element is normalised while its tile is loaded, as the TPU kernels do:
-// xn = (x − mean)·(rstd·ln_w) + ln_b in fp32, rounded to x's dtype. The
-// products accumulate in fp32, and each output is rounded once:
+// Linear weight W (N, K), both contiguous along K. A is xn = (x − mean)·
+// (rstd·ln_w) + ln_b in fp32, rounded to x's dtype, as the TPU kernels
+// normalise it: in bf16 the wrappers pass xn written by layernorm.cu's
+// LayerNorm kernel (below); in fp32 they pass x and its row statistics
+// (layernorm.cu's row-stats kernel), and the kernel normalises each A
+// element before its product. Without statistics A is taken as it is.
+// The products accumulate in fp32, and each output is rounded once:
 //   * QKV:   (acc + b) → x's dtype, scattered to q, k, v of (B, H, Ntok, Dh):
 //            column j to (j / C, (j mod C) / Dh, j mod Dh), row r to
 //            (r / Ntok, r mod Ntok) — K3's input layout, with no relayout;
@@ -19,33 +21,36 @@
 //   * RESID: (x + γ·(acc + b2)) in fp32 → x's dtype: K5's output, from the
 //            hidden as A (no prologue).
 // The TPU's K5 kept both weights (16 MB in bf16) resident in VMEM and never
-// wrote the hidden; 227 KB of shared memory cannot hold them, so here the
-// hidden makes one round trip through HBM (2 × 231 MB at batch 16).
+// wrote the hidden; 227 KB of shared memory cannot hold them, and a 128-row
+// block of the hidden (1 MB) cannot stay on the chip beside fc2's 128 × 1024
+// fp32 accumulator (512 KB, twice the register file), so here the hidden
+// makes one round trip through HBM (2 × 231 MB at batch 16).
 //
 // What bounds it on the H100: at the main path's shapes (M = 16·1765 rows,
 // C = 1024) K4 does 177.7 GFLOP on 237.6 MB and K5 473.8 GFLOP on
 // 132.4 MB: both are bound by the tensor cores' bf16 rate (0.180 and
-// 0.479 ms at 989 TFLOP/s). So the bf16 path runs mma.sync m16n8k16 bf16
-// products with fp32 accumulators: 128×256 block tiles (85 FLOP per byte
-// read from L2), 8 warps of 64×64, K in steps of 64, the fragments of the
-// next 16 loaded while the current ones multiply. A and B tiles arrive by
-// cp.async in a 3-stage ring of padded shared memory (rows of 72 elements:
-// ldmatrix reads hit 8 distinct bank groups). With a LayerNorm prologue
-// each thread normalises the A chunks it copied, in place, one tile ahead,
-// while other warps multiply. QKV and GELU outputs are staged through
-// shared memory and written as 16-byte chunks. wgmma, TMA and warp
-// specialisation are later work.
+// 0.479 ms at 989 TFLOP/s), which only wgmma reaches on this card. So the
+// bf16 path is a warp-specialised, persistent wgmma GEMM fed by TMA
+// (gemm_wgmma_kernel, below) with no LayerNorm prologue. TMA copies bytes
+// as they are, so a prologue has to rewrite each landed A tile before the
+// wgmmas read it; each such prologue measured (in shared memory by spare
+// warps or by the consumers, or in registers for register-A wgmmas) cost
+// the GEMM more than the separate LayerNorm pass it saves (≈ 2 × 57.8 MB
+// through HBM at batch 16, ≈ 0.04 ms; PERF.md), so the bf16 path takes xn
+// and refuses row statistics.
 //
-// fp32 (the narrow parity models): the same prologue and epilogues on the
-// CUDA cores, 64×64 tiles, 4×4 outputs per thread, exact fp32 products.
+// fp32 (the narrow parity models): the LayerNorm prologue and the same
+// epilogues on the CUDA cores, 64×64 tiles, 4×4 outputs per thread, exact
+// fp32 products.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <atomic>
+#include <algorithm>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 #include "rows.cuh"
 
 namespace {
@@ -112,194 +117,252 @@ __device__ __forceinline__ void epilogue(const GemmArgs& p, int r, int c, float 
   }
 }
 
-// ---- bf16: tensor cores ----------------------------------------------------
+// ---- bf16: Hopper tensor cores (wgmma fed by TMA) --------------------------
+//
+// One persistent CTA of three warpgroups per SM walks the 128 × 256 output
+// tiles, the 256-column tiles of one 128-row block in turn (so the A block
+// is read from L2 while it is hot; every W of the main path, 6.3 to 8.4 MB,
+// stays in L2 whole). Warpgroup 0 is the producer: its first thread issues
+// the TMA loads of each k-step's A tile (128 × 64) and W tile (256 × 64),
+// 128-byte swizzled, into a ring of kStages stages that runs on across
+// tiles; TMA fills A rows past M with zeros. Warpgroups 1 and 2 are the
+// consumers, 64 rows each: four wgmma m64n256k16 per k-step, 128 fp32
+// accumulators a thread, both operands from shared memory. A consumer
+// issues a k-step's products while the previous k-step's run, then
+// releases that one's stage.
+// setmaxnreg gives the producer warpgroup 40 registers and the consumers
+// 232. Each warpgroup's epilogue rounds its outputs once, stages them in
+// shared memory and stores them as 16-byte chunks (QKV: each chunk to its
+// head's row of q, k or v, which splits a tile's rows at image boundaries
+// and its columns at head and q/k/v boundaries by itself); RESID stages
+// γ·(acc + b2) in fp32 and adds x read as 16-byte chunks. Meanwhile the
+// producer fills the ring with the next tile's first stages.
+
+namespace hw = asis::hopper;
 
 constexpr int kBM = 128, kBN = 256, kBK = 64;
-constexpr int kStages = 3;     // tiles in flight: this one and 2 ahead
-constexpr int kLds = kBK + 8;  // padded shared-memory row (elements)
-constexpr int kThreads = 256;  // 8 warps: 2 along M × 4 along N, 64×64 each
-constexpr int kRowStep = kThreads / (kBK / 8);  // rows one pass of the loaders covers
-constexpr int kAChunks = kBM / kRowStep, kBChunks = kBN / kRowStep;  // per thread
-constexpr int kStageElems = (kBM + kBN) * kLds;  // one A and one B tile
-constexpr int kCLds = kBN + 8;                   // a staged output row (elements)
-constexpr int kSmemBytes = kStages * kStageElems * 2;
-static_assert(kBM * kCLds <= kStages * kStageElems, "the output tile reuses the ring");
+constexpr int kStages = 4;
+constexpr int kThreads = 384;                 // producer warpgroup + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kATile = kBM * kBK * 2;         // 16 KB
+constexpr int kStageBytes = kATile + kBN * kBK * 2;  // + the 32 KB W tile
+constexpr int kStagingOffset = kStages * kStageBytes;  // a consumer warpgroup's outputs:
+constexpr int kStagingBytes = 64 * 256;  // 64 rows × 128 bf16 (QKV, GELU) or 64 fp32 (RESID)
+constexpr int kBarOffset = kStagingOffset + 2 * kStagingBytes;
+constexpr int kSmemBytes = kBarOffset + 8 * 2 * kStages + 1024;  // + slack to align to 1 KB
 
-template <int kEpi>
-__global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(const GemmArgs p) {
+__device__ __forceinline__ float2 param_pair(const void* p, int i, bool is_bf16) {
+  return is_bf16 ? load_pair(static_cast<const __nv_bfloat16*>(p) + i)
+                 : load_pair(static_cast<const float*>(p) + i);
+}
+
+// RESID's epilogue for one consumer warpgroup (thread ct of 128, rows
+// m0 + 64·wg ..): y = γ·(acc + b2) in fp32 is staged in `stage`, 64 rows ×
+// 64 columns at a time (rows of 16 chunks of 4 floats, chunk c of row r at
+// c ^ 2·(r % 8): free of bank conflicts both ways), then each thread reads
+// 8 columns of x as one 16-byte chunk, adds y and stores the rounded sum
+// as one 16-byte chunk.
+__device__ __forceinline__ void store_resid(const GemmArgs& p, const float (&acc)[128],
+                                            uint8_t* stage, int wg, int ct, int m0, int n0) {
   using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);  // stage s: A [kBM][kLds], then B [kBN][kLds]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment row group, thread in group
-  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
-  const bf16* A = static_cast<const bf16*>(p.a);
-  const bf16* W = static_cast<const bf16*>(p.w);
-  const bool ln = p.stats != nullptr;
-
-  // loaders: a tile row is kBK / 8 chunks of 8 elements; this thread copies
-  // chunk lcol of A rows lrow + kRowStep·j (j < kAChunks) and of B rows
-  // lrow + kRowStep·j (j < kBChunks), and normalises its own A chunks once
-  // they have landed
-  const int lrow = tid / (kBK / 8), lcol = (tid % (kBK / 8)) * 8;
-  bool a_ok[kAChunks], b_ok[kBChunks];
-  float mean[kAChunks], rstd[kAChunks];
+  const int warp = ct >> 5, lane = ct & 31, tig = lane & 3;
+  const int group = ct & 7;  // the 8 columns this thread stores, of rows ct / 8 + 16i
 #pragma unroll
-  for (int j = 0; j < kAChunks; ++j) {
-    const int r = bm + lrow + kRowStep * j;
-    a_ok[j] = r < p.M;
-    const float2 st = (ln && a_ok[j]) ? p.stats[r] : make_float2(0.f, 1.f);
-    mean[j] = st.x;
-    rstd[j] = st.y;
-  }
+  for (int quarter = 0; quarter < 4; ++quarter) {
+    hw::named_sync(1 + wg, 128);  // the stage's previous values are read
 #pragma unroll
-  for (int j = 0; j < kBChunks; ++j) b_ok[j] = bn + lrow + kRowStep * j < p.N;
-
-  auto load_tile = [&](int s, int kt) {  // rows past M or N are zero-filled
-    const int k0 = kt * kBK + lcol;
-    bf16* as = ring + s * kStageElems;
-    bf16* bs = as + kBM * kLds;
+    for (int jj = 0; jj < 8; ++jj) {
+      const int j = 8 * quarter + jj, c = n0 + 8 * j + 2 * tig;
+      const bool ok = c < p.N;
+      const float2 bias = ok ? param_pair(p.bias, c, p.pbf) : make_float2(0.f, 0.f);
+      const float2 gamma = ok ? param_pair(p.gamma, c, p.pbf) : make_float2(0.f, 0.f);
+      const int chunk = 2 * jj + (tig >> 1);
 #pragma unroll
-    for (int j = 0; j < kAChunks; ++j)
-      asis::cp_async16(as + (lrow + kRowStep * j) * kLds + lcol,
-                       A + static_cast<size_t>(a_ok[j] ? bm + lrow + kRowStep * j : 0) * p.K +
-                           k0,
-                       a_ok[j] ? 16 : 0);
-#pragma unroll
-    for (int j = 0; j < kBChunks; ++j)
-      asis::cp_async16(bs + (lrow + kRowStep * j) * kLds + lcol,
-                       W + static_cast<size_t>(b_ok[j] ? bn + lrow + kRowStep * j : 0) * p.K +
-                           k0,
-                       b_ok[j] ? 16 : 0);
-  };
-  // xn = (x − mean)·(rstd·ln_w) + ln_b in fp32, rounded to bf16, in place
-  auto normalize = [&](int s, int kt) {
-    float wv[8], bv[8];
-    asis::load_param(p.ln_w, kt * kBK + lcol, p.pbf, wv);
-    asis::load_param(p.ln_b, kt * kBK + lcol, p.pbf, bv);
-#pragma unroll
-    for (int j = 0; j < kAChunks; ++j) {
-      bf16* chunk = ring + s * kStageElems + (lrow + kRowStep * j) * kLds + lcol;
-      float v[8];
-      asis::load_vec(chunk, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = (v[e] - mean[j]) * (rstd[j] * wv[e]) + bv[e];
-      asis::store_vec(chunk, v);
-    }
-  };
-
-  float acc[4][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
-        acc[mt][nt][3] = 0.f;
-
-  const int KT = p.K / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_tile(s, s);
-    asis::cp_async_commit();  // one group per tile, empty past the end
-  }
-  asis::cp_async_wait<kStages - 2>();  // this thread's copies of tile 0 landed
-  if (ln) normalize(0, 0);
-
-  for (int kt = 0; kt < KT; ++kt) {
-    // tile kt is complete and normalised in every thread's part, and every
-    // warp is done with tile kt − 1, whose stage is refilled next
-    __syncthreads();
-    if (kt + kStages - 1 < KT) load_tile((kt + kStages - 1) % kStages, kt + kStages - 1);
-    asis::cp_async_commit();
-    const bf16* as = ring + (kt % kStages) * kStageElems + (wm * 64 + (lane & 15)) * kLds +
-                     (lane >> 4) * 8;
-    // B matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-    const bf16* bs = ring + (kt % kStages) * kStageElems + kBM * kLds +
-                     (wn * 64 + (lane & 7) + ((lane >> 4) << 3)) * kLds + ((lane >> 3) & 1) * 8;
-    // fragments of step kk + 16 load while step kk multiplies
-    uint32_t af[2][4][4], bfr[2][4][4];
-    auto load_frags = [&](int buf, int kk) {
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) asis::ldmatrix_x4(af[buf][mt], as + mt * 16 * kLds + kk);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) asis::ldmatrix_x4(bfr[buf][np], bs + np * 16 * kLds + kk);
-    };
-    load_frags(0, 0);
-#pragma unroll
-    for (int step = 0; step < kBK / 16; ++step) {
-      const int buf = step & 1;
-      if (step + 1 < kBK / 16) load_frags(buf ^ 1, (step + 1) * 16);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-          asis::mma_bf16(acc[mt][nt], af[buf][mt], bfr[buf][nt >> 1][(nt & 1) * 2],
-                         bfr[buf][nt >> 1][(nt & 1) * 2 + 1]);
-    }
-    // the next tile's copies and normalisation overlap other warps' products
-    if (kt + 1 < KT) {
-      asis::cp_async_wait<kStages - 2>();
-      if (ln) normalize((kt + 1) % kStages, kt + 1);
-    }
-  }
-
-  if (kEpi == kResid) {  // reads x at every output: stores straight from registers
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int r = bm + wm * 64 + mt * 16 + gid;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = bn + wn * 64 + nt * 8 + tig * 2;
-        epilogue<bf16, kEpi>(p, r, c, acc[mt][nt][0], acc[mt][nt][1]);
-        epilogue<bf16, kEpi>(p, r + 8, c, acc[mt][nt][2], acc[mt][nt][3]);
+      for (int i = 0; i < 2; ++i) {
+        const int row = warp * 16 + (lane >> 2) + 8 * i;
+        *reinterpret_cast<float2*>(stage + row * 256 + ((chunk ^ ((row & 7) << 1)) << 4) +
+                                   8 * (tig & 1)) =
+            make_float2(gamma.x * (acc[4 * j + 2 * i] + bias.x),
+                        gamma.y * (acc[4 * j + 2 * i + 1] + bias.y));
       }
     }
-    return;
-  }
-  // QKV and GELU: the rounded tile is staged in shared memory, then written
-  // as 16-byte chunks, a warp to a row (QKV: 4 runs of Dh = 64 elements)
-  asis::cp_async_wait<0>();
-  __syncthreads();  // the ring is no longer read
-  bf16* cs = ring;  // [kBM][kCLds]
+    hw::named_sync(1 + wg, 128);  // the stage is written
+    const int c = n0 + 64 * quarter + 8 * group;
+    if (c >= p.N) continue;
+    uint4 x[4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int c = wn * 64 + nt * 8 + tig * 2;
-    const bool ok = bn + c < p.N;
-    const float b0 = ok ? asis::param_at(p.bias, bn + c, p.pbf) : 0.f;
-    const float b1 = ok ? asis::param_at(p.bias, bn + c + 1, p.pbf) : 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + wg * 64 + (ct >> 3) + 16 * i;
+      if (r < p.M)
+        x[i] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(p.resid) +
+                                               static_cast<size_t>(r) * p.N + c);
+    }
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const int r = wm * 64 + mt * 16 + gid;
-      float v[4] = {acc[mt][nt][0] + b0, acc[mt][nt][1] + b1, acc[mt][nt][2] + b0,
-                    acc[mt][nt][3] + b1};
-      if (kEpi == kGelu)
+    for (int i = 0; i < 4; ++i) {
+      const int row = (ct >> 3) + 16 * i, r = m0 + wg * 64 + row;
+      if (r >= p.M) continue;
+      float v[8], y[8];
+      asis::load_vec(reinterpret_cast<const bf16*>(&x[i]), v);
+      const uint8_t* ys = stage + row * 256;
+      const float4 y0 =
+          *reinterpret_cast<const float4*>(ys + (((2 * group) ^ ((row & 7) << 1)) << 4));
+      const float4 y1 =
+          *reinterpret_cast<const float4*>(ys + (((2 * group + 1) ^ ((row & 7) << 1)) << 4));
+      y[0] = y0.x, y[1] = y0.y, y[2] = y0.z, y[3] = y0.w;
+      y[4] = y1.x, y[5] = y1.y, y[6] = y1.z, y[7] = y1.w;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = gelu_tanh(v[e]);
-      *reinterpret_cast<uint32_t*>(cs + r * kCLds + c) = asis::pack_bf16(v[0], v[1]);
-      *reinterpret_cast<uint32_t*>(cs + (r + 8) * kCLds + c) = asis::pack_bf16(v[2], v[3]);
+      for (int e = 0; e < 8; ++e) v[e] += y[e];
+      asis::store_vec(static_cast<bf16*>(p.out0) + static_cast<size_t>(r) * p.N + c, v);
     }
   }
-  __syncthreads();
-  constexpr int kChunks = kBN / 8;  // per row
-#pragma unroll 4
-  for (int i = tid; i < kBM * kChunks; i += kThreads) {
-    const int row = i / kChunks, col = (i % kChunks) * 8;
-    const int r = bm + row, c = bn + col;
-    if (r >= p.M || c >= p.N) continue;
-    const uint4 val = *reinterpret_cast<const uint4*>(cs + row * kCLds + col);
-    bf16* dst;
+}
+
+// QKV's and GELU's epilogue for one consumer warpgroup (thread ct of 128,
+// rows m0 + 64·wg ..): the rounded bf16 outputs are staged in `stage`, 64
+// rows × 128 columns at a time (rows of 16 chunks of 16 bytes, chunk c of
+// row r at c ^ (r % 8): the accumulator's writes and the chunk reads are
+// free of bank conflicts), then stored as 16-byte chunks, a warp to two
+// rows (QKV: each chunk to its head's row in q, k or v).
+template <int kEpi>
+__device__ __forceinline__ void store_staged(const GemmArgs& p, const float (&acc)[128],
+                                             uint8_t* stage, int wg, int ct, int m0, int n0) {
+  using bf16 = __nv_bfloat16;
+  const int warp = ct >> 5, lane = ct & 31, tig = lane & 3;
+  const int chunk = ct & 15;  // the chunk this thread stores, of rows ct / 16 + 8i
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    hw::named_sync(1 + wg, 128);  // the stage's previous chunks are read
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = 16 * half + jj;
+      const int c = n0 + 8 * j + 2 * tig;
+      const float2 bias = c < p.N ? param_pair(p.bias, c, p.pbf) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = warp * 16 + (lane >> 2) + 8 * i;
+        float a0 = acc[4 * j + 2 * i] + bias.x, a1 = acc[4 * j + 2 * i + 1] + bias.y;
+        if (kEpi == kGelu) {
+          a0 = gelu_tanh(a0);
+          a1 = gelu_tanh(a1);
+        }
+        *reinterpret_cast<uint32_t*>(stage + row * 256 + ((jj ^ (row & 7)) << 4) + 4 * tig) =
+            asis::pack_bf16(a0, a1);
+      }
+    }
+    hw::named_sync(1 + wg, 128);  // the stage is written
+    const int c = n0 + 128 * half + 8 * chunk;
+    if (c >= p.N) continue;
+    bf16* dst = static_cast<bf16*>(p.out0) + c;  // GELU: + r·N
     if (kEpi == kQKV) {
       const int C = p.N / 3;
       const int which = c / C, cc = c - which * C;
       const int h = cc / p.dh, d = cc - h * p.dh;
-      const int b = r / p.ntok, n = r - b * p.ntok;
       dst = static_cast<bf16*>(which == 0 ? p.out0 : which == 1 ? p.out1 : p.out2) +
-            ((static_cast<size_t>(b) * p.heads + h) * p.ntok + n) * p.dh + d;
-    } else {
-      dst = static_cast<bf16*>(p.out0) + static_cast<size_t>(r) * p.N + c;
+            static_cast<size_t>(h) * p.ntok * p.dh + d;
     }
-    *reinterpret_cast<uint4*>(dst) = val;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = (ct >> 4) + 8 * i, r = m0 + wg * 64 + row;
+      if (r >= p.M) continue;
+      size_t at;
+      if (kEpi == kQKV) {
+        const int b = r / p.ntok, n = r - b * p.ntok;
+        at = (static_cast<size_t>(b) * p.heads * p.ntok + n) * p.dh;
+      } else {
+        at = static_cast<size_t>(r) * p.N;
+      }
+      *reinterpret_cast<uint4*>(dst + at) =
+          *reinterpret_cast<const uint4*>(stage + row * 256 + ((chunk ^ (row & 7)) << 4));
+    }
+  }
+}
+
+template <int kEpi>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap wmap, const GemmArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // stage s: A at + s·kStageBytes, W after it
+  uint8_t* const base_ptr = smem_raw + (base - raw);
+  const uint32_t full = base + kBarOffset;       // + 8·stage: TMA's bytes landed
+  const uint32_t empty = full + 8 * kStages;     // + 8·stage: the consumers are done with it
+
+  const int ntiles = (p.N + kBN - 1) / kBN;
+  const int total = ((p.M + kBM - 1) / kBM) * ntiles;
+  const int KT = p.K / kBK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hw::mbar_init(full + 8 * s, 1);
+      hw::mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Tiles are dealt to the CTAs in turn. Producer and consumers walk the
+  // same sequence and count its k-steps in g: ring stage g % kStages, phase
+  // (g / kStages) & 1.
+  if (warp < 4) {
+    hw::regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int g = 0;
+      for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+        const int m0 = (tile / ntiles) * kBM, n0 = (tile % ntiles) * kBN;
+        for (int kt = 0; kt < KT; ++kt, ++g) {
+          const int s = g % kStages;
+          hw::mbar_wait(empty + 8 * s, ((g / kStages) & 1) ^ 1);  // passes at once in round 0
+          const uint32_t stage = base + s * kStageBytes;
+          hw::mbar_expect_tx(full + 8 * s, kStageBytes);
+          hw::tma_load_2d(stage, &amap, full + 8 * s, kt * kBK, m0);
+          hw::tma_load_2d(stage + kATile, &wmap, full + 8 * s, kt * kBK, n0);
+        }
+      }
+    }
+  } else {
+    hw::regs_alloc<232>();
+    const int wg = (warp >> 2) - 1, ct = threadIdx.x & 127;
+    uint8_t* const staging = base_ptr + kStagingOffset + wg * kStagingBytes;
+    float acc[128] = {};  // each tile's first wgmma overwrites it
+    int g = 0;
+    // k-step kt (stage g % kStages): wait for its tiles, issue its four
+    // wgmmas, then wait for k-step kt − 1's and release that stage
+    auto step = [&](int kt) {
+      const int s = g % kStages;
+      hw::mbar_wait(full + 8 * s, (g / kStages) & 1);
+      const uint32_t stage = base + s * kStageBytes;
+      const uint64_t da = hw::sw128_desc(stage + wg * 64 * 128);
+      const uint64_t dw = hw::sw128_desc(stage + kATile);
+      hw::fence_regs(acc);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        hw::wgmma_m64n256k16_ss(acc, da + 2 * kk, dw + 2 * kk, kt > 0 || kk > 0);
+      hw::wgmma_commit();
+      hw::fence_regs(acc);
+      if (kt > 0) {
+        hw::wgmma_wait<1>();
+        hw::fence_regs(acc);
+        if (lane == 0) hw::mbar_arrive(empty + 8 * ((g - 1) % kStages));
+      }
+      ++g;
+    };
+    for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+      const int m0 = (tile / ntiles) * kBM, n0 = (tile % ntiles) * kBN;
+      for (int kt = 0; kt < KT; kt += 2) {  // two k-steps an iteration
+        step(kt);
+        if (kt + 1 < KT) step(kt + 1);
+      }
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc);
+      if (lane == 0) hw::mbar_arrive(empty + 8 * ((g - 1) % kStages));
+      if (kEpi == kResid)
+        store_resid(p, acc, staging, wg, ct, m0, n0);
+      else
+        store_staged<kEpi>(p, acc, staging, wg, ct, m0, n0);
+    }
   }
 }
 
@@ -307,8 +370,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_bf16_kernel(const GemmArgs p
 
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
 
+constexpr int kFThreads = 256;  // 16 × 16, 4 × 4 outputs each
+
 template <int kEpi>
-__global__ void __launch_bounds__(kThreads) gemm_f32_kernel(const GemmArgs p) {
+__global__ void __launch_bounds__(kFThreads) gemm_f32_kernel(const GemmArgs p) {
   __shared__ __align__(16) float As[kFBK][kFBM + 4];  // k-major: rows read as broadcasts
   __shared__ __align__(16) float Bs[kFBK][kFBN + 4];
 
@@ -363,29 +428,31 @@ __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(const GemmArgs p) {
   }
 }
 
-constexpr int kMaxDevices = 64;
+template <int kEpi>
+int launch_wgmma(const GemmArgs& p, cudaStream_t s) {
+  // more than 48 KB of dynamic shared memory: allowed once per card, when
+  // its SM count is read
+  static hw::LaunchCache cache;
+  int sms = 0;
+  const cudaError_t err = hw::prepare(cache, gemm_wgmma_kernel<kEpi>, kSmemBytes, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap am, wm;
+  if (!hw::mat_map(&am, p.a, p.M, p.K, kBM) || !hw::mat_map(&wm, p.w, p.N, p.K, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // one CTA per SM, each walking its share of the output tiles
+  const int total = ((p.M + kBM - 1) / kBM) * ((p.N + kBN - 1) / kBN);
+  gemm_wgmma_kernel<kEpi><<<std::min(total, sms), kThreads, kSmemBytes, s>>>(am, wm, p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int kEpi>
 int launch(const GemmArgs& p, bool bf16, cudaStream_t s) {
-  if (bf16) {
-    // above 48 KB of shared memory only on request, once per device
-    static std::atomic<bool> ready[kMaxDevices];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev >= kMaxDevices || !ready[dev].load(std::memory_order_relaxed)) {
-      e = cudaFuncSetAttribute(gemm_bf16_kernel<kEpi>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      if (dev < kMaxDevices) ready[dev].store(true, std::memory_order_relaxed);
-    }
-    const dim3 grid((p.N + kBN - 1) / kBN, (p.M + kBM - 1) / kBM);
-    gemm_bf16_kernel<kEpi><<<grid, kThreads, kSmemBytes, s>>>(p);
-  } else {
+  if (!bf16) {
     const dim3 grid((p.N + kFBN - 1) / kFBN, (p.M + kFBM - 1) / kFBM);
-    gemm_f32_kernel<kEpi><<<grid, kThreads, 0, s>>>(p);
+    gemm_f32_kernel<kEpi><<<grid, kFThreads, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_wgmma<kEpi>(p, s);
 }
 
 }  // namespace
@@ -394,7 +461,8 @@ extern "C" {
 
 // out = epilogue(LN(a)·wᵀ + bias), see above. a (M, K) and w (N, K)
 // contiguous in one dtype (is_bf16: bfloat16, else float32), 16-byte
-// aligned; stats (M, 2) float32 or null (no prologue); ln_w, ln_b, bias,
+// aligned; stats (M, 2) float32 or null (no prologue; always null in
+// bfloat16, whose A is xn); ln_w, ln_b, bias,
 // gamma bfloat16 (params_bf16) or float32, 16-byte aligned. K and N
 // multiples of 64; QKV: N = 3·heads·dh,
 // M = images·ntok, dh a multiple of 8 (bf16) or 2 (fp32). Launches on
@@ -404,7 +472,7 @@ int asis_ln_gemm(int epi, const void* a, const void* stats, const void* ln_w, co
                  void* out2, const void* resid, const void* gamma, int ntok, int heads, int dh,
                  int is_bf16, int params_bf16, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % kBK != 0 || N % 64 != 0 ||
-      (M + kFBM - 1) / kFBM > 65535)
+      (M + kFBM - 1) / kFBM > 65535 || (is_bf16 && stats != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (epi == kQKV && (ntok <= 0 || dh <= 0 || dh % (is_bf16 ? 8 : 2) != 0 ||
                       M % ntok != 0 || N != 3 * heads * dh))

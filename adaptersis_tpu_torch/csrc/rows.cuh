@@ -8,7 +8,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "bf16.cuh"
 
 namespace asis {
 

@@ -2,13 +2,13 @@
 block's attention half.
 
 `fused_ln_qkv` launches the hand-written CUDA kernels (`csrc/layernorm.cu`
-for the row statistics, then `csrc/ln_gemm.cu`) on a CUDA tensor and runs
-`fused_ln_qkv_plain` on a CPU tensor. Both compute the JAX package's
-`_kernel` of `ops/fused_qkv.py`: xn = LN(x) in fp32 rounded to x's dtype,
-y = xn·Wᵀ accumulated in fp32, plus the fp32 bias, rounded once to x's
-dtype (not twice, as its `reference_ln_qkv` does), and q, k, v stored in
-(B, H, N, Dh) — the layout the attention kernel (K3) reads, with no
-relayout and no ones column.
+for xn in bf16, or the row statistics in fp32, then `csrc/ln_gemm.cu`) on
+a CUDA tensor and runs `fused_ln_qkv_plain` on a CPU tensor. Both compute
+the JAX package's `_kernel` of `ops/fused_qkv.py`: xn = LN(x) in fp32
+rounded to x's dtype, y = xn·Wᵀ accumulated in fp32, plus the fp32 bias,
+rounded once to x's dtype (not twice, as its `reference_ln_qkv` does), and
+q, k, v stored in (B, H, N, Dh) — the layout the attention kernel (K3)
+reads, with no relayout and no ones column.
 
 Forward only: a call that would need a gradient raises on either device.
 """
@@ -21,7 +21,7 @@ import torch
 
 from . import _build
 from ._build import check_rows, launch, mat, params, plain
-from .layernorm import ln_rows, row_stats
+from .layernorm import ln_input, ln_rows
 
 # Kernel launches since the last reset; chip_smoke.py reads it.
 launches = 0
@@ -61,11 +61,11 @@ def fused_ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w: tor
                                  ("b", b, 3 * C))
     q, k, v = (x.new_empty((B, num_heads, N, Dh)) for _ in range(3))
     lib = _build.library()
-    stats = row_stats(x.view(B * N, C), eps)
-    err = launch(x, lib.asis_ln_gemm, QKV, x.data_ptr(), stats.data_ptr(), lw.data_ptr(),
-                 lb.data_ptr(), wd.data_ptr(), bias.data_ptr(), B * N, 3 * C, C, q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), None, None, N, num_heads, Dh,
-                 int(x.dtype == torch.bfloat16), pbf)
+    a, stats = ln_input(x.view(B * N, C), lw, lb, pbf, eps)
+    err = launch(x, lib.asis_ln_gemm, QKV, a.data_ptr(),
+                 None if stats is None else stats.data_ptr(), lw.data_ptr(), lb.data_ptr(),
+                 wd.data_ptr(), bias.data_ptr(), B * N, 3 * C, C, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), None, None, N, num_heads, Dh, int(x.dtype == torch.bfloat16), pbf)
     _build.check(lib, err, "fused_ln_qkv")
     global launches
     launches += 1

@@ -8,9 +8,10 @@ var = E[x²] − E[x]² (flax's, not torch's two-pass form), then
 
 Forward only, like the JAX kernel on the frozen walks: a call that would need
 a gradient raises on either device rather than cut the gradient silently.
-`row_stats` launches the same first pass alone, for K4 and K5
-(`ops/fused_qkv.py`, `ops/fused_mlp.py`), which normalise their GEMM's A
-tiles with it.
+K4 and K5 (`ops/fused_qkv.py`, `ops/fused_mlp.py`) take their GEMM's input
+from `ln_input`: in bf16 the LayerNorm kernel's xn, in fp32 x with the
+statistics of `row_stats`, the same first pass alone, which their fp32 GEMM
+normalises its A tiles with.
 """
 
 from __future__ import annotations
@@ -50,6 +51,30 @@ def row_stats(x2: torch.Tensor, eps: float) -> torch.Tensor:
     return stats
 
 
+def ln_pass(x2: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, pbf: int,
+            eps: float) -> torch.Tensor:
+    """The LayerNorm kernel on a checked (R, C) CUDA tensor with parameters
+    from `params`: K4's and K5's bf16 normalised input. Not counted as a
+    launch of K6: it is part of theirs."""
+    R, C = x2.shape
+    out = torch.empty_like(x2)
+    lib = _build.library()
+    err = launch(x2, lib.asis_layernorm, x2.data_ptr(), wd.data_ptr(), bd.data_ptr(),
+                 out.data_ptr(), R, C, float(eps), int(x2.dtype == torch.bfloat16), pbf)
+    _build.check(lib, err, "layernorm")
+    return out
+
+
+def ln_input(x2: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, pbf: int, eps: float):
+    """The A operand and row statistics of K4's and fc1's GEMM: in bf16 xn
+    from `ln_pass` and no statistics (its GEMM has no prologue), in fp32 x
+    and the row statistics its prologue reads. Returns (A, statistics or
+    None)."""
+    if x2.dtype == torch.bfloat16:
+        return ln_pass(x2, wd, bd, pbf, eps), None
+    return x2, row_stats(x2, eps)
+
+
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm of the last axis of x (..., C), bf16 or fp32; w, b (C,) in
@@ -60,12 +85,7 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     check_rows("layernorm", x)
     C = x.shape[-1]
     (wd, bd), pbf = params("layernorm", x, ("w", w, C), ("b", b, C))
-    out = torch.empty_like(x)
-    lib = _build.library()
-    err = launch(x, lib.asis_layernorm, x.data_ptr(), wd.data_ptr(), bd.data_ptr(),
-                 out.data_ptr(), x.numel() // C, C, float(eps), int(x.dtype == torch.bfloat16),
-                 pbf)
-    _build.check(lib, err, "layernorm")
+    out = ln_pass(x.view(-1, C), wd, bd, pbf, eps).view(x.shape)
     global launches
     launches += 1
     return out

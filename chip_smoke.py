@@ -21,8 +21,13 @@ seconds since the start):
      geometries and batches, with a seeded fp32 incoming gradient;
   4b. K6 LayerNorm, K4 fused LN → qkv → head split and K5 fused LN → MLP →
      LayerScale → residual vs their plain versions, bf16 and fp32, C = 1024,
-     H = 16, N = 1765 and 1764, batch 2 and 16, rows with non-zero means and
-     unequal scales, parameters stored in bf16 and in fp32; K5 per element;
+     H = 16, N = 1765 and 1764, batch 2 and 16, and 3 images of 1765 (the
+     GEMMs' 128-row tiles straddle image boundaries, the last is ragged),
+     rows with non-zero means and unequal scales, parameters stored in bf16
+     and in fp32; K5 per element; planted faults must break the bounds (K4:
+     q, k, v moved by one head, one k-step of x not normalised; K5: b2
+     dropped, an fc2 k-slice lost, in fp32 the exact GELU) and five more
+     bf16 calls of each must give the same bits;
   4c. K7 flash attention with segment ids vs its plain version, bf16 and
      fp32, each element against a bound from its own terms: the forward
      (output and logsumexp), dq, dk and dv through autograd with a seeded
@@ -78,13 +83,25 @@ seconds since the start):
      DINO head, which iBOT shares) within 1e-1 in normalised L2 distance
      and max relative error (the JAX gate's bf16 bound); a zero gradient
      on the plain side fails;
+  8e. the segmentation train step gate at full width (M9: `bench`'s model,
+     ViT-L/14 at 588 px, bf16, batch 8, every backbone LayerScale drawn
+     from N(0, 0.1²)), on two seeds: the step with the kernels, with the
+     plain versions of K1-K6 patched in, and with those plain versions but
+     K4's and K5's sums in float64 (the floor: two correct
+     implementations), from the same seeded weights on the same augmented
+     batch; the loss within 1e-2, each trainable subtree's gradients
+     (cross_vit, cross_cnn, encoder, decoder, level_embed) within 1e-1 or
+     twice the floor's distance in normalised L2 distance and max relative
+     error, two planted faults (q, k, v moved by one head; K5 without b2)
+     beyond them; `seg_step_gate`;
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
      replayed, `device_ms`), for K3, SDPA, K6 and F.layer_norm the host's
      µs per call (`host_us`), and each kernel's bound from the same inputs;
-     for K4 and K5 also the unfused PyTorch sequence they replace and
-     cuBLAS's GEMMs alone; for K7 PyTorch's SDPA with the boolean
+     for K4 and K5 also the unfused PyTorch sequence they replace,
+     cuBLAS's GEMMs alone and the achieved TFLOP/s; for K7 PyTorch's SDPA
+     with the boolean
      block-diagonal mask, forward and backward. The kernels line gives the
      training path's (batch 16) numbers and the launches of `bench`'s run
      for K1-K6, the SSL step's numbers and the launches of `bench_ssl`'s run
@@ -98,6 +115,13 @@ runs the build and phase 9 alone, with no checks, and prints sha256
 prefixes of K6's and the row statistics' outputs on seeded rows: to compare
 two trees' kernels on one card (copy this script into the other tree's root
 and run both in one call).
+
+    python3 chip_smoke.py --gate
+
+runs the build, phase 8e with `SEG_GATE_PROBES` (the floor measured with
+MSDA's location gradient stopped, and with the CNN encoder in fp32) and
+`seg_gate_ablation` (the step with one kernel at a time, and with MSDA's
+sums in float64, against the plain step), the same way on any tree.
 """
 
 from __future__ import annotations
@@ -121,6 +145,9 @@ TRAIN_BATCH = 16                        # the training path's batch
 FLASH_SHAPES = [(B, 16, N, 64) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765, 1764)]
 # the frozen walks' token blocks (B, N, C) of ViT-L/14 at 588 px, 16 heads
 ROW_SHAPES = [(B, N, 1024) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765, 1764)]
+# 3 images: the 128-row tiles of K4 and K5 straddle both image boundaries,
+# and the last (5295 = 41·128 + 47 rows) is ragged
+STRADDLE_ROWS = (3, 1765, 1024)
 HEADS = 16
 # K7 at the SSL step's shapes (ViT-S/14, batch 32: 64 global crops, 6 heads):
 # the student packs a global crop (257 tokens) with 4 local crops (50 each)
@@ -227,6 +254,43 @@ def mlp_allowance(x, ref, p, ln, fm):
         eps = 2e-5 * gamma * (h.abs() @ w2.abs().t())
     eps = eps.view(ref.shape)
     return ulp(ref.float().abs() + eps, dt) + eps
+
+
+def qkv_from_xn(xn, w, b, heads, dtype):
+    """fused_ln_qkv_plain's product and head split from a given xn (values
+    of `dtype`, summed in xn's float type)."""
+    B, N, C = xn.shape
+    y = (xn @ w.to(dtype).to(xn.dtype).t() + b.to(xn.dtype)).to(dtype)
+    y = y.reshape(B, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
+    return [t.contiguous() for t in y]
+
+
+def row_check(report, row_err, kname, pairs, extra, shape, dtype) -> float:
+    """Phase 4b's bound for K6 and K4 on (kernel, plain) output pairs: bf16
+    2⁻⁷·max|plain| + `extra`, fp32 1e-4·max|plain|; records the error and
+    returns the bound."""
+    bf = dtype == torch.bfloat16
+    for o, r in pairs:
+        if o.shape != r.shape or o.dtype != dtype or not o.is_contiguous():
+            fail(f"{kname} returned {tuple(o.shape)} {o.dtype}, plain {tuple(r.shape)} {r.dtype}")
+    err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
+    scale = max(r.float().abs().max().item() for _, r in pairs)
+    bound = 2.0 ** -7 * scale + extra if bf else 1e-4 * scale
+    report[kname] = {"max_abs_err": err, "bound": bound}
+    if not err <= bound:
+        fail(f"{kname} kernel disagrees with plain at {shape} {dtype}: {err} > {bound}")
+    if bf:
+        row_err[kname] = max(row_err[kname], err)
+    return bound
+
+
+def same_bits(kname, first, call, repeats=5) -> bool:
+    """Fails unless `repeats` more calls give `first`'s bits: the kernel
+    sums in a fixed order (no atomics)."""
+    for _ in range(repeats):
+        if not all(torch.equal(a, b) for a, b in zip(call(), first)):
+            fail(f"{kname}: a repeated call gave other bits")
+    return True
 
 
 def valid_corners(loc, shapes) -> int:
@@ -393,11 +457,12 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
             timed(key, lambda: fq.fused_ln_qkv(*qkv_args),
                   lambda: fq.fused_ln_qkv_plain(*qkv_args))
+            flops = 2 * R * C * 3 * C
             extra[key] = {"unfused": cuda_ms(unfused_qkv),
-                          "cublas_gemm": cuda_ms(lambda: F.linear(xn, p["w"], p["b"].to(x.dtype)))}
+                          "cublas_gemm": cuda_ms(lambda: F.linear(xn, p["w"], p["b"].to(x.dtype))),
+                          "tflops_device": flops / dev[key][0] * 1e-9}
             # reads x, the LN parameters, w, b; writes q, k, v (3·x)
-            bounds[key] = bound_ms(4 * xb + p["w"].numel() * 2 + (2 + 3) * C * pe,
-                                   2 * R * C * 3 * C, "bf16")
+            bounds[key] = bound_ms(4 * xb + p["w"].numel() * 2 + (2 + 3) * C * pe, flops, "bf16")
 
             def unfused_mlp():
                 with torch.autocast("cuda", dtype=torch.bfloat16):
@@ -410,12 +475,13 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             mlp_args = (x, p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
             timed(key, lambda: fm.fused_ln_mlp(*mlp_args),
                   lambda: fm.fused_ln_mlp_plain(*mlp_args))
+            flops = 2 * 2 * R * C * 4 * C
             extra[key] = {"unfused": cuda_ms(unfused_mlp),
                           "cublas_gemm": cuda_ms(lambda: (F.linear(xn, p["w1"]),
-                                                          F.linear(h, p["w2"])))}
+                                                          F.linear(h, p["w2"]))),
+                          "tflops_device": flops / dev[key][0] * 1e-9}
             # reads x, the LN parameters, w1, b1, w2, b2, γ; writes out
-            bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe,
-                                   2 * 2 * R * C * 4 * C, "bf16")
+            bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe, flops, "bf16")
             del x, p, xn, h
             torch.cuda.empty_cache()
         # K7 at the SSL step's shapes, bf16: forward, and backward from the
@@ -883,6 +949,99 @@ def check_k3(ff) -> float:
     return flash_err
 
 
+def check_row_kernels(ln, fq, fm) -> dict:
+    """Phase 4b (see main): K6, K4 and K5 against their plain versions,
+    per shape in bf16 and fp32; the first shape also plants faults and
+    (bf16) repeats each call five times. Returns the largest bf16 errors."""
+    row_err = {"layernorm": 0.0, "fused_ln_qkv": 0.0, "fused_ln_mlp": 0.0}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            bf = dtype == torch.bfloat16
+            for i, shape in enumerate(ROW_SHAPES + [STRADDLE_ROWS]):
+                pdt = torch.bfloat16 if bf and shape[1] == 1765 else torch.float32
+                x, p = row_inputs(shape, dtype, seed=30 + i, params_dtype=pdt)
+                xn = ln.ln_rows(x, p["ln_w"], p["ln_b"], 1e-6).to(dtype).float()
+                report = {}
+                out = ln.layernorm(x, p["ln_w"], p["ln_b"])
+                ref = ln.layernorm_plain(x, p["ln_w"], p["ln_b"])
+                row_check(report, row_err, "layernorm", [(out, ref)], 0.0, shape, dtype)
+                qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
+                out = fq.fused_ln_qkv(*qkv_args)
+                ref = fq.fused_ln_qkv_plain(*qkv_args)
+                bound = row_check(report, row_err, "fused_ln_qkv", list(zip(out, ref)),
+                                  2.0 ** -5 * xn.abs().max().item()
+                                  * p["w"].float().abs().max().item(), shape, dtype)
+                if i == 0:
+                    # the bound fails a wrong K4: q, k and v each moved by one
+                    # head, and one 64-wide k-step of x left unnormalised
+                    xs = xn.clone()
+                    xs[..., 512:576] = x[..., 512:576].float()
+                    wrong = {"heads moved": [o.roll(1, dims=1) for o in out],
+                             "k-step not normalised": qkv_from_xn(xs, p["w"], p["b"], HEADS,
+                                                                  dtype)}
+                    caught = {k: max((o.float() - r.float()).abs().max().item()
+                                     for o, r in zip(os_, ref)) / bound
+                              for k, os_ in wrong.items()}
+                    report["fused_ln_qkv"]["wrong_kernels_share"] = caught
+                    if not all(v > 1.0 for v in caught.values()):
+                        fail(f"fused_ln_qkv: the bound passes a wrong kernel at {dtype}: {caught}")
+                    if bf:
+                        report["fused_ln_qkv"]["repeats_equal"] = same_bits(
+                            "fused_ln_qkv", out, lambda: fq.fused_ln_qkv(*qkv_args))
+                    del xs, wrong
+                mlp_args = (p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
+                out = fm.fused_ln_mlp(x, *mlp_args)
+                ref = fm.fused_ln_mlp_plain(x, *mlp_args)
+                torch.cuda.synchronize()
+                if out.shape != ref.shape or out.dtype != dtype or not out.is_contiguous():
+                    fail(f"fused_ln_mlp returned {tuple(out.shape)} {out.dtype}")
+                diff = (out.float() - ref.float()).abs()
+                allow = mlp_allowance(x, ref, p, ln, fm)
+                worst = (diff / allow).max().item()
+                report["fused_ln_mlp"] = {"max_abs_err": diff.max().item(),
+                                          "worst_share_of_bound": worst,
+                                          "bound_max": allow.max().item(),
+                                          "bound_min": allow.min().item()}
+                if not worst <= 1.0:
+                    fail(f"fused_ln_mlp kernel disagrees with plain at {shape} {dtype}: "
+                         f"an error is {worst} of its per-element bound")
+                if i == 0:
+                    # the bound fails a wrong K5: the kernel given b2 = 0 or
+                    # an fc2 weight with a 64-wide slice of K zeroed (as if
+                    # its K loop skipped a step); in fp32 also the plain
+                    # version with the exact GELU in place of tanh's
+                    w2_cut = p["w2"].clone()
+                    w2_cut[:, 1024:1088] = 0
+                    wrong = {"b2 dropped": fm.fused_ln_mlp(x, *mlp_args[:5],
+                                                           torch.zeros_like(p["b2"]), p["gamma"]),
+                             "fc2 K slice lost": fm.fused_ln_mlp(x, *mlp_args[:4], w2_cut,
+                                                                 p["b2"], p["gamma"])}
+                    if not bf:
+                        tanh_gelu = fm.gelu_tanh
+                        fm.gelu_tanh = torch.nn.functional.gelu
+                        try:
+                            wrong["exact GELU"] = fm.fused_ln_mlp_plain(x, *mlp_args)
+                        finally:
+                            fm.gelu_tanh = tanh_gelu
+                    caught = {k: ((o.float() - ref.float()).abs() / allow).max().item()
+                              for k, o in wrong.items()}
+                    report["fused_ln_mlp"]["wrong_kernels_worst_share"] = caught
+                    if not all(v > 1.0 for v in caught.values()):
+                        fail(f"fused_ln_mlp: the bound passes a wrong kernel at {dtype}: {caught}")
+                    if bf:
+                        report["fused_ln_mlp"]["repeats_equal"] = same_bits(
+                            "fused_ln_mlp", [out], lambda: [fm.fused_ln_mlp(x, *mlp_args)])
+                    del wrong, w2_cut
+                if bf:
+                    row_err["fused_ln_mlp"] = max(row_err["fused_ln_mlp"], diff.max().item())
+                say("row_kernels_check", dtype=str(dtype), params=str(pdt), shape=list(shape),
+                    heads=HEADS, **report)
+                del x, p, xn, out, ref, diff, allow
+        torch.cuda.empty_cache()
+
+    return row_err
+
+
 def own_segment_pairs(B: int, H: int, segments) -> int:
     """Query-key pairs of own segments: the attention work these ids need."""
     return B * H * sum(n * n for n in segments)
@@ -988,6 +1147,251 @@ def ssl_step_gate(fa, counts, reset_counts) -> dict:
     return out
 
 
+SEG_GATE_BATCH = 8
+SEG_SUBTREES = ("cross_vit", "cross_cnn", "encoder", "decoder", "level_embed")
+# `--gate`'s probes of what sets phase 8e's floor: steps that differ from
+# the full one in a single respect (`seg_gate_step`)
+SEG_GATE_PROBES = ("location gradient stopped", "encoder fp32")
+
+
+def seg_gate_inputs(seed=0):
+    """`bench`'s model (ViT-L/14 at 588 px, tanh GELU, 4 taps) from `seed`
+    with every LayerScale γ of the frozen backbone drawn from N(0, 0.1²), so
+    that each block moves its tokens; one augmented batch (with CLAHE) of
+    `SEG_GATE_BATCH` seeded uint8 frames and masks."""
+    from adaptersis_tpu_torch.data.augment import (
+        apply_train_augment, draw_train_augment, draws_to)
+    from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
+    from adaptersis_tpu_torch.models.vit import build_backbone
+    from adaptersis_tpu_torch.train.convert import seeded_init_
+
+    dev, B, size = torch.device("cuda"), SEG_GATE_BATCH, 588
+    backbone = build_backbone("vit_large", img_size=518, patch_size=14, gelu_approx=True)
+    model = seeded_init_(AdapterSegmentor(backbone, num_classes=2, n_last_blocks=4), seed=seed)
+    rng = np.random.default_rng(22 + seed)
+    with torch.no_grad():
+        for n, p in backbone.named_parameters():
+            if n.endswith(".gamma"):
+                p.copy_(torch.from_numpy(0.1 * rng.standard_normal(p.shape, np.float32)))
+    imgs = torch.from_numpy(rng.integers(0, 256, (B, size, size, 3), np.uint8)).to(dev)
+    masks = torch.from_numpy((rng.uniform(size=(B, size, size)) > 0.8)
+                             .astype(np.int32)).to(dev)
+    draws = draws_to(draw_train_augment(torch.Generator().manual_seed(3 + seed), B, size), dev)
+    return model.to(dev), *apply_train_augment(imgs, masks, draws)
+
+
+def seg_gate_plain_versions() -> dict:
+    """Per kernel, the (module, name, plain version) patches that take it
+    off the segmentation step."""
+    from adaptersis_tpu_torch.models import layers, vit
+    from adaptersis_tpu_torch.ops import (
+        flash_fwd as ff, fused_mlp as fm, fused_qkv as fq, layernorm as ln, ms_deform_attn,
+        msda_cuda as mc)
+    from adaptersis_tpu_torch.ops._build import plain
+    return {"K1+K2": [(ms_deform_attn, "msda_fwd", plain(mc.msda_plain))],
+            "K3": [(layers, "flash_fwd", ff.flash_fwd_plain)],
+            "K4": [(layers, "fused_ln_qkv", fq.fused_ln_qkv_plain)],
+            "K5": [(layers, "fused_ln_mlp", fm.fused_ln_mlp_plain)],
+            "K6": [(layers, "layernorm", ln.layernorm_plain),
+                   (vit, "layernorm", ln.layernorm_plain)]}
+
+
+def plain_patches(kernels) -> list:
+    """The patches that put the named kernels' plain versions in place."""
+    versions = seg_gate_plain_versions()
+    return [p for k in kernels for p in versions[k]]
+
+
+def seg_gate_step(model, x01, y, patches, regime, counts, reset_counts):
+    """One bf16 `Trainer` step of a copy of `model` with `patches`
+    ((module, name, function) triples) in place for the step only. The
+    regime: "full", the step as it trains; "encoder fp32", the same step
+    with the CNN encoder (`model.encoder`, which runs none of K1-K6) run in
+    fp32 outside autocast; "location gradient stopped", every MSDA call's
+    sampling locations detached before the sampling core (no location
+    gradient; values and attention weights keep theirs). Returns the loss,
+    each subtree's flat fp64 gradient and the launches."""
+    from adaptersis_tpu_torch.ops import ms_deform_attn
+    from adaptersis_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(copy.deepcopy(model), bf16=True)
+    if regime == "encoder fp32":
+        encoder = trainer.model.encoder
+        bf16_forward = encoder.forward
+
+        def fp32_forward(x, *a, **kw):
+            with torch.autocast(x.device.type, enabled=False):
+                return bf16_forward(x.float(), *a, **kw)
+
+        encoder.forward = fp32_forward
+    core = ms_deform_attn.msda_fwd
+    kept = [getattr(mod, name) for mod, name, _ in patches]
+    reset_counts()
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        if regime == "location gradient stopped":
+            fwd = ms_deform_attn.msda_fwd
+            ms_deform_attn.msda_fwd = lambda v, loc, aw, shapes: fwd(v, loc.detach(), aw, shapes)
+        loss = float(trainer.step(x01, y, epoch=0))
+    finally:
+        for (mod, name, _), fn in zip(patches, kept):
+            setattr(mod, name, fn)
+        ms_deform_attn.msda_fwd = core
+    grads = {sub: torch.cat([p.grad.double().flatten() for n, p in
+                             trainer.model.named_parameters() if n.split(".")[0] == sub])
+             for sub in SEG_SUBTREES}
+    return loss, grads, counts()
+
+
+def grad_distance(a, b) -> dict:
+    """Normalised L2 distance and max|a − b| / max|b| of a against b."""
+    nb = b.norm().item()
+    return {"l2_dist": ((a - b).norm() / max(nb, 1e-30)).item(),
+            "max_rel": ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item(),
+            "norm_plain": nb}
+
+
+def ln_fp64(x, w, b, eps):
+    """ln_rows's arithmetic in float64."""
+    xf, inv_c = x.double(), 1.0 / x.shape[-1]
+    mean = xf.sum(-1, keepdim=True) * inv_c
+    var = (xf * xf).sum(-1, keepdim=True) * inv_c - mean * mean
+    return (xf - mean) * (torch.rsqrt(var + eps) * w.double()) + b.double()
+
+
+def qkv_fp64(x, ln_w, ln_b, w, b, num_heads, eps=1e-6):
+    """fused_ln_qkv_plain with float64 sums: the same roundings to x's
+    dtype, other sums (an equally valid K4)."""
+    with torch.autocast(x.device.type, enabled=False):
+        dt = x.dtype
+        xn = ln_fp64(x, ln_w, ln_b, eps).to(dt).double()
+        return qkv_from_xn(xn, w, b, num_heads, dt)
+
+
+def mlp_fp64(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps=1e-6):
+    """fused_ln_mlp_plain with float64 sums (an equally valid K5)."""
+    from adaptersis_tpu_torch.ops.fused_mlp import gelu_tanh
+    with torch.autocast(x.device.type, enabled=False):
+        dt = x.dtype
+        xn = ln_fp64(x, ln_w, ln_b, eps).to(dt).double()
+        h = gelu_tanh(xn @ w1.to(dt).double().t() + b1.double()).to(dt).double()
+        return (x.double() + gamma.double() * (h @ w2.to(dt).double().t() + b2.double())).to(dt)
+
+
+def msda_fp64(value, loc, aw, shapes):
+    """msda_plain with float64 sums, rounded to its fp32 output (an equally
+    valid K1/K2: the same corners and weights)."""
+    from adaptersis_tpu_torch.ops.msda_cuda import msda_plain
+    with torch.autocast(value.device.type, enabled=False):
+        return msda_plain(value.double(), loc.double(), aw.double(), shapes).float()
+
+
+def seg_gate_sides() -> dict:
+    """Phase 8e's sides, as patches: the kernels; the plain versions of
+    K1-K6; the floor (those plain versions, but K4's and K5's sums in
+    float64: an equally valid implementation); and two planted faults on
+    the kernel side, q, k and v moved by one head (K4) and K5 without b2."""
+    from adaptersis_tpu_torch.models import layers
+    qkv, mlp = layers.fused_ln_qkv, layers.fused_ln_mlp
+    every = tuple(seg_gate_plain_versions())
+    return {"kernel": [], "plain": plain_patches(every),
+            "floor": plain_patches(k for k in every if k not in ("K4", "K5"))
+            + [(layers, "fused_ln_qkv", qkv_fp64), (layers, "fused_ln_mlp", mlp_fp64)],
+            "heads moved": [(layers, "fused_ln_qkv",
+                             lambda *a: [t.roll(1, dims=1) for t in qkv(*a)])],
+            "b2 dropped": [(layers, "fused_ln_mlp", lambda x, lw, lb, w1, b1, w2, b2, *a: mlp(
+                x, lw, lb, w1, b1, w2, torch.zeros_like(b2), *a))]}
+
+
+def seg_step_gate(counts, reset_counts, expected, seed=0, probes=()) -> dict:
+    """Phase 8e (M9, the ViT-L half): the deployed configuration's train
+    step (`seg_gate_inputs`: `bench`'s model, bf16, batch 8) on the five
+    `seg_gate_sides`, all from the same seeded weights on the same augmented
+    batch. Compared against the plain side: the loss (relative,
+    `SSL_GATE_LOSS_BOUND`) and per trainable subtree the gradients
+    (`grad_distance`: the JAX gate's measures). Each subtree's distance
+    must lie within the JAX gate's bf16/bs8 bound `SSL_GATE_BOUND` or,
+    where the floor lies further from the plain side, within twice the
+    floor's distance: two correct implementations already move the
+    encoder's gradients by more than 1e-1 (0.12-0.13 in L2 on two seeds;
+    what sets that floor is in PERF.md §6). Both planted faults must
+    break a bound. A subtree whose gradient is zero on the plain side
+    fails, and so do launches other than `expected` (one forward and its
+    MSDA backwards) on the kernel and fault sides, or any on the plain and
+    floor sides. Each of `probes` (`SEG_GATE_PROBES`) runs the kernel,
+    plain and floor sides once more in that regime, reported, not held."""
+    t0 = time.perf_counter()
+    model, x01, y = seg_gate_inputs(seed)
+    sides, measures = seg_gate_sides(), ("l2_dist", "max_rel")
+    out, launches = {}, {}
+    for regime in ("full", *probes):
+        losses, grads = {}, {}
+        for side, patches in sides.items():
+            if regime == "full" or side in ("kernel", "plain", "floor"):
+                losses[side], grads[side], launches[f"{regime}: {side}"] = seg_gate_step(
+                    model, x01, y, patches, regime, counts, reset_counts)
+        report, faults = {}, {f: {} for f in ("heads moved", "b2 dropped") if f in grads}
+        for sub, g in grads["plain"].items():
+            r = grad_distance(grads["kernel"][sub], g)
+            floor = grad_distance(grads["floor"][sub], g)
+            r["floor"] = {k: floor[k] for k in measures}
+            r["bound"] = {k: max(SSL_GATE_BOUND, 2 * floor[k]) for k in measures}
+            report[sub] = r
+            for side, f in faults.items():
+                d = grad_distance(grads[side][sub], g)
+                f[sub] = max(d[k] / r["bound"][k] for k in measures)
+        out[regime] = {"losses": losses, "loss_rel_err": {
+            side: abs(v - losses["plain"]) / max(abs(losses["plain"]), 1e-30)
+            for side, v in losses.items() if side != "plain"}, "subtrees": report,
+            "faults_share_of_bound": faults}
+    say("seg_step_gate", seed=seed, dtype="bf16", seconds=time.perf_counter() - t0,
+        bound=SSL_GATE_BOUND, loss_bound=SSL_GATE_LOSS_BOUND, launches=launches, **out)
+    none = {k: 0 for k in expected}
+    for key, got in launches.items():
+        want = none if key.endswith((": plain", ": floor")) else expected
+        if got != want:
+            fail(f"segmentation step gate: launches {got} on {key}, expected {want}")
+    r = out["full"]
+    dead = [sub for sub, s in r["subtrees"].items() if not s["norm_plain"] > 0]
+    if dead:
+        fail(f"segmentation step gate: zero gradient on the plain side in {dead}")
+    if not all(math.isfinite(r["loss_rel_err"][side])
+               and r["loss_rel_err"][side] <= SSL_GATE_LOSS_BOUND for side in ("kernel", "floor")):
+        fail(f"segmentation step gate: losses differ {r['losses']}")
+    for fault, shares in r["faults_share_of_bound"].items():
+        if not max(shares.values()) > 1:
+            fail(f"segmentation step gate: the bounds pass {fault}: {shares}")
+    for sub, s in r["subtrees"].items():
+        if not all(s[k] <= s["bound"][k] for k in measures):
+            fail(f"segmentation step gate: {sub} gradients differ: {s}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def seg_gate_ablation(counts, reset_counts) -> dict:
+    """`--gate`'s last part: one kernel at a time (the other five on their
+    plain versions), and the plain step with MSDA's sums in float64
+    (`msda_fp64`, the only change), each against the plain step: how far
+    one change alone moves each subtree's gradients."""
+    from adaptersis_tpu_torch.ops import ms_deform_attn
+    model, x01, y = seg_gate_inputs()
+    every = tuple(seg_gate_plain_versions())
+    _, plain, _ = seg_gate_step(model, x01, y, plain_patches(every), "full", counts,
+                                reset_counts)
+    runs = {f"only {k}": plain_patches(j for j in every if j != k) for k in every}
+    runs["MSDA in float64"] = (plain_patches(k for k in every if k != "K1+K2")
+                               + [(ms_deform_attn, "msda_fwd", msda_fp64)])
+    out = {}
+    for name, patches in runs.items():
+        _, grads, _ = seg_gate_step(model, x01, y, patches, "full", counts, reset_counts)
+        out[name] = {sub: grad_distance(grads[sub], g) for sub, g in plain.items()}
+    say("seg_gate_ablation", **out)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def narrow_model():
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
     from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
@@ -996,6 +1400,32 @@ def narrow_model():
                   gelu_approx=True)
     return seeded_init_(AdapterSegmentor(DinoVisionTransformer(**vit_kw), encoder_inplanes=16,
                                          decoder_features=(128, 32, 16, 16, 8)), seed=0)
+
+
+def launch_counters():
+    """(counts, reset_counts): read and zero every kernel wrapper's launch
+    count."""
+    from adaptersis_tpu_torch.ops import flash_attn as fa, flash_fwd as ff, msda_cuda as mc
+    from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
+
+    def reset_counts():
+        ff.launches = mc.launches = mc.bwd_launches = fq.launches = fm.launches = 0
+        ln.launches = fa.launches = fa.bwd_launches = 0
+
+    def counts():
+        return {"flash_fwd": ff.launches, "msda_fwd": mc.launches, "msda_bwd": mc.bwd_launches,
+                "fused_ln_qkv": fq.launches, "fused_ln_mlp": fm.launches,
+                "layernorm": ln.launches, "flash_attn": fa.launches,
+                "flash_attn_bwd": fa.bwd_launches}
+
+    return counts, reset_counts
+
+
+def expect(forwards, backwards):
+    """Launches of `forwards` full-width forwards and `backwards` MSDA
+    backwards (the segmentation paths run no K7)."""
+    return {**{k: v * forwards for k, v in PER_FORWARD.items()}, "msda_bwd": backwards,
+            "flash_attn": 0, "flash_attn_bwd": 0}
 
 
 def main() -> None:
@@ -1023,21 +1453,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    def reset_counts():
-        ff.launches = mc.launches = mc.bwd_launches = fq.launches = fm.launches = 0
-        ln.launches = fa.launches = fa.bwd_launches = 0
-
-    def counts():
-        return {"flash_fwd": ff.launches, "msda_fwd": mc.launches, "msda_bwd": mc.bwd_launches,
-                "fused_ln_qkv": fq.launches, "fused_ln_mlp": fm.launches,
-                "layernorm": ln.launches, "flash_attn": fa.launches,
-                "flash_attn_bwd": fa.bwd_launches}
-
-    def expect(forwards, backwards):
-        """Launches of `forwards` full-width forwards and `backwards` MSDA
-        backwards (the segmentation paths run no K7)."""
-        return {**{k: v * forwards for k, v in PER_FORWARD.items()}, "msda_bwd": backwards,
-                "flash_attn": 0, "flash_attn_bwd": 0}
+    counts, reset_counts = launch_counters()
 
     def expect_ssl(steps, per_step=SSL_PER_STEP):
         """Launches of `steps` SSL steps: K7 only."""
@@ -1122,84 +1538,8 @@ def main() -> None:
     # orders and the fast variance's cancellation (E[x²]/var ≤ ≈ 20 on these
     # rows, ≈ 1e-6·20 of the output's scale): 1e-4·max|out|. K5 is held per
     # element: `mlp_allowance`
-    row_err = {"layernorm": 0.0, "fused_ln_qkv": 0.0, "fused_ln_mlp": 0.0}
-    with torch.no_grad():
-        for dtype in (torch.bfloat16, torch.float32):
-            bf = dtype == torch.bfloat16
-            for i, shape in enumerate(ROW_SHAPES):
-                pdt = torch.bfloat16 if bf and shape[1] == 1765 else torch.float32
-                x, p = row_inputs(shape, dtype, seed=30 + i, params_dtype=pdt)
-                xn = ln.ln_rows(x, p["ln_w"], p["ln_b"], 1e-6).to(dtype).float()
-                checks = []
-                out = ln.layernorm(x, p["ln_w"], p["ln_b"])
-                ref = ln.layernorm_plain(x, p["ln_w"], p["ln_b"])
-                checks.append(("layernorm", [(out, ref)], 0.0))
-                out = fq.fused_ln_qkv(x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
-                ref = fq.fused_ln_qkv_plain(x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
-                checks.append(("fused_ln_qkv", list(zip(out, ref)),
-                               2.0 ** -5 * xn.abs().max().item()
-                               * p["w"].float().abs().max().item()))
-                mlp_args = (p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
-                out = fm.fused_ln_mlp(x, *mlp_args)
-                ref = fm.fused_ln_mlp_plain(x, *mlp_args)
-                torch.cuda.synchronize()
-                if out.shape != ref.shape or out.dtype != dtype or not out.is_contiguous():
-                    fail(f"fused_ln_mlp returned {tuple(out.shape)} {out.dtype}")
-                diff = (out.float() - ref.float()).abs()
-                allow = mlp_allowance(x, ref, p, ln, fm)
-                worst = (diff / allow).max().item()
-                report = {"fused_ln_mlp": {"max_abs_err": diff.max().item(),
-                                           "worst_share_of_bound": worst,
-                                           "bound_max": allow.max().item(),
-                                           "bound_min": allow.min().item()}}
-                if not worst <= 1.0:
-                    fail(f"fused_ln_mlp kernel disagrees with plain at {shape} {dtype}: "
-                         f"an error is {worst} of its per-element bound")
-                if i == 0:
-                    # the bound fails a wrong K5: the kernel given b2 = 0 or
-                    # an fc2 weight with a 64-wide slice of K zeroed (as if
-                    # its K loop skipped a step); in fp32 also the plain
-                    # version with the exact GELU in place of tanh's
-                    w2_cut = p["w2"].clone()
-                    w2_cut[:, 1024:1088] = 0
-                    wrong = {"b2 dropped": fm.fused_ln_mlp(x, *mlp_args[:5],
-                                                           torch.zeros_like(p["b2"]), p["gamma"]),
-                             "fc2 K slice lost": fm.fused_ln_mlp(x, *mlp_args[:4], w2_cut,
-                                                                 p["b2"], p["gamma"])}
-                    if not bf:
-                        tanh_gelu = fm.gelu_tanh
-                        fm.gelu_tanh = torch.nn.functional.gelu
-                        try:
-                            wrong["exact GELU"] = fm.fused_ln_mlp_plain(x, *mlp_args)
-                        finally:
-                            fm.gelu_tanh = tanh_gelu
-                    caught = {k: ((o.float() - ref.float()).abs() / allow).max().item()
-                              for k, o in wrong.items()}
-                    report["fused_ln_mlp"]["wrong_kernels_worst_share"] = caught
-                    if not all(v > 1.0 for v in caught.values()):
-                        fail(f"fused_ln_mlp: the bound passes a wrong kernel at {dtype}: {caught}")
-                    del wrong, w2_cut
-                if bf:
-                    row_err["fused_ln_mlp"] = max(row_err["fused_ln_mlp"], diff.max().item())
-                del diff, allow
-                for kname, pairs, extra in checks:
-                    for o, r in pairs:
-                        if o.shape != r.shape or o.dtype != dtype or not o.is_contiguous():
-                            fail(f"{kname} returned {tuple(o.shape)} {o.dtype}, plain "
-                                 f"{tuple(r.shape)} {r.dtype}")
-                    err = max((o.float() - r.float()).abs().max().item() for o, r in pairs)
-                    scale = max(r.float().abs().max().item() for _, r in pairs)
-                    bound = 2.0 ** -7 * scale + extra if bf else 1e-4 * scale
-                    report[kname] = {"max_abs_err": err, "bound": bound}
-                    if not err <= bound:
-                        fail(f"{kname} kernel disagrees with plain at {shape} {dtype}: "
-                             f"{err} > {bound}")
-                    if bf:
-                        row_err[kname] = max(row_err[kname], err)
-                say("row_kernels_check", dtype=str(dtype), params=str(pdt), shape=list(shape),
-                    heads=HEADS, **report)
-                del x, p, xn, out, ref, checks
-        torch.cuda.empty_cache()
+    row_err = check_row_kernels(ln, fq, fm)
+    torch.cuda.empty_cache()
 
     # ---- 4c. K7 (flash attention with segment ids) vs its plain version
     # (`check_k7`)
@@ -1584,6 +1924,11 @@ def main() -> None:
     # (`ssl_step_gate`)
     ssl_step_gate(fa, counts, reset_counts)
 
+    # ---- 8e. the ViT-L train step at full width, K1-K6 against their plain
+    # versions, on two seeds (`seg_step_gate`)
+    for seed in (0, 1):
+        seg_step_gate(counts, reset_counts, expect(1, 7), seed=seed)
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
@@ -1666,10 +2011,35 @@ def times_only() -> None:
     say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa))
 
 
+def gate_only() -> None:
+    """`--gate`: the build, phase 8e (seed 0 with `SEG_GATE_PROBES`, then
+    seed 1) and `seg_gate_ablation`: to measure the gate's floor, or to run
+    the gate on another tree's kernels (copy this script into its root)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.library()
+    say("device", name=torch.cuda.get_device_name(0), root=str(ROOT),
+        nvidia_smi=smi[0] if smi else "unavailable", build_s=time.perf_counter() - t0)
+    counters = launch_counters()
+    seg_step_gate(*counters, expect(1, 7), probes=SEG_GATE_PROBES)
+    seg_step_gate(*counters, expect(1, 7), seed=1)
+    seg_gate_ablation(*counters)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--times"]:
         times_only()
+    elif sys.argv[1:] == ["--gate"]:
+        gate_only()
     elif sys.argv[1:]:
-        fail(f"usage: python3 chip_smoke.py [--times], got {sys.argv[1:]}")
+        fail(f"usage: python3 chip_smoke.py [--times | --gate], got {sys.argv[1:]}")
     else:
         main()

@@ -22,7 +22,9 @@ from torch_parity import n, pallas_interpret, t  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("pallas_interpret")
 
-CASES = [(37, 128, 2), (150, 256, 4)]          # tokens, width, heads
+# tokens, width, heads; the last at ViT-L's width and head count (hidden
+# 4096): the k-loop lengths the bf16 kernels run on the main path
+CASES = [(37, 128, 2), (150, 256, 4), (37, 1024, 16)]
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
