@@ -103,9 +103,11 @@ def library() -> ctypes.CDLL:
     lib.asis_msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                   ctypes.POINTER(i), ctypes.POINTER(i), i, p]
     lib.asis_msda_fwd.restype = i
-    lib.asis_msda_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+    lib.asis_msda_bwd.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_size_t, i, i, i, i, i, i, i,
                                   ctypes.POINTER(i), ctypes.POINTER(i), i, p]
     lib.asis_msda_bwd.restype = i
+    lib.asis_msda_bwd_workspace.argtypes = [i] * 7
+    lib.asis_msda_bwd_workspace.restype = ctypes.c_size_t
     lib.asis_layernorm.argtypes = [p, p, p, p, i, i, ctypes.c_float, i, i, p]
     lib.asis_layernorm.restype = i
     lib.asis_row_stats.argtypes = [p, p, i, i, ctypes.c_float, i, p]

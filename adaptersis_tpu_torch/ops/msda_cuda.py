@@ -8,7 +8,8 @@ fp32. On a CPU tensor it runs `msda_plain`, whose autograd is the plain
 backward. On a CUDA tensor it runs `MSDAFunction`: the forward launches the
 hand-written kernel `csrc/msda_fwd.cu` and the backward `csrc/msda_bwd.cu`,
 which returns dvalue in value's dtype and dloc, daw in fp32, as the JAX
-package's `_msda_bwd` does.
+package's `_msda_bwd` does. Both kernels sum in a fixed order: repeated calls
+give the same bits.
 """
 
 from __future__ import annotations
@@ -83,14 +84,16 @@ def _check(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor,
         raise ValueError(f"{what}: value dtype must be bf16 or fp32, got {value.dtype}")
     if loc.dtype != torch.float32 or aw.dtype != torch.float32:
         raise ValueError(f"{what}: loc and aw must be fp32")
-    if not (L <= 4 and D <= 256):
-        raise ValueError(f"{what}: the kernels take at most 4 levels and D <= 256, "
-                         f"got {L} and {D}")
+    if not (L <= 4 and D <= 256 and D * value.element_size() % 16 == 0):
+        raise ValueError(f"{what}: the kernels take at most 4 levels and a head width D <= 256 "
+                         f"of a multiple of 16 bytes, got {L} and {D} in {value.dtype}")
     for t in (loc, aw):
         if t.device != value.device:
             raise ValueError(f"{what}: value, loc and aw must be on one device")
     if not (value.is_contiguous() and loc.is_contiguous() and aw.is_contiguous()):
         raise ValueError(f"{what}: value, loc and aw must be contiguous")
+    if value.data_ptr() % 16 or loc.data_ptr() % 8:
+        raise ValueError(f"{what}: value must be 16-byte aligned and loc 8-byte aligned")
     shapes = (ctypes.c_int * (2 * L))(*[int(s) for hw in spatial_shapes for s in hw])
     starts, acc = [], 0
     for h, w in spatial_shapes:
@@ -118,29 +121,37 @@ def _fwd_kernel(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor,
 def msda_bwd(value: torch.Tensor, loc: torch.Tensor, aw: torch.Tensor, grad: torch.Tensor,
              spatial_shapes: Sequence[Tuple[int, int]]):
     """The backward kernel on CUDA tensors: grad (B, Lq, M·D) fp32 →
-    (dvalue in value's dtype, dloc fp32, daw fp32). dvalue is summed with
-    fp32 atomics in an order that changes from run to run."""
+    (dvalue in value's dtype, dloc fp32, daw fp32). dvalue sums each token's
+    contributions in a fixed order (no float atomics): the same bits on
+    every call."""
     if value.device.type != "cuda":
         raise ValueError(f"msda_bwd: the kernel needs CUDA tensors, got {value.device}")
     shapes, starts = _check(value, loc, aw, spatial_shapes, "msda_bwd")
     B, S, M, D = value.shape
     Lq, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     if grad.shape != (B, Lq, M * D) or grad.dtype != torch.float32 \
-            or grad.device != value.device or not grad.is_contiguous():
+            or grad.device != value.device or not grad.is_contiguous() or grad.data_ptr() % 16:
         raise ValueError(f"msda_bwd: grad {tuple(grad.shape)} {grad.dtype} {grad.device} must "
-                         f"be a contiguous fp32 ({B}, {Lq}, {M * D}) on {value.device}")
-    dvalue = torch.zeros((B, S, M, D), dtype=torch.float32, device=value.device)
+                         f"be a contiguous, 16-byte aligned fp32 ({B}, {Lq}, {M * D}) on "
+                         f"{value.device}")
+    lib = _build.library()
+    ws_bytes = lib.asis_msda_bwd_workspace(B, S, M, D, Lq, L, P)
+    if not ws_bytes:
+        raise ValueError(f"msda_bwd: the kernel does not take S={S} (up to ≈ 90000: a "
+                         f"warp's bins fit its shared memory), Lq={Lq}, B·M={B * M} "
+                         f"(at most 65535)")
+    workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=value.device)
+    dvalue = torch.empty_like(value)
     dloc = torch.empty_like(loc)
     daw = torch.empty_like(aw)
-    lib = _build.library()
     err = _build.launch(value, lib.asis_msda_bwd, value.data_ptr(), loc.data_ptr(),
                         aw.data_ptr(), grad.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
-                        daw.data_ptr(), B, S, M, D, Lq, L, P, shapes, starts,
-                        int(value.dtype == torch.bfloat16))
+                        daw.data_ptr(), workspace.data_ptr(), ws_bytes, B, S, M, D, Lq, L, P,
+                        shapes, starts, int(value.dtype == torch.bfloat16))
     _build.check(lib, err, "msda_bwd")
     global bwd_launches
     bwd_launches += 1
-    return dvalue.to(value.dtype), dloc, daw
+    return dvalue, dloc, daw
 
 
 class MSDAFunction(torch.autograd.Function):
@@ -156,8 +167,10 @@ class MSDAFunction(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         value, loc, aw = ctx.saved_tensors
-        dvalue, dloc, daw = msda_bwd(value, loc, aw, grad.float().contiguous(),
-                                     ctx.spatial_shapes)
+        grad = grad.float().contiguous()
+        if grad.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte rows
+            grad = grad.clone()
+        dvalue, dloc, daw = msda_bwd(value, loc, aw, grad, ctx.spatial_shapes)
         return dvalue, dloc, daw, None
 
 

@@ -2,7 +2,9 @@
 `msda_plain` against `msda_pallas` (interpret mode) and the gather core
 `ms_deform_attn_core`, and `MSDeformAttn` against the flax module through
 the weight bridge. Locations reach outside [0, 1], so zero padding at the
-level borders is exercised."""
+level borders is exercised; the hot-token and pixel-edge cases
+(`torch_parity.msda_points`) hold the geometries the CUDA kernels sort and
+round at."""
 
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ from adaptersis_tpu.ops.ms_deform_attn import ms_deform_attn_core
 import adaptersis_tpu_torch.ops.msda_cuda as mc
 from adaptersis_tpu_torch.ops.ms_deform_attn import MSDeformAttn
 from adaptersis_tpu_torch.train.convert import load_flax_variables
-from torch_parity import init_perturbed, load, n, pallas_interpret, t  # noqa: F401
+from torch_parity import init_perturbed, load, msda_points, n, pallas_interpret, t  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("pallas_interpret")
 
@@ -33,13 +35,22 @@ def _inputs(shapes, Lq, B=2, M=2, D=8, P=4, seed=0):
     return v, loc, aw
 
 
-@pytest.mark.parametrize("shapes,Lq,D", [
-    ([(8, 8), (4, 4), (2, 2)], 9, 8),     # three levels, like CAViT's pyramid
-    ([(6, 5)], 12, 16),                   # one non-square level, like CACNN's grid
-    ([(8, 8), (4, 4)], 9, 128),           # the main path's head width
+@pytest.mark.parametrize("shapes,Lq,D,points", [
+    # three levels, like CAViT's pyramid
+    pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, "uniform", id="shapes0-9-8"),
+    # one non-square level, like CACNN's grid
+    pytest.param([(6, 5)], 12, 16, "uniform", id="shapes1-12-16"),
+    # the main path's head width
+    pytest.param([(8, 8), (4, 4)], 9, 128, "uniform", id="shapes2-9-128"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, "hot token", id="hot-token-3-levels"),
+    pytest.param([(6, 5)], 12, 16, "hot token", id="hot-token-1-level"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, "pixel edges", id="pixel-edges-3-levels"),
+    pytest.param([(6, 5)], 12, 16, "pixel edges", id="pixel-edges-1-level"),
 ])
-def test_plain_matches_jax(shapes, Lq, D):
+def test_plain_matches_jax(shapes, Lq, D, points):
     v, loc, aw = _inputs(shapes, Lq, D=D)
+    if points != "uniform":
+        loc = msda_points(loc, shapes, points, seed=D)
     out = n(mc.msda_plain(t(v), t(loc), t(aw), shapes))
     pallas = np.asarray(jax_msda.msda_pallas(jnp.asarray(v), jnp.asarray(loc),
                                              jnp.asarray(aw), tuple(shapes)))
@@ -58,6 +69,18 @@ def test_cpu_dispatch_and_device_check():
     assert mc.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         mc.msda_fwd(v.to("meta"), loc.to("meta"), aw.to("meta"), shapes)
+
+
+def test_kernels_refuse_a_misaligned_loc():
+    # the kernels read each point's (x, y) as one 8-byte load: a loc view at
+    # an odd 4-byte offset is refused before any launch
+    shapes = [(4, 4)]
+    v, loc, aw = (t(a) for a in _inputs(shapes, 5))
+    odd = torch.empty(loc.numel() + 1)[1:].view(loc.shape).copy_(loc)
+    assert odd.is_contiguous() and odd.data_ptr() % 8 == 4
+    mc._check(v, loc, aw, shapes, "msda_fwd")
+    with pytest.raises(ValueError, match="loc 8-byte aligned"):
+        mc._check(v, odd, aw, shapes, "msda_fwd")
 
 
 def _module_case(seed=3):

@@ -2,7 +2,9 @@
 the version the CUDA backward kernel is held against on the card) against
 the JAX package's gradients: `jax.vjp` of `msda_pallas` (its custom backward
 `_msda_bwd`, Pallas in interpret mode) and of the gather core
-`ms_deform_attn_core`. Also `torch.autograd.gradcheck` in float64."""
+`ms_deform_attn_core`, on uniform points and on the hot-token and pixel-edge
+geometries the CUDA kernels sort and round at (`torch_parity.msda_points`).
+Also `torch.autograd.gradcheck` in float64."""
 
 import numpy as np
 import pytest
@@ -14,7 +16,7 @@ import jax.numpy as jnp
 import adaptersis_tpu.ops.msda_pallas as jax_msda
 from adaptersis_tpu.ops.ms_deform_attn import ms_deform_attn_core
 import adaptersis_tpu_torch.ops.msda_cuda as mc
-from torch_parity import n, pallas_interpret, t  # noqa: F401  (fixture)
+from torch_parity import msda_points, n, pallas_interpret, t  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("pallas_interpret")
 
@@ -40,13 +42,22 @@ def _jax_grads(fn, v, loc, aw, g):
     return [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
 
-@pytest.mark.parametrize("shapes,Lq,D,spread", [
-    ([(8, 8), (4, 4), (2, 2)], 9, 8, 0.1),   # three levels, like CAViT's pyramid
-    ([(6, 5)], 12, 16, 0.1),                 # one non-square level, like CACNN's grid
-    ([(8, 8), (4, 4)], 9, 32, 0.5),          # a third of the points outside the levels
+@pytest.mark.parametrize("shapes,Lq,D,spread,points", [
+    # three levels, like CAViT's pyramid
+    pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, 0.1, "uniform", id="shapes0-9-8-0.1"),
+    # one non-square level, like CACNN's grid
+    pytest.param([(6, 5)], 12, 16, 0.1, "uniform", id="shapes1-12-16-0.1"),
+    # a third of the points outside the levels
+    pytest.param([(8, 8), (4, 4)], 9, 32, 0.5, "uniform", id="shapes2-9-32-0.5"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, 0.1, "hot token", id="hot-token-3-levels"),
+    pytest.param([(6, 5)], 12, 16, 0.1, "hot token", id="hot-token-1-level"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, 0.1, "pixel edges", id="pixel-edges-3-levels"),
+    pytest.param([(6, 5)], 12, 16, 0.1, "pixel edges", id="pixel-edges-1-level"),
 ])
-def test_plain_backward_matches_jax(shapes, Lq, D, spread):
+def test_plain_backward_matches_jax(shapes, Lq, D, spread, points):
     v, loc, aw, g = _inputs(shapes, Lq, D=D, spread=spread, seed=D)
+    if points != "uniform":
+        loc = msda_points(loc, shapes, points, seed=D)
     got = _plain_grads(v, loc, aw, g, shapes)
     pallas = _jax_grads(lambda a, b, c: jax_msda.msda_pallas(a, b, c, tuple(shapes)),
                         v, loc, aw, g)

@@ -102,3 +102,30 @@ def t(a) -> torch.Tensor:
 
 def n(x) -> np.ndarray:
     return np.asarray(x.detach() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+def msda_points(loc: np.ndarray, shapes, kind: str, seed: int) -> np.ndarray:
+    """Deformable-attention sample locations of a harder kind, in place of
+    uniform ones: "hot token", every point of head 0 on one pixel centre of
+    each level, so that one token takes every corner of the head (the dV
+    sum's largest bucket); "pixel edges", each coordinate within one fp32
+    rounding (0 or ±1 ulp) of a pixel edge k/W or a pixel centre (k + ½)/W,
+    where a point's corners and its location gradient change."""
+    loc = loc.copy()
+    rng = np.random.default_rng(seed)
+    for lvl, (h, w) in enumerate(shapes):
+        if kind == "hot token":
+            loc[:, :, 0, lvl, :, 0] = np.float32((w // 2 + 0.5) / w)
+            loc[:, :, 0, lvl, :, 1] = np.float32((h // 2 + 0.5) / h)
+            continue
+        if kind != "pixel edges":
+            raise ValueError(kind)
+        for axis, size in ((0, w), (1, h)):
+            shape = loc[:, :, :, lvl, :, axis].shape
+            k = rng.integers(-1, size + 2, shape) + 0.5 * (rng.uniform(size=shape) < 0.5)
+            at = (k / size).astype(np.float32)
+            step = rng.integers(-1, 2, shape)
+            at = np.where(step < 0, np.nextafter(at, np.float32(-np.inf)),
+                          np.where(step > 0, np.nextafter(at, np.float32(np.inf)), at))
+            loc[:, :, :, lvl, :, axis] = at
+    return loc.astype(np.float32)
