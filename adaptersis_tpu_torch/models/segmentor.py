@@ -11,7 +11,10 @@ FeatureDecoder.
      One CAViT/CACNN pair serves all rounds. The last round's CACNN output
      reaches no output, so it is not computed (7 MSDA calls for n = 4).
   4. Decode concat[adapter out, centre-padded c4, clean tap] (3·E channels)
-     and resize the logits to the input size in fp32.
+     and resize the logits to the input size in fp32. With
+     `parity_frozen_head` the decoder input is detached: the reference's
+     accidental decoder-only training (its train.py wraps the adapters in
+     no_grad), so only the decoder gets gradients.
 
 Both backbone walks run under torch.no_grad(): the backbone is frozen.
 """
@@ -35,7 +38,8 @@ class AdapterSegmentor(nn.Module):
                  n_last_blocks: int = 4, decoder_type: str = "feature",
                  adapter_num_heads: int = 8, adapter_n_points: int = 4,
                  encoder_inplanes: int = 64,
-                 decoder_features: Optional[Sequence[int]] = None):
+                 decoder_features: Optional[Sequence[int]] = None,
+                 parity_frozen_head: bool = False):
         super().__init__()
         if decoder_type != "feature":
             raise NotImplementedError(
@@ -44,6 +48,7 @@ class AdapterSegmentor(nn.Module):
         E = backbone.embed_dim
         self.backbone = backbone
         self.n_last_blocks = n_last_blocks
+        self.parity_frozen_head = parity_frozen_head
         self.encoder = FeatureEncoder(encoder_inplanes, E)
         self.cross_vit = CAViT(E, adapter_num_heads, adapter_n_points, n_levels=3,
                                init_values=0.0)
@@ -88,5 +93,7 @@ class AdapterSegmentor(nn.Module):
         c4_map = center_pad(c4.reshape(B, h32, w32, E), (hp, wp))
         feat = torch.cat([xa.reshape(B, hp, wp, E), c4_map,
                           taps[-1].reshape(B, hp, wp, E)], dim=-1)
+        if self.parity_frozen_head:
+            feat = feat.detach()
         logits = self.decoder(feat)
         return resize_bilinear(logits.float(), (H, W), align_corners=False)

@@ -1,6 +1,6 @@
 """DINOv2 SSL pretraining: the counterpart of the JAX package's `pretrain.py`.
 
-    python -m adaptersis_tpu_torch.pretrain --bf16          # ViT-S/14, batch 32, on the card
+    python -m adaptersis_tpu_torch.pretrain --bf16 --output_dir out   # ViT-S/14, batch 32
 
 The flag surface of `pretrain.py`, plus `--device` (default cuda; the run
 exits when there is no card, `--device cpu` runs the plain paths) and
@@ -9,15 +9,25 @@ the configuration of `tools/bench_ssl_step.py`). The learning rate is
 scaled by sqrt(batch/1024); five per-iteration schedules (lr with warm-up,
 weight decay, teacher momentum, teacher temperature, last-layer lr frozen
 for `--freeze_last_layer_epochs`); per iteration a batch of synthetic
-frames from the resumable infinite sampler, the multi-crop augmentation on
-the device, the seeded iBOT masks (seed·100000 + iteration) and one
+frames from the resumable infinite sampler (through the threaded loader),
+the multi-crop augmentation on the device from draws seeded by the
+iteration, the seeded iBOT masks (seed·100000 + iteration) and one
 `SSLMetaArch.train_step`; a NaN loss aborts. Each epoch prints one JSON
 line: the mean losses, img/s over its steps after the first (host clock,
 one synchronise per step on the loss) and the peak device memory.
 
-Not ported yet, and the run exits when asked for them: checkpoint and
-resume (`--output_dir`, `--saveckp_freq`), real image folders
-(`--data_path`), more than one device (`--fsdp` > 1).
+With `--output_dir`, checkpoints are iteration-keyed (`PeriodicCheckpointer`):
+`model_{it:07d}.pth` every `--saveckp_freq` epochs, the newest 3 kept, a
+`last_checkpoint` tag, and `model_final.pth` at the last iteration; each
+holds the student, the EMA teacher, both centres, Adam's moments and the
+iteration. A run started again with the same flags resumes from the tag,
+the sampler advanced by iteration × batch, step for step.
+`ASN_PREEMPT_AT=n` stops the run after iteration n without saving (a
+preemption, for tests). Without `--output_dir` nothing is saved.
+
+The JAX `pretrain.py` always trains on synthetic frames, whatever
+`--data_path` says; the port exits on `--data_path` instead, and on
+`--fsdp` above 1 (ROADMAP.md, M10).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -33,6 +44,7 @@ import numpy as np
 import torch
 
 from .data.augment import draws_to
+from .data.loader import DataLoader
 from .data.samplers import ShardedInfiniteSampler
 from .data.synthetic import SyntheticSeg
 from .models.layers import TRAINED
@@ -40,15 +52,15 @@ from .models.vit import build_backbone
 from .ssl.augment import apply_multicrop, draw_multicrop
 from .ssl.masking import MaskingGenerator, collate_masks_with_indices
 from .ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to, schedule_values
+from .train.checkpoint import PeriodicCheckpointer, restore_checkpoint
 from .train.schedules import cosine_scheduler
-
 
 
 def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "adaptersis-torch-pretrain",
-        epilog="Checkpoint and resume, real image folders and more than one device are not "
-               "ported yet: each run starts from a seeded initialisation on synthetic frames.")
+        epilog="The run trains on synthetic frames, as the JAX pretrain.py does whatever its "
+               "--data_path says; more than one device is not ported yet.")
     p.add_argument("--arch", default="vit_small")
     p.add_argument("--patch_size", default=14, type=int)
     p.add_argument("--global_crops_size", default=224, type=int)
@@ -68,15 +80,15 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--dino_out_dim", default=65536, type=int)
     p.add_argument("--koleo_loss_weight", default=0.1, type=float)
     p.add_argument("--data_path", default="", type=str,
-                   help="an image folder: not ported yet, the run uses synthetic frames")
+                   help="an image folder: the JAX pretrain.py ignores it and trains on "
+                        "synthetic frames; the port exits when it is given")
     p.add_argument("--output_dir", default=None, type=str,
-                   help="checkpoint directory: not ported yet, the run exits when it is given")
-    p.add_argument("--saveckp_freq", default=None, type=int,
-                   help="epochs between checkpoints: not ported yet, the run exits when it is "
-                        "given")
+                   help="checkpoint directory, resumed from when it holds a checkpoint "
+                        "(default: save nothing)")
+    p.add_argument("--saveckp_freq", default=20, type=int, help="epochs between checkpoints")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic frames (the only data the port reads yet)")
+                   help="synthetic frames (what the run trains on in any case)")
     p.add_argument("--fsdp", default=1, type=int,
                    help="parameter sharding over this many devices: only 1 is ported")
     p.add_argument("--official_epoch_length", default=1250, type=int,
@@ -99,11 +111,8 @@ def setup(args) -> torch.device:
         sys.exit(f"error: --fsdp {args.fsdp}: sharding over several devices is not ported yet "
                  "(ROADMAP.md, M10: data parallelism)")
     if args.data_path:
-        sys.exit("error: --data_path: real image folders are not ported yet; use --synthetic")
-    for flag in ("output_dir", "saveckp_freq"):
-        if getattr(args, flag) is not None:
-            sys.exit(f"error: --{flag}: checkpoint and resume are not ported yet; the run "
-                     "starts from a seeded initialisation and saves nothing")
+        sys.exit("error: --data_path: image folders are not ported; the JAX pretrain.py "
+                 "trains on synthetic frames whatever it says, so use --synthetic")
     for size in (args.global_crops_size, args.local_crops_size):
         if size % args.patch_size:
             sys.exit(f"error: crop size {size} is not divisible by --patch_size "
@@ -161,16 +170,29 @@ def run(args) -> Tuple[SSLMetaArch, List[dict]]:
     grid = args.global_crops_size // args.patch_size
     n_tokens = grid * grid
     mask_gen = MaskingGenerator((grid, grid), num_masking_patches=n_tokens // 2)
-    samples = iter(ShardedInfiniteSampler(len(ds), seed=args.seed))
-    gen = torch.Generator().manual_seed(args.seed)
+
+    it, periodic = 0, None
+    if args.output_dir is not None:
+        periodic = PeriodicCheckpointer(args.output_dir, period=args.saveckp_freq * niter_per_ep,
+                                        max_iter=total, max_to_keep=3)
+        last = periodic.last_name()
+        if last:
+            state = restore_checkpoint(args.output_dir, last, map_location=device)
+            arch.load_checkpoint_state(state)
+            it = int(state["iteration"])
+            print(f"resumed from {last} at iteration {it}", flush=True)
+    # every draw is keyed by the iteration, so a resumed run repeats them
+    sampler = ShardedInfiniteSampler(len(ds), seed=args.seed, advance=it * global_batch)
+    batches = iter(DataLoader(ds, sampler=sampler, batch_size=global_batch, num_workers=4))
+    gen = torch.Generator()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
-    history, sums, it = [], {}, 0
-    t_first = None
+    history, sums, steps, t_first = [], {}, 0, None
+    preempt_at = int(os.environ.get("ASN_PREEMPT_AT", "0"))
     while it < total:
-        imgs = np.stack([ds[next(samples)][0] for _ in range(global_batch)])
-        imgs = torch.from_numpy(imgs).to(device)
+        imgs = torch.from_numpy(next(batches)[0]).to(device)
+        gen.manual_seed(args.seed * 1_000_003 + it)
         g, l = apply_multicrop(imgs, draws_to(draw_multicrop(gen, global_batch,
                                                              args.local_crops_number), device),
                                args.global_crops_size, args.local_crops_size)
@@ -184,22 +206,29 @@ def run(args) -> Tuple[SSLMetaArch, List[dict]]:
         for k, v in values.items():
             sums[k] = sums.get(k, 0.0) + v
         it += 1
-        in_epoch = (it - 1) % niter_per_ep + 1
-        if in_epoch == 1:
+        steps += 1
+        if t_first is None:
             t_first = time.perf_counter()
-        if in_epoch == niter_per_ep:
+        if it % niter_per_ep == 0:
             seconds = time.perf_counter() - t_first
-            stats = {"epoch": it // niter_per_ep - 1, "steps": niter_per_ep,
-                     **{k: v / niter_per_ep for k, v in sums.items()},
-                     "img_per_s": (global_batch * (niter_per_ep - 1) / seconds
-                                   if niter_per_ep > 1 else None),
+            stats = {"epoch": it // niter_per_ep - 1, "steps": steps,
+                     **{k: v / steps for k, v in sums.items()},
+                     "img_per_s": (global_batch * (steps - 1) / seconds if steps > 1 else None),
                      "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                         if device.type == "cuda" else None),
                      "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                                 else "cpu")}
             print(json.dumps(stats), flush=True)
             history.append(stats)
-            sums = {}
+            sums, steps, t_first = {}, 0, None
+        # after the epoch's line: its img/s leaves the save out
+        if periodic is not None and (it % periodic.period == 0 or it >= total):
+            periodic.step(it - 1, {**arch.checkpoint_state(), "iteration": it})
+        if preempt_at and it >= preempt_at and it < total:
+            # a preemption after this iteration, saving nothing: the run
+            # started again resumes from the last periodic checkpoint
+            print(f"preempted at iteration {it}", flush=True)
+            break
     return arch, history
 
 

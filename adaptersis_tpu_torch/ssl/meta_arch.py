@@ -125,6 +125,19 @@ class SSLMetaArch(nn.Module):
         self.mu: List[torch.Tensor] = []    # Adam's moments, made at the first step
         self.nu: List[torch.Tensor] = []
 
+    # ---- checkpoints ----
+
+    def checkpoint_state(self) -> dict:
+        """Everything a resumed run reads: the student, the teacher, both
+        centres, Adam's moments and count."""
+        return {"model": self.state_dict(), "step": self.step, "mu": list(self.mu),
+                "nu": list(self.nu)}
+
+    def load_checkpoint_state(self, state: dict) -> None:
+        self.load_state_dict(state["model"])
+        self.step = int(state["step"])
+        self.mu, self.nu = list(state["mu"]), list(state["nu"])
+
     # ---- parameter plumbing ----
 
     def lr_multipliers(self) -> Dict[str, float]:

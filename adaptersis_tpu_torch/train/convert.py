@@ -1,7 +1,15 @@
-"""Where the port's parameters come from and go to: the JAX package's flax
-variables (`load_flax_variables`, the inverse of the JAX package's
-`train/convert.py` name map), a seeded numpy draw (`seeded_init_`), and
-back to flax variables (`state_dict_to_flax`, `save_flax_variables`).
+"""Where the port's parameters come from and go to: a DINOv2 `.pth`
+checkpoint (`load_dinov2_backbone`), the JAX package's flax variables
+(`load_flax_variables`, the inverse of the JAX package's `train/convert.py`
+name map), a seeded numpy draw (`seeded_init_`), and back to flax variables
+(`state_dict_to_flax`, `save_flax_variables`).
+
+The port's backbone carries DINOv2's parameter names, so a `.pth` needs no
+name map: `load_torch_state_dict` takes the `checkpoint_key` sub-dict
+(default "teacher") or `state_dict` and strips the `module.` and
+`backbone.` prefixes (DINOv2's `load_pretrained_weights`),
+`flatten_chunked_block_keys` undoes FSDP's `blocks.<chunk>.<i>.` keys, and
+the load is strict.
 
   flax                                   torch
   Dense `kernel` (in, out)           →   `weight` (out, in)
@@ -21,7 +29,7 @@ port's `SSLMetaArch` with `load_ssl_state`;
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -144,9 +152,51 @@ def load_ssl_state(arch: nn.Module, state: Mapping[str, Any]) -> None:
                                                      "ibot_center")}, {})
 
 
-def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
+def load_torch_state_dict(path, checkpoint_key: str = "teacher") -> Dict[str, torch.Tensor]:
+    """torch.load a `.pth` on the CPU and normalise its keys: the
+    `checkpoint_key` sub-dict if present, then `state_dict` if present,
+    with every `module.` and `backbone.` removed from the names."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(blob, dict) and checkpoint_key in blob:
+        blob = blob[checkpoint_key]
+    if isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    return {k.replace("module.", "").replace("backbone.", ""): v for k, v in blob.items()}
+
+
+def flatten_chunked_block_keys(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """FSDP's chunked blocks name a block `blocks.<chunk>.<i>.`: keep the
+    inner index, `blocks.<i>.`. Any key with two index levels is chunked."""
+    pat = re.compile(r"^blocks\.(\d+)\.(\d+)\.(.*)$")
+    out = {}
+    for k, v in sd.items():
+        m = pat.match(k)
+        out[f"blocks.{m.group(2)}.{m.group(3)}" if m else k] = v
+    return out
+
+
+# a DINOv2 training checkpoint's teacher holds its heads beside the backbone
+HEAD_PREFIXES = ("dino_head.", "ibot_head.")
+
+
+def load_dinov2_backbone(backbone: nn.Module, path, checkpoint_key: str = "teacher") -> None:
+    """Load a DINOv2 `.pth` into the port's ViT, strictly: every parameter
+    with its shape, and no key but the SSL heads' left over. Register tokens
+    and SwiGLU MLPs (`vit_giant2`) raise: the port's ViT has neither yet."""
+    sd = flatten_chunked_block_keys(load_torch_state_dict(path, checkpoint_key))
+    sd = {k: v for k, v in sd.items() if not k.startswith(HEAD_PREFIXES)}
+    unported = sorted(k for k in sd if k == "register_tokens"
+                      or re.search(r"\.mlp\.(w12|w3)\.", k))
+    if unported:
+        raise ValueError(f"{path}: {unported[:3]}...: register tokens and SwiGLU MLPs are not "
+                         "ported yet (ROADMAP.md, M2b: the other backbones of --arch)")
+    backbone.load_state_dict(sd, strict=True)
+
+
+def seeded_init_(model: nn.Module, seed: int, skip: Tuple[str, ...] = ()) -> nn.Module:
     """Overwrite every parameter and BN statistic with a numpy draw from
-    `seed`, in `named_parameters` order. Nothing is left at an
+    `seed`, in `named_parameters` order, but those whose names start with
+    a prefix in `skip` (left as they are, drawing nothing). Nothing is left at an
     initialisation that would hide a fault: weights ~ N(0, 1/fan_in),
     norm scales 1 + N(0, 0.1²), gates and biases N(0, 0.1²) (the CAViT gate,
     the sampling-offset and attention-weight kernels and LayerScale start at
@@ -155,7 +205,7 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     with torch.no_grad():
         for name, t in list(model.named_parameters()) + list(model.named_buffers()):
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "num_batches_tracked":
+            if leaf == "num_batches_tracked" or name.startswith(skip):
                 continue
             shape = tuple(t.shape)
             if leaf == "running_var":

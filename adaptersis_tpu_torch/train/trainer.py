@@ -15,13 +15,13 @@ locations and weights (`ops/ms_deform_attn.py`).
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from ..data.augment import Draws, apply_input_norm, apply_train_augment, val_preprocess
-from ..losses import dc_loss, pixel_accuracy, train_loss, weighted_ce_pair
+from ..losses import ch_iou, dc_loss, get_loss, isi_iou, pixel_accuracy, weighted_ce_pair
 from .schedules import cosine_annealing
 
 # the reference recipe's SGD
@@ -51,13 +51,20 @@ class Trainer:
     """SGD on everything but the frozen backbone, with the reference recipe:
     momentum 0.99, weight decay 3e-5 (torch semantics: g += wd·p,
     buf = 0.99·buf + g, p −= lr·buf), cosine-annealed lr stepped per epoch,
-    the double-softmax DC train loss, on-device augmentation."""
+    on-device augmentation. The train loss is `LOSSES[loss]` of
+    softmax(logits), as the JAX trainer feeds it: under "dc", which
+    softmaxes again, the reference's double softmax (validation feeds raw
+    logits to DC: one softmax). `epoch` (the next to train) and `best_acc`
+    travel with the state (`state_dict`)."""
 
     def __init__(self, model: nn.Module, lr: float = 0.01, epochs: int = 100,
-                 bf16: bool = False):
+                 bf16: bool = False, loss: str = "dc"):
         self.model = model
         self.bf16 = bf16
         self.lr_fn = cosine_annealing(lr, epochs)
+        self.loss_fn = get_loss(loss)
+        self.epoch = 0
+        self.best_acc = 0.0
         model.backbone.requires_grad_(False)
         if bf16:
             _precast(model.backbone, model.backbone, torch.bfloat16)
@@ -87,7 +94,7 @@ class Trainer:
         self.model.train()
         with self.autocast():
             logits = self.model(apply_input_norm(x01, "none"))
-        loss = train_loss(logits.float(), masks)
+        loss = self.loss_fn(torch.softmax(logits.float(), dim=-1), masks)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for p in self.params:
@@ -103,6 +110,26 @@ class Trainer:
         with self.autocast():
             return eval_step(self.model, images_u8, masks, valid)
 
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything a resumed run reads: the trainables and the BatchNorm
+        statistics (the model's state less the frozen backbone, which comes
+        from the pretrained weights or the seed again), the SGD momentum
+        buffers, `epoch` and `best_acc`."""
+        return {"model": {k: v for k, v in self.model.state_dict().items()
+                          if not k.startswith("backbone.")},
+                "optimizer": self.optimizer.state_dict(),
+                "epoch": self.epoch, "best_acc": self.best_acc}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        missing, unexpected = self.model.load_state_dict(state["model"], strict=False)
+        missing = [k for k in missing if not k.startswith("backbone.")]
+        if missing or unexpected:
+            raise KeyError(f"checkpoint does not match the model: missing {missing}, "
+                           f"unexpected {unexpected}")
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.epoch = int(state["epoch"])
+        self.best_acc = float(state["best_acc"])
+
 
 @torch.no_grad()
 def eval_step(model: nn.Module, images_u8: torch.Tensor, masks: torch.Tensor,
@@ -110,7 +137,9 @@ def eval_step(model: nn.Module, images_u8: torch.Tensor, masks: torch.Tensor,
     """images_u8 (B, H, W, 3) uint8, masks (B, H, W) int, valid (B,) bool marking
     real rows (padded duplicates are left out of the averages). Returns the
     per-sample-averaged loss (weighted CE for 2 classes, plain CE otherwise),
-    dice and acc1, with the argmax `preds` and the fp32 `logits`."""
+    dice and acc1, for more than 2 classes also the EndoVis challenge
+    metrics `ch_iou` and `isi_iou` per image, with the argmax `preds` and
+    the fp32 `logits`."""
     model.eval()
     x = apply_input_norm(val_preprocess(images_u8), "none")
     logits = model(x).float()
@@ -129,10 +158,13 @@ def eval_step(model: nn.Module, images_u8: torch.Tensor, masks: torch.Tensor,
     else:
         loss = [torch.nn.functional.cross_entropy(l.reshape(-1, C), m.reshape(-1).long())
                 for l, m in pairs]
-    return {
+    preds = logits.argmax(dim=-1)
+    out = {
         "loss": wmean(loss),
         "dice": wmean([1.0 - dc_loss(l, m) for l, m in pairs]),
         "acc1": wmean([pixel_accuracy(l, m) for l, m in pairs]),
-        "preds": logits.argmax(dim=-1),
-        "logits": logits,
     }
+    if C > 2:
+        out["ch_iou"] = wmean([ch_iou(masks[i], preds[i], num_classes=C) for i in range(B)])
+        out["isi_iou"] = wmean([isi_iou(masks[i], preds[i]) for i in range(B)])
+    return {**out, "preds": preds, "logits": logits}

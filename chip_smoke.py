@@ -145,6 +145,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1730,6 +1731,325 @@ def seg_gate_ablation(counts, reset_counts) -> dict:
     return out
 
 
+# phase 8f: a Robust-MIS 2019 tree (its frame size, so the reader resizes to
+# 588) and a ViT-L/14 checkpoint in the layout of `dinov2_vitl14_pretrain.pth`
+REAL_TRAIN, REAL_VAL, REAL_FRAME = 32, 8, (540, 960)
+REAL_BATCH = 8
+SEG_SUBTREES = ("cross_vit", "cross_cnn", "encoder", "decoder", "level_embed")
+
+
+def write_robomis_tree(root: Path, seed: int = 0) -> None:
+    """images/{training,validation}/*.png (RGB 960 × 540: a smooth field with
+    noise and darker metallic instrument shapes) and annotations/ (8-bit
+    gray, the shapes at 255), through the port's own PNG writer."""
+    from adaptersis_tpu_torch.data.png_writer import write_png
+    rng = np.random.default_rng(seed)
+    h, w = REAL_FRAME
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for split, n in (("training", REAL_TRAIN), ("validation", REAL_VAL)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "annotations" / split).mkdir(parents=True)
+        for i in range(n):
+            phase = rng.uniform(0, 2 * np.pi, 3)
+            img = np.stack([120 + 60 * np.sin(xx / (90 + 30 * c) + yy / 140 + phase[c])
+                            for c in range(3)], -1)
+            mask = np.zeros((h, w), bool)
+            for _ in range(rng.integers(1, 4)):
+                cx, cy = rng.uniform(0.1, 0.9) * w, rng.uniform(0.1, 0.9) * h
+                ang = rng.uniform(0, np.pi)
+                u = (xx - cx) * np.cos(ang) + (yy - cy) * np.sin(ang)
+                v = -(xx - cx) * np.sin(ang) + (yy - cy) * np.cos(ang)
+                mask |= (u / rng.uniform(120, 300)) ** 2 + (v / rng.uniform(15, 40)) ** 2 < 1
+            img[mask] = img[mask] * 0.35 + np.asarray([170.0, 175.0, 180.0]) * 0.65
+            img += rng.normal(0, 6, img.shape)
+            write_png(root / "images" / split / f"{i:04d}.png",
+                      np.clip(img, 0, 255).astype(np.uint8))
+            write_png(root / "annotations" / split / f"{i:04d}.png",
+                      mask.astype(np.uint8) * 255)
+
+
+def dinov2_vitl14_state_dict(seed: int = 0) -> dict:
+    """A flat fp32 state dict with the names and shapes of Meta's
+    `dinov2_vitl14_pretrain.pth` (pos_embed (1, 1370, 1024), cls_token,
+    mask_token, 24 blocks), seeded: weights N(0, 1/fan_in), norm scales
+    1 + N(0, 0.1²), LayerScale γ ~ N(0, 0.1²) so that every block is live,
+    biases N(0, 0.1²), tokens and pos_embed N(0, 0.02²)."""
+    from adaptersis_tpu_torch.models.vit import build_backbone
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, p in build_backbone("vit_large", img_size=518, patch_size=14).state_dict().items():
+        z = torch.randn(p.shape, generator=gen)
+        if name.endswith("gamma"):
+            z *= 0.1
+        elif name.endswith("weight") and p.dim() >= 2:
+            z /= math.sqrt(p[0].numel())
+        elif name.endswith("weight"):
+            z = 1.0 + 0.1 * z
+        elif name in ("cls_token", "pos_embed", "mask_token"):
+            z *= 0.02
+        else:
+            z *= 0.1
+        out[name] = z
+    return out
+
+
+def subtree_distances(a: dict, b: dict, subtrees) -> dict:
+    """Per subtree (name prefix), the normalised L2 distance of a from b
+    over all its tensors, and whether they are bit-identical."""
+    out = {}
+    for sub in subtrees:
+        keys = [k for k in b if k.startswith(sub)]
+        if not keys:
+            raise RuntimeError(f"no tensor under {sub}")
+        diff = sum(float((a[k].double() - b[k].double()).norm() ** 2) for k in keys)
+        norm = sum(float(b[k].double().norm() ** 2) for k in keys)
+        out[sub] = {"l2_dist": math.sqrt(diff / max(norm, 1e-300)),
+                    "identical": all(torch.equal(a[k], b[k]) for k in keys)}
+    return out
+
+
+def resume_rule(phase: str, a: dict, a2: dict, r: dict, subtrees) -> dict:
+    """A resumed run R against an uninterrupted one A and its repeat A′: if
+    A and A′ are bit-identical, R must equal A bit for bit; if the card's
+    runs differ (atomics in a backward), each subtree of R must lie within
+    twice A–A′'s distance of A (a second draw of the same spread; 2× for a
+    single sample of it)."""
+    spread = subtree_distances(a2, a, subtrees)
+    resumed = subtree_distances(r, a, subtrees)
+    deterministic = all(v["identical"] for v in spread.values())
+    if deterministic:
+        rule = "A = A' bit for bit, so R must equal A bit for bit"
+        bad = [s for s, v in resumed.items() if not v["identical"]]
+    else:
+        rule = "A != A': each subtree's d(R, A) <= 2 d(A, A')"
+        bad = [s for s in subtrees if resumed[s]["l2_dist"] > 2 * spread[s]["l2_dist"]]
+    res = {"rule": rule, "a_vs_a2": spread, "r_vs_a": resumed, "held": not bad}
+    if bad:
+        fail(f"{phase}: the resumed run breaks the rule ({rule}) on {bad}: {res}")
+    return res
+
+
+def real_data_run(counts, reset_counts, smi) -> dict:
+    """Phase 8f: `train_seg` on a Robust-MIS tree from a DINOv2 `.pth` at full
+    width (ViT-L/14 at 588 px, bf16, batch 8, 2 epochs): runs A and A′, R
+    stopped after an epoch and resumed, `--evaluate` on A, `evaluate` at
+    batch 2 (`real_data_run`'s docstring in the module header)."""
+    from adaptersis_tpu_torch import evaluate, train_seg
+    from adaptersis_tpu_torch.data import native
+    from adaptersis_tpu_torch.train.checkpoint import restore_checkpoint
+    from adaptersis_tpu_torch.train.trainer import Trainer
+
+    work = ROOT / "build" / "smoke_real"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_robomis_tree(work / "robomis")
+    pth_sd = dinov2_vitl14_state_dict()
+    torch.save(pth_sd, work / "dinov2_vitl14_pretrain.pth")
+    setup_s = time.perf_counter() - t0
+    decoder = native.decoder()
+    if decoder == "none":
+        fail(f"8f: nothing can decode the tree: {native.build_error}")
+
+    def argv(out):
+        return ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588", "--bf16",
+                "--gelu_approx", "--batch_size_per_gpu", str(REAL_BATCH), "--epochs", "2",
+                "--dataset", "robomis", "--data_path", str(work / "robomis"),
+                "--pretrained_weights", str(work / "dinov2_vitl14_pretrain.pth"),
+                "--num_workers", "8", "--output_dir", str(work / out)]
+
+    # the backbone as train_seg builds it, before the Trainer's bf16 cast,
+    # and the trainables' start
+    seen = {}
+    plain_build = train_seg.build_model
+
+    def build_checked(args):
+        model = plain_build(args)
+        got = model.backbone.state_dict()
+        seen["backbone_equals_pth"] = (set(got) == set(pth_sd) and
+                                       all(torch.equal(got[k], v) for k, v in pth_sd.items()))
+        seen.setdefault("start", {k: v.detach().clone() for k, v in model.state_dict().items()
+                                  if not k.startswith("backbone.")})
+        return model
+
+    # launches per train step and per validation forward, from the counters
+    per = {"train": [], "eval": []}
+    plain_train, plain_eval = Trainer.train_step, Trainer.eval_step
+
+    def counted(kind, fn):
+        def wrap(self, *a, **kw):
+            before = counts()
+            out = fn(self, *a, **kw)
+            after = counts()
+            per[kind].append({k: after[k] - before[k] for k in after})
+            return out
+        return wrap
+
+    train_seg.build_model = build_checked
+    Trainer.train_step = counted("train", plain_train)
+    Trainer.eval_step = counted("eval", plain_eval)
+    try:
+        reset_counts()
+        trainer, hist_a = train_seg.run(train_seg.get_args_parser().parse_args(argv("A")))
+        launches_a = counts()
+    finally:
+        train_seg.build_model = plain_build
+        Trainer.train_step, Trainer.eval_step = plain_train, plain_eval
+    steps = len(per["train"])
+    if not seen.get("backbone_equals_pth"):
+        fail("8f: the loaded backbone differs from the .pth tensors")
+    cast_ok = True
+    for k, p_ in trainer.model.backbone.state_dict().items():
+        # bf16 but pos_embed, which the trainer keeps fp32
+        cast_ok &= bool(torch.equal(p_.cpu(), pth_sd[k].to(p_.dtype)))
+    now = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()
+           if not k.startswith("backbone.")}
+    unchanged = [k for k, v in seen["start"].items()
+                 if k in dict(trainer.model.named_parameters()) and torch.equal(now[k], v)]
+    del trainer, now
+    torch.cuda.empty_cache()
+
+    _, hist_a2 = train_seg.run(train_seg.get_args_parser().parse_args(argv("A2")))
+    torch.cuda.empty_cache()
+    os.environ["ASN_STOP_AFTER_EPOCHS"] = "1"
+    try:
+        _, hist_r1 = train_seg.run(train_seg.get_args_parser().parse_args(argv("R")))
+    finally:
+        del os.environ["ASN_STOP_AFTER_EPOCHS"]
+    torch.cuda.empty_cache()
+    _, hist_r2 = train_seg.run(train_seg.get_args_parser().parse_args(argv("R")))
+    torch.cuda.empty_cache()
+
+    def state(out):
+        st = restore_checkpoint(work / out)
+        flat = dict(st["model"])
+        for i, s_ in st["optimizer"]["state"].items():
+            flat[f"momentum.{i}"] = s_["momentum_buffer"]
+        return st, flat
+
+    (st_a, a), (st_a2, a2), (st_r, r) = state("A"), state("A2"), state("R")
+    rule = resume_rule("8f", a, a2, r, SEG_SUBTREES + ("momentum",))
+    _, hist_ev = train_seg.run(train_seg.get_args_parser().parse_args(argv("A") + ["--evaluate"]))
+    torch.cuda.empty_cache()
+    reset_counts()
+    ev = evaluate.main(["--arch", "vit_large", "--patch_size", "14", "--imsize", "588",
+                        "--bf16", "--gelu_approx", "--batch_size_per_gpu", str(FULL_BATCH),
+                        "--dataset", "robomis", "--data_path", str(work / "robomis"),
+                        "--pretrained_weights", str(work / "dinov2_vitl14_pretrain.pth"),
+                        "--num_workers", "8"])
+    ev_launches = counts()
+    torch.cuda.empty_cache()
+
+    losses = [x for h in hist_a + hist_a2 + hist_r1 + hist_r2 for x in h["train_losses"]]
+    timed = [h for h in hist_a + hist_a2 + hist_r1 + hist_r2]
+    res = {"decoder": decoder, "setup_s": setup_s, "steps": steps,
+           "per_train_step": per["train"][0] if per["train"] else None,
+           "train_steps_alike": all(d == per["train"][0] for d in per["train"]),
+           "per_validation_forward": per["eval"][0] if per["eval"] else None,
+           "launches_run_a": launches_a,
+           "img_per_s": [h["train_img_per_s"] for h in timed],
+           "loader_wait_s_per_step": [h["loader_wait_s"] for h in timed],
+           "peak_mem_bytes": max(h["peak_mem_bytes"] for h in timed),
+           "train_losses_a": [h["train_losses"] for h in hist_a],
+           "test_acc1_a": hist_a[-1].get("test_acc1"), "evaluate_acc1": hist_ev[0]["test_acc1"],
+           "backbone_equals_pth": seen["backbone_equals_pth"],
+           "backbone_equals_pth_cast_after_training": cast_ok,
+           "unchanged_trainables": unchanged, "resume": rule,
+           "evaluate_b2": {k: ev[k] for k in ("images", "batches", "loss", "dice", "acc1",
+                                               "logits_finite", "img_per_s", "decoder")},
+           "evaluate_b2_launches": ev_launches,
+           "nvidia_smi": smi[0] if smi else "unavailable"}
+    say("real_data_training", **res)
+    if steps != 8 or len(per["eval"]) != 2:
+        fail(f"8f: run A took {steps} train steps and {len(per['eval'])} validation forwards, "
+             "expected 8 and 2")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"8f: non-finite train losses {losses}")
+    if not cast_ok:
+        fail("8f: the frozen backbone moved in training (against the .pth in bf16)")
+    if unchanged:
+        fail(f"8f: trainables left unchanged: {unchanged}")
+    if not res["train_steps_alike"] or per["train"][0] != expect(1, 7):
+        fail(f"8f: launches per train step {per['train']}, expected {expect(1, 7)}")
+    if any(d != expect(1, 0) for d in per["eval"]):
+        fail(f"8f: launches per validation forward {per['eval']}, expected {expect(1, 0)}")
+    if launches_a != expect(steps + len(per["eval"]), 7 * steps):
+        fail(f"8f: run A's launches {launches_a}")
+    if ev_launches != expect(ev["batches"], 0) or not ev["logits_finite"]:
+        fail(f"8f: evaluate at batch 2: {ev}, launches {ev_launches}")
+    if ev["decoder"] != decoder or hist_a[0]["decoder"] != decoder:
+        fail(f"8f: decoders {ev['decoder']}, {hist_a[0]['decoder']}, expected {decoder}")
+    # the same checkpoint in another process: only cuDNN's algorithm choice
+    # may differ, moving acc1 by a pixel or two of 8 · 588²
+    if abs(res["evaluate_acc1"] - res["test_acc1_a"]) > 1e-3:
+        fail(f"8f: --evaluate acc1 {res['evaluate_acc1']} against A's {res['test_acc1_a']}")
+    del pth_sd
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+SSL_SUBTREES = ("student.", "teacher.", "dino_center", "ibot_center", "adam_mu", "adam_nu")
+
+
+def ssl_resume_run(counts, reset_counts, expect_ssl, smi) -> dict:
+    """Phase 8g: `pretrain` at its defaults (ViT-S/14, batch 32, 65536
+    prototypes, bf16) for 2 epochs of 2 steps with a checkpoint every
+    epoch: runs P and P′, R preempted after iteration 3 and resumed."""
+    from adaptersis_tpu_torch import pretrain
+    from adaptersis_tpu_torch.train.checkpoint import restore_checkpoint
+
+    work = ROOT / "build" / "smoke_ssl"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def run(out, preempt=None):
+        argv = ["--bf16", "--synthetic", "--epochs", "2", "--steps_per_epoch", "2",
+                "--warmup_epochs", "0", "--saveckp_freq", "1", "--output_dir", str(work / out)]
+        if preempt:
+            os.environ["ASN_PREEMPT_AT"] = str(preempt)
+        reset_counts()
+        try:
+            arch, hist = pretrain.run(pretrain.get_args_parser().parse_args(argv))
+        finally:
+            os.environ.pop("ASN_PREEMPT_AT", None)
+        got = counts()
+        del arch
+        torch.cuda.empty_cache()
+        return hist, got
+
+    runs = {"P": run("P"), "P2": run("P2"), "R1": run("R", preempt=3), "R2": run("R")}
+    steps = {"P": 4, "P2": 4, "R1": 3, "R2": 2}
+
+    def state(out):
+        st = restore_checkpoint(work / out, "model_final")
+        flat = dict(st["model"])
+        flat.update({f"adam_mu.{i}": t for i, t in enumerate(st["mu"])})
+        flat.update({f"adam_nu.{i}": t for i, t in enumerate(st["nu"])})
+        return st, flat
+
+    tags = {d: (work / d / "last_checkpoint").read_text() for d in ("P", "P2", "R")}
+    files = {d: sorted(p_.name for p_ in (work / d).iterdir()) for d in ("P", "R")}
+    (sp, p1), (_, p2), (sr, r) = state("P"), state("P2"), state("R")
+    rule = resume_rule("8g", p1, p2, r, SSL_SUBTREES)
+    res = {"launches": {k: v[1] for k, v in runs.items()},
+           "losses": {k: [h["total_loss"] for h in v[0]] for k, v in runs.items()},
+           "img_per_s": {k: [h["img_per_s"] for h in v[0]] for k, v in runs.items()},
+           "last_checkpoint": tags, "files": files,
+           "iterations": {"P": sp["iteration"], "R": sr["iteration"]}, "resume": rule,
+           "nvidia_smi": smi[0] if smi else "unavailable"}
+    say("ssl_resume", **res)
+    for k, (hist, got) in runs.items():
+        if got != expect_ssl(steps[k]):
+            fail(f"8g: run {k} launched {got} in {steps[k]} steps, expected {SSL_PER_STEP} "
+                 "per step")
+        if not all(math.isfinite(h["total_loss"]) for h in hist):
+            fail(f"8g: run {k}: non-finite losses {hist}")
+    if set(tags.values()) != {"model_final"} or "model_final.pth" not in files["R"]:
+        fail(f"8g: last_checkpoint tags {tags}, files {files}")
+    if sp["iteration"] != 4 or sr["iteration"] != 4:
+        fail(f"8g: final iterations {res['iterations']}, expected 4")
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def narrow_model():
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
     from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
@@ -2226,6 +2546,13 @@ def main() -> None:
     # versions, on two seeds (`seg_step_gate`)
     for seed in (0, 1):
         seg_step_gate(counts, reset_counts, expect(1, 7), seed=seed)
+
+    # ---- 8f. train.py's real-data run at full width: a Robust-MIS tree and a
+    # DINOv2 .pth; checkpoint, resume, --evaluate (`real_data_run`)
+    real_data_run(counts, reset_counts, smi)
+
+    # ---- 8g. the SSL checkpoint and resume at full width (`ssl_resume_run`)
+    ssl_resume_run(counts, reset_counts, expect_ssl, smi)
 
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)

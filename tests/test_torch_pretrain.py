@@ -271,10 +271,9 @@ def test_pretrain_entry_point_on_cpu(capsys):
     assert not torch.equal(start.student["dino_head"].last_layer_v,
                            arch.student["dino_head"].last_layer_v)
     assert "sqrt scaling learning rate" in capsys.readouterr().out
-    help_text = pretrain.get_args_parser().format_help()
-    assert "Checkpoint and resume" in help_text
-    for bad in (["--fsdp", "2"], ["--data_path", "/data"], ["--output_dir", "runs/x"],
-                ["--saveckp_freq", "20"]):
+    help_text = " ".join(pretrain.get_args_parser().format_help().split())
+    assert "trains on synthetic frames" in help_text and "resumed from" in help_text
+    for bad in (["--fsdp", "2"], ["--data_path", "/data"]):
         with pytest.raises(SystemExit, match="not ported"):
             pretrain.main(argv + bad)
 

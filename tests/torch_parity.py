@@ -18,6 +18,7 @@ import adaptersis_tpu.ops.fused_mlp as jax_fused_mlp
 import adaptersis_tpu.ops.fused_qkv as jax_fused_qkv
 import adaptersis_tpu.ops.layernorm as jax_layernorm
 import adaptersis_tpu.ops.msda_pallas as jax_msda
+from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
 from adaptersis_tpu_torch.train.convert import load_flax_variables
 
 
@@ -129,3 +130,25 @@ def msda_points(loc: np.ndarray, shapes, kind: str, seed: int) -> np.ndarray:
                           np.where(step > 0, np.nextafter(at, np.float32(np.inf)), at))
             loc[:, :, :, lvl, :, axis] = at
     return loc.astype(np.float32)
+
+
+def dinov2_state_dict(vit: dict, seed: int = 0) -> dict:
+    """A seeded fp32 state dict with the names and shapes of a DINOv2 ViT
+    (`vit`: DinoVisionTransformer's arguments), LayerScale γ ~ N(0, 0.1²) so
+    that every block is live."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in DinoVisionTransformer(**vit).state_dict().items():
+        shape = tuple(p.shape)
+        if name.endswith("gamma"):
+            a = 0.1 * rng.standard_normal(shape)
+        elif name.endswith("weight") and len(shape) >= 2:
+            a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+        elif name.endswith("weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name in ("cls_token", "pos_embed", "mask_token"):
+            a = 0.02 * rng.standard_normal(shape)
+        else:
+            a = 0.1 * rng.standard_normal(shape)
+        out[name] = torch.from_numpy(a.astype(np.float32))
+    return out
