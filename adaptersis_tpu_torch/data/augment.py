@@ -1,5 +1,6 @@
 """Preprocessing (counterpart of the JAX package's `data/augment.py`): the
-training augmentations on the device, validation's /255 and the input norm.
+training augmentations on the device, validation's /255 and the input
+norms.
 
 The training augmentations are albumentations' pipeline of the reference
 trainer, drawn per image:
@@ -127,9 +128,23 @@ def val_preprocess(images: torch.Tensor) -> torch.Tensor:
     return images.float() / 255.0
 
 
+# ImageNet statistics (torchvision's), used by the mask transformer variant
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
 def apply_input_norm(x01: torch.Tensor, mode: str) -> torch.Tensor:
-    """Input normalisation after the /255; "none" is the main path's."""
+    """Input normalisation after the /255: "none" (every model but the mask
+    transformer), or "imagenet_div255", the reference's
+    eval_dinov2_masktrans.py exactly: its transform normalises with the
+    ImageNet mean and std, and its dataset then divides the normalised
+    tensor by 255 once more. That second division is the reference's
+    fault, kept (flagged in ROADMAP.md) so that the weights it trains
+    still fit."""
     if mode == "none":
         return x01
-    raise NotImplementedError(
-        f"input_norm {mode!r} is not ported yet (ROADMAP.md, item M11); only 'none' is")
+    if mode == "imagenet_div255":
+        mean = torch.tensor(IMAGENET_MEAN, dtype=x01.dtype, device=x01.device)
+        std = torch.tensor(IMAGENET_STD, dtype=x01.dtype, device=x01.device)
+        return ((x01 - mean) / std) / 255.0
+    raise ValueError(f"unknown input_norm mode {mode!r}")

@@ -1,6 +1,8 @@
-"""Evaluate an AdapterSegmentor on the GPU: the port's counterpart of
+"""Evaluate a segmentor on the GPU: the port's counterpart of
 `train.py --evaluate` on a model that was not trained by `train_seg` (that
-one is `train_seg --evaluate`, which restores its checkpoint).
+one is `train_seg --evaluate`, which restores its checkpoint). `--model`,
+`--decoder` and `--mla_last_block_bug` choose the model as `train_seg`'s
+do: the adapter model with any decoder, or an eval-script model.
 
     python -m adaptersis_tpu_torch.evaluate --arch vit_large --patch_size 14 \\
         --imsize 588 --batch_size_per_gpu 2 --bf16 --gelu_approx \\
@@ -30,14 +32,42 @@ from .data import native
 from .data.datasets import DATASETS
 from .data.loader import DataLoader
 from .data.synthetic import SyntheticSeg
+from .models.layers import TRAINED
 from .models.segmentor import AdapterSegmentor
+from .models.tap_segmentor import TapSegmentor
 from .models.vit import build_backbone
 from .train.convert import load_dinov2_backbone, load_flax_variables, seeded_init_
 from .train.trainer import cast_for_inference, eval_step
 
 
+MODELS = ["adapter", "tap_setr", "tap_unet", "tap_unet_fuse", "tap_masktrans", "tap_setr_ete"]
+DECODERS = ["feature", "mla", "setr"]
+# each eval script's own training loss, taken where --loss is left at "dc"
+TAP_LOSSES = {"tap_setr": "ce_dc", "tap_unet": "ce_dc", "tap_unet_fuse": "ce_dc",
+              "tap_masktrans": "masktrans", "tap_setr_ete": "ce_dc"}
+
+
+def input_norm(model: str) -> str:
+    """The input normalisation of `--model`: only the mask transformer's
+    script normalises (`data/augment.py:apply_input_norm`)."""
+    return "imagenet_div255" if model == "tap_masktrans" else "none"
+
+
+def model_loss(model: str, loss: str) -> str:
+    """The train loss of `--model` given `--loss`: the eval-script models
+    take their script's loss where --loss is left at "dc" (the JAX
+    train.py's rule)."""
+    return TAP_LOSSES.get(model, loss) if loss == "dc" else loss
+
+
 def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("adaptersis-torch-evaluate")
+    p.add_argument("--model", default="adapter", choices=MODELS,
+                   help="the adapter model, or one of the eval scripts' models")
+    p.add_argument("--decoder", default="feature", choices=DECODERS,
+                   help="the adapter model's decoder")
+    p.add_argument("--mla_last_block_bug", action="store_true",
+                   help="train_mla.py's fault: the last adapter round re-runs block depth − 2")
     p.add_argument("--arch", default="vit_small", type=str)
     p.add_argument("--patch_size", default=16, type=int)
     p.add_argument("--imsize", default=224, type=int)
@@ -77,14 +107,25 @@ def _unflatten(flat: Dict[str, np.ndarray], prefix: str) -> dict:
     return tree
 
 
-def build_model(args) -> AdapterSegmentor:
-    """The model on the CPU: flax variables or a seeded draw, then the
-    pretrained backbone (the draw skips the backbone when there is one)."""
+def build_model(args) -> torch.nn.Module:
+    """The model `--model` names, on the CPU: flax variables or a seeded
+    draw, then the pretrained backbone (the draw skips the backbone when
+    there is one). `tap_setr_ete` trains its backbone, so it gets the trained
+    block configuration; every other model's frozen walks the deployed one."""
+    name = getattr(args, "model", "adapter")
+    impls = (dict(zip(("attn_impl", "ln_impl", "qkv_impl", "mlp_impl"), TRAINED))
+             if name == "tap_setr_ete" else {})
     backbone = build_backbone(args.arch, img_size=518, patch_size=args.patch_size,
-                              gelu_approx=args.gelu_approx)
-    model = AdapterSegmentor(backbone, num_classes=args.num_classes,
-                             n_last_blocks=args.n_last_blocks,
-                             parity_frozen_head=getattr(args, "parity_frozen_head", False))
+                              gelu_approx=args.gelu_approx, **impls)
+    if name == "adapter":
+        model = AdapterSegmentor(backbone, num_classes=args.num_classes,
+                                 n_last_blocks=args.n_last_blocks,
+                                 decoder_type=getattr(args, "decoder", "feature"),
+                                 parity_frozen_head=getattr(args, "parity_frozen_head", False),
+                                 mla_last_block_bug=getattr(args, "mla_last_block_bug", False))
+    else:
+        model = TapSegmentor(backbone, num_classes=args.num_classes,
+                             n_last_blocks=args.n_last_blocks, decoder=name[len("tap_"):])
     pretrained = args.pretrained_weights
     if args.flax_variables:
         with np.load(args.flax_variables) as f:
@@ -145,7 +186,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         imgs = torch.from_numpy(imgs).to(device)
         masks = torch.from_numpy(masks).to(device)
         t0 = time.perf_counter()
-        out = eval_step(model, imgs, masks)
+        out = eval_step(model, imgs, masks, input_norm=input_norm(args.model))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)

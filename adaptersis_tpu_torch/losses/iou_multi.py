@@ -1,40 +1,14 @@
-"""The losses and metrics of the main trainer (counterparts of the JAX
-package's `losses/dice.py:dc_loss`, `losses/cross_entropy.py:
-weighted_ce_pair` and `losses/iou_multi.py` (`iou`, `iou_loss`, `ch_iou`,
-`isi_iou`, `pixel_accuracy`)).
-Channel-last logits (B, H, W, C), integer labels (B, H, W).
-
-`LOSSES` holds the names of the JAX package's `--loss` registry
-(`losses/__init__.py`) that the port has; `get_loss` exits on the others."""
+"""The soft IoU loss and the EndoVis / ISI IoU metrics of
+`train_multi_class.py` (counterpart of the JAX package's
+`losses/iou_multi.py`). Channel-last logits (B, H, W, C), integer labels
+(B, H, W)."""
 
 from __future__ import annotations
 
-import sys
-from typing import Callable, Dict, Optional, Sequence
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
-
-
-def dc_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """DC loss: softmax → one-hot → per-(batch, class) dice over the spatial
-    axes, 10e-20 in the denominator, 1 − mean."""
-    C = output.shape[-1]
-    p = torch.softmax(output, dim=-1)
-    y = F.one_hot(target.long(), C).to(p.dtype)
-    intersect = (p * y).sum(dim=(1, 2))
-    dice = 2 * intersect / (p.sum(dim=(1, 2)) + y.sum(dim=(1, 2)) + 10e-20)
-    return 1.0 - dice.mean()
-
-
-def weighted_ce_pair(logits: torch.Tensor, labels: torch.Tensor,
-                     weight: Sequence[float] = (0.1, 10.0)) -> torch.Tensor:
-    """Cross-entropy with class weights [0.1, 10], mean weighted by the
-    per-pixel target weight."""
-    C = logits.shape[-1]
-    w = torch.tensor(weight, dtype=torch.float32, device=logits.device)
-    return F.cross_entropy(logits.reshape(-1, C).float(), labels.reshape(-1).long(),
-                           weight=w)
 
 
 def pixel_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -90,27 +64,3 @@ def isi_iou(y_true: torch.Tensor, y_pred: torch.Tensor,
     either map."""
     n = {"binary": 2, "parts": 4, "instruments": 8}[problem_type]
     return _mean_present_iou(y_true, y_pred, n, either=True)
-
-
-# name → loss(probabilities or logits, labels), as `--loss` names them; the
-# trainer feeds softmax(logits), as the JAX trainer does
-LOSSES: Dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = {
-    "dc": dc_loss,
-    "iou_multi": iou_loss,
-}
-
-# the rest of the JAX package's registry (`losses/__init__.py`), ROADMAP.md M11
-UNPORTED_LOSSES = ("soft_dice", "dice_ce", "dice_topk", "gdice", "tversky", "focal_tversky",
-                   "asym", "iou_nnunet", "ce", "topk", "focal", "lovasz", "explog", "dist_dice",
-                   "hausdorff_dt", "hausdorff_er", "ce_dc", "masktrans", "dc_and_hausdorff")
-
-
-def get_loss(name: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """The train loss `name`; exits, naming ROADMAP.md's item, on a loss the
-    port does not have."""
-    if name in LOSSES:
-        return LOSSES[name]
-    if name in UNPORTED_LOSSES:
-        sys.exit(f"error: --loss {name} is not ported yet (ROADMAP.md, M11: segmentor "
-                 f"variants and the rest of the loss registry); the port has {sorted(LOSSES)}")
-    sys.exit(f"error: unknown --loss {name!r}; the port has {sorted(LOSSES)}")

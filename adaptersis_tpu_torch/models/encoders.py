@@ -12,14 +12,15 @@ from torch import nn
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with flax's training semantics (eps 1e-5, flax momentum 0.9):
+    """BatchNorm with flax's training semantics (eps 1e-5 unless given, flax
+    momentum 0.9):
     normalise with the batch mean and the biased batch variance, and update
     the running stats as 0.9·old + 0.1·batch with the BIASED variance, where
     torch's own update puts the unbiased one into running_var. Parameter and
     buffer names are torch's, so the weight bridge is unchanged."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -83,3 +84,31 @@ class FeatureEncoder(nn.Module):
             (y.shape[2], y.shape[3]) for y in (c2p, c3p, c4p))
         return (self.fc1(c1).permute(0, 2, 3, 1), tokens(c2p), tokens(c3p),
                 tokens(c4p), shapes)
+
+
+class PreViT(nn.Module):
+    """A feature map → patch tokens (the reference's `pre_vit`, the JAX
+    package's `models/encoders.py:PreViT`): a p×p stride-p conv from
+    `in_chans` planes to `embed_dim`, an optional LayerNorm (eps 1e-5),
+    flattened to (B, H'·W', D) or kept (B, H', W', D). NHWC in. No entry
+    point uses it."""
+
+    def __init__(self, patch_size: int = 14, in_chans: int = 256, embed_dim: int = 384,
+                 use_norm: bool = False, flatten_embedding: bool = True):
+        super().__init__()
+        self.patch_size = patch_size
+        self.flatten_embedding = flatten_embedding
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if use_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, _ = x.shape
+        p = self.patch_size
+        if H % p or W % p:
+            raise ValueError(f"input size ({H}, {W}) is not a multiple of the patch size {p}")
+        y = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)       # (B, H', W', D)
+        Hp, Wp, D = y.shape[1:]
+        y = y.reshape(B, Hp * Wp, D)
+        if self.norm is not None:
+            y = self.norm(y)
+        return y if self.flatten_embedding else y.reshape(B, Hp, Wp, D)

@@ -119,6 +119,14 @@ class DinoVisionTransformer(nn.Module):
                 out.append(x)
         return out
 
+    def get_intermediate_layers(self, x: torch.Tensor, n: int = 1,
+                                norm: bool = True) -> List[torch.Tensor]:
+        """The outputs of the last n blocks (final-normed with `norm`),
+        patch tokens only: DINOv2's feature tap."""
+        tokens, _ = self.embed(x, with_pos_cls=True)
+        outs = self.collect_block_outputs(tokens, range(self.depth - n, self.depth))
+        return [(self.final_norm(o) if norm else o)[:, 1:] for o in outs]
+
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
         """Deployed: the LayerNorm kernel (K6), whose output keeps x's dtype,
         also under autocast, as the JAX package's fused LayerNorm does. SSL:

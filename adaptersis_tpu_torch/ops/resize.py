@@ -44,6 +44,14 @@ def resize_bicubic(x: torch.Tensor, size: Tuple[int, int],
     return _nhwc(y)
 
 
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """NHWC nearest resize, F.interpolate(mode='nearest'): source index
+    floor(dst · in/out)."""
+    if tuple(size) == tuple(x.shape[1:3]):
+        return x
+    return _nhwc(F.interpolate(_nchw(x), size=tuple(size), mode="nearest"))
+
+
 def upsample2x(x: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
     """nn.Upsample(scale_factor=2, mode='bilinear') as the decoders use it."""
     return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2), align_corners)

@@ -14,6 +14,11 @@ the load is strict.
   flax                                   torch
   Dense `kernel` (in, out)           →   `weight` (out, in)
   Conv `kernel` HWIO                 →   `weight` OIHW (depthwise too)
+  ConvTranspose `kernel` (kh, kw, in, out) of a module named `up`
+                                     →   `weight` (in, out, kh, kw), both
+                                         spatial axes reversed (flax applies
+                                         it unflipped, torch as the conv's
+                                         gradient)
   LayerNorm / BatchNorm `scale`      →   `weight`
   batch_stats `mean` / `var`         →   `running_mean` / `running_var`
   `blocks_N`                         →   `blocks.N`
@@ -36,6 +41,11 @@ import torch
 from torch import nn
 
 
+# the name of every transposed convolution (flax nn.ConvTranspose, torch
+# nn.ConvTranspose2d) in both packages: `unet_parts.Up` and `UpWC`
+TRANSPOSED = "up"
+
+
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
     out: Dict[tuple, np.ndarray] = {}
     for k, v in tree.items():
@@ -55,6 +65,8 @@ def _param(path: tuple, a: np.ndarray):
     if leaf == "kernel":
         if a.ndim == 2:
             a = a.T
+        elif a.ndim == 4 and mod and mod[-1] == TRANSPOSED:
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1)
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         else:
@@ -81,7 +93,7 @@ def flax_to_state_dict(params: Mapping[str, Any],
             name, a = fn(path, a)
             if name in sd:
                 raise ValueError(f"two flax entries map to {name}")
-            sd[name] = torch.from_numpy(np.array(a))   # a copy: device_get arrays are read-only
+            sd[name] = torch.from_numpy(np.array(a, order="C"))   # a copy: device_get arrays are read-only
     return sd
 
 
@@ -124,6 +136,8 @@ def state_dict_to_flax(state) -> Dict[str, dict]:
             tree, leaf = "batch_stats", leaf[len("running_"):]
         elif leaf == "weight" and a.ndim == 2:
             a, leaf = a.T, "kernel"
+        elif leaf == "weight" and a.ndim == 4 and mod.rpartition(".")[2] == TRANSPOSED:
+            a, leaf = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
         elif leaf == "weight" and a.ndim == 4:
             a, leaf = a.transpose(2, 3, 1, 0), "kernel"
         elif leaf == "weight":

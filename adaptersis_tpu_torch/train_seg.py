@@ -1,5 +1,8 @@
-"""Train an AdapterSegmentor on the GPU: the port's counterpart of `train.py`
-for `--model adapter --decoder feature`, with `train.py`'s flags.
+"""Train a segmentor on the GPU: the port's counterpart of `train.py`, with
+`train.py`'s flags: the adapter model (`--model adapter`) with any
+`--decoder` (feature, mla, setr), or one of the eval scripts' models
+(`--model tap_setr|tap_unet|tap_unet_fuse|tap_masktrans|tap_setr_ete`), with
+any `--loss` of the registry.
 
     python -m adaptersis_tpu_torch.train_seg --arch vit_large --patch_size 14 \\
         --imsize 588 --batch_size_per_gpu 16 --epochs 500 --bf16 --gelu_approx \\
@@ -18,17 +21,20 @@ epoch's img/s, loader wait and peak memory, and saves
 `<output_dir>/checkpoint.pth`: the trainables, the BatchNorm statistics, the
 SGD momentum, the next epoch and the best acc1. A run started again with the
 same flags and `--output_dir` resumes from it, step for step, and
-`--evaluate` validates it. The frozen backbone is not in the checkpoint: it
-comes from the same `--pretrained_weights` (or seed) again. After the last
+`--evaluate` validates it. A frozen backbone is not in the checkpoint: it
+comes from the same `--pretrained_weights` (or seed) again; `tap_setr_ete`'s
+trained one is. After the last
 epoch the model's variables are written as `<output_dir>/variables.npz` (flax
 paths, the file `evaluate --flax_variables` and the JAX package read).
 `--profile` writes a torch.profiler table of the first epoch's steps after
 its first to `<output_dir>/profile.txt`. `ASN_STOP_AFTER_EPOCHS=n` stops the
 run after n epochs, once their checkpoint is saved (a preemption, for tests).
 
-The port trains the adapter model with the "feature" decoder on one card
-and the losses "dc" and "iou_multi"; the other models, decoders and losses
-(ROADMAP.md, M11) and `--fsdp` above 1 (M10) exit, naming their item.
+Per model, as the JAX trainer: the eval-script models train on their raw
+logits, with their script's loss where `--loss` is left at "dc" (CE + DC;
+the mask transformer's weighted CE + argmax dice) and the mask transformer
+on ImageNet-normalised inputs. The port trains on one card: `--fsdp` above
+1 (ROADMAP.md, M10) exits.
 """
 
 from __future__ import annotations
@@ -52,14 +58,13 @@ from .data.datasets import DATASETS
 from .data.loader import DataLoader
 from .data.samplers import EpochSampler
 from .data.synthetic import SyntheticSeg
-from .evaluate import build_model, data_decoder, validation_set
+from .evaluate import DECODERS, MODELS, build_model, data_decoder, input_norm, model_loss
+from .evaluate import validation_set
 from .losses import get_loss
 from .train.checkpoint import restore_checkpoint, save_checkpoint
 from .train.convert import save_flax_variables
 from .train.trainer import Trainer
 
-MODELS = ["adapter", "tap_setr", "tap_unet", "tap_unet_fuse", "tap_masktrans", "tap_setr_ete"]
-DECODERS = ["feature", "mla", "setr"]
 # the JAX package's choices, accepted; the port's kernels are fixed
 ATTN_IMPLS = ["einsum", "flash", "flash_fwd"]
 MSDA_IMPLS = ["gather", "matmul", "pallas"]
@@ -105,12 +110,14 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="key=value overrides of the YAML (e.g. student.arch=vit_large)")
     # the JAX trainer's flags
     p.add_argument("--model", default="adapter", choices=MODELS,
-                   help="only 'adapter' is ported (the others: ROADMAP.md, M11)")
+                   help="adapter = the paper's model; tap_* = the reference eval scripts' "
+                        "models (frozen taps and a head; tap_setr_ete trains the backbone)")
     p.add_argument("--decoder", default="feature", choices=DECODERS,
-                   help="only 'feature' is ported (the others: ROADMAP.md, M11)")
+                   help="the adapter model's decoder")
     p.add_argument("--dataset", default="robomis", choices=list(DATASETS))
     p.add_argument("--loss", default="dc", type=str,
-                   help="'dc' or 'iou_multi' (the rest of the JAX registry: ROADMAP.md, M11)")
+                   help="a name of the loss registry (losses.LOSSES); with a tap_* model "
+                        "'dc' means the script's own loss")
     p.add_argument("--num_classes", default=2, type=int)
     p.add_argument("--synthetic", action="store_true", help="use the synthetic dataset")
     p.add_argument("--seed", default=0, type=int)
@@ -180,17 +187,20 @@ def _arch_from_config(args) -> Tuple[str, int]:
 
 
 def check_args(args) -> None:
-    """Exit on what the port does not do, naming ROADMAP.md's item."""
-    if args.model != "adapter":
-        sys.exit(f"error: --model {args.model} is not ported yet (ROADMAP.md, M11: segmentor "
-                 "variants); the port trains 'adapter'")
-    if args.decoder != "feature":
-        sys.exit(f"error: --decoder {args.decoder} is not ported yet (ROADMAP.md, M11: "
-                 "segmentor variants); the port has 'feature'")
+    """Exit on what the port does not do, naming ROADMAP.md's item, and on
+    an unknown loss."""
     if args.fsdp != 1:
         sys.exit(f"error: --fsdp {args.fsdp}: sharding over several devices is not ported "
                  "yet (ROADMAP.md, M10: data parallelism)")
-    get_loss(args.loss)
+    get_loss(train_loss(args))
+
+
+def train_loss(args) -> str:
+    """The loss the run trains with: `--loss`, or the eval-script model's
+    own where it is left at "dc"; a caller that sets `args.keep_loss`
+    keeps `--loss` as it is (and one that sets `args.input_norm` overrides
+    the model's input norm: `eval.eval_dinov2_masktrans_inov`)."""
+    return args.loss if getattr(args, "keep_loss", False) else model_loss(args.model, args.loss)
 
 
 class InMemory:
@@ -281,7 +291,8 @@ def run(args) -> Tuple[Trainer, List[dict]]:
     B = args.batch_size_per_gpu
 
     trainer = Trainer(build_model(args).to(device), lr=args.lr, epochs=args.epochs,
-                      bf16=args.bf16, loss=args.loss)
+                      bf16=args.bf16, loss=train_loss(args), softmax=args.model == "adapter",
+                      input_norm=getattr(args, "input_norm", input_norm(args.model)))
     synthetic = args.synthetic or args.dataset == "synthetic"
     if synthetic:
         ds_train = InMemory(SyntheticSeg(n=8 * B, imsize=args.imsize,

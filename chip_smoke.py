@@ -14,6 +14,8 @@ seconds since the start):
      within a bound from its own terms (`k3_allowance`); in bf16 five
      repeated calls must give the same bits and two planted faults (a
      dropped tail key, a stale K/V ring stage) must break the bound;
+  2b. K3 the same way at tap_unet_fuse's extra walks of ViT-L/14 at 588 px,
+     N = 3970 (the 1.5× frame) and 442 (the 0.5× frame), batch 2 and 8;
   3. K1 deformable-attention forward vs msda_plain at the CAViT and CACNN
      geometries of ViT-L/14 at 588 px, bf16 values, each element within a
      bound from its own terms (`msda_allowances`): batch 2 and 16 on
@@ -55,6 +57,10 @@ seconds since the start):
      and ds not rounded to bf16, q scaled before q·kᵀ, and the straddling
      tokens given the next segment's id; five more bf16 calls at the
      student's shape give the same bits;
+  4d. K7 the same way at tap_setr_ete's geometry, (2, 16, 1765, 64), one
+     segment (no ids): forward and backward per element, the planted
+     faults di = 0 and p and ds not rounded to bf16, five bit-identical
+     repeats;
   5. a narrow whole model (fp32, TF32 off), seeded: CPU (plain paths) vs
      CUDA (kernels), eval logits and metrics, and the launches per forward
      (10 K3, 7 K1, 10 K4, 10 K5, 4 K6);
@@ -107,6 +113,20 @@ seconds since the start):
      twice the floor's distance in normalised L2 distance and max relative
      error, two planted faults (q, k, v moved by one head; K5 without b2)
      beyond them; `seg_step_gate`;
+  8h. `train_seg`'s other models and decoders at full width (ViT-L/14 at
+     588 px, bf16, tanh GELU, batch 8, synthetic, one epoch of 3 steps and
+     a validation): the adapter model with the MLA decoder (through
+     `train_mla`) and with SETR's, and tap_setr, tap_unet, tap_unet_fuse,
+     tap_masktrans and tap_setr_ete; finite losses, every trainable moved,
+     a frozen backbone unchanged, launches per train step and validation
+     forward as `variant_expect` says, img/s, peak memory, seconds; then
+     `--evaluate` on tap_setr_ete's checkpoint gives its last acc1
+     (`variant_runs`);
+  8i. tap_setr_ete's train step gate (ViT-L/14 at 588 px, bf16, batch 2,
+     LayerScale ~ N(0, 0.1²)): K7 against `flash_attn_plain`, with SDPA as
+     the floor and q, k, v moved by one head as the planted fault, per
+     subtree (backbone, head) within max(1e-1, 2 × floor)
+     (`ete_step_gate`);
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -119,7 +139,9 @@ seconds since the start):
      points and, at batch 16, a hot token, the corner-row bytes each call
      moves through the L2 and the rate reached, and K2's device time split
      into its four kernels (point, tile sort, plan, sum) from torch.profiler's
-     trace (`kernel_split`). The kernels line gives the training path's (batch 16,
+     trace (`kernel_split`); K3 at tap_unet_fuse's N = 3970 and 442 and K7
+     forward and backward at tap_setr_ete's (16, 16, 1765, 64), each against
+     SDPA. The kernels line gives the training path's (batch 16,
      uniform points) numbers and the launches of `bench`'s run for K1-K6,
      the SSL step's numbers and the launches of `bench_ssl`'s run for K7.
 Then a JSON line of the kernels, the card's name and power limit, and, last,
@@ -172,6 +194,15 @@ SSL_BATCH = 32
 STUDENT_SEGMENTS, TEACHER_N = [257, 50, 50, 50, 50], 257
 K7_SHAPES = {"student": (2 * SSL_BATCH, 6, sum(STUDENT_SEGMENTS), 64),
              "teacher": (2 * SSL_BATCH, 6, TEACHER_N, 64)}
+# K3 at tap_unet_fuse's extra walks of ViT-L/14 at 588 px: the 1.5× frame
+# (63² + 1 tokens) and the 0.5× frame (21² + 1); phase 2b holds them at
+# batch 2 and at the variants' batch (phase 8h), phase 9 times them at 16
+VARIANT_BATCH = 8
+FUSE_N = (3970, 442)
+FUSE_K3_SHAPES = [(B, 16, N, 64) for B in (FULL_BATCH, VARIANT_BATCH) for N in FUSE_N]
+# K7 at tap_setr_ete's geometry: ViT-L/14 at 588 px trained end to end, one
+# 1765-token segment (no ids), 16 heads; phase 4d at batch 2, phase 9 at 16
+ETE_CASE, ETE_SHAPE = "setr_ete", (FULL_BATCH, 16, 1765, 64)
 # per SSL step at ViT-S/14 (12 blocks): the teacher's and the student's
 # forwards, the student's backward
 SSL_PER_STEP = {"flash_attn": 24, "flash_attn_bwd": 12}
@@ -726,6 +757,18 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                 "k7_fwd_device": device_ms(lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125))}
             del q, k, v
             torch.cuda.empty_cache()
+        # K3 at tap_unet_fuse's extra walks (1.5× and 0.5× frames), batch 16;
+        # kept out of the kernels line's mean over the main path's calls
+        for N in FUSE_N:
+            q, k, v = flash_inputs((TRAIN_BATCH, 16, N, 64), seed=1)
+            key = f"unet_fuse flash_fwd B={TRAIN_BATCH} N={N}"
+            timed(key, lambda: ff.flash_fwd(q, k, v, 0.125),
+                  lambda: ff.flash_fwd_plain(q, k, v, 0.125),
+                  lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
+            bounds[key] = bound_ms(4 * q.numel() * q.element_size(),
+                                   4 * TRAIN_BATCH * 16 * N * N * 64, "bf16")
+            del q, k, v
+            torch.cuda.empty_cache()
         # K1 and K2 on uniform points (the kernels line's), on model-like
         # ones and, at batch 16, with a hot token; beside the HBM bound, the
         # corner rows each call moves through the L2 (in-level corners × D ×
@@ -823,12 +866,14 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe, flops, "bf16")
             del x, p, xn, h
             torch.cuda.empty_cache()
-        # K7 at the SSL step's shapes, bf16: forward, and backward from the
-        # forward's o and lse; beside plain, PyTorch's SDPA with the boolean
-        # block-diagonal mask (the student's; none for the teacher), forward
-        # and its backward alone (autograd.grad with the graph kept; graphed
-        # on the stream its forward ran on)
-        for case, shape in K7_SHAPES.items():
+        # K7 at the SSL step's shapes and at tap_setr_ete's (batch 16, one
+        # segment), bf16: forward, and backward from the forward's o and lse;
+        # beside plain, PyTorch's SDPA with the boolean block-diagonal mask
+        # (the student's; none for the teacher and setr_ete), forward and its
+        # backward alone (autograd.grad with the graph kept; graphed on the
+        # stream its forward ran on)
+        ete = (TRAIN_BATCH,) + ETE_SHAPE[1:]
+        for case, shape in {**K7_SHAPES, f"{ETE_CASE} B={TRAIN_BATCH}": ete}.items():
             q, k, v, do = k7_inputs(shape, torch.bfloat16, seed=0)
             B, H, N, Dh = shape
             segs = STUDENT_SEGMENTS if case == "student" else [N]
@@ -1092,7 +1137,7 @@ def k7_worst(names, got, ref, allow):
     return out
 
 
-def check_k7(fa) -> dict:
+def check_k7(fa, cases=None) -> dict:
     """Phase 4c: K7 against its plain version on the same inputs, per
     element (`k7_allowances`): the forward, the backward through the
     kernels' own forward (autograd of flash_attn against autograd of
@@ -1110,14 +1155,19 @@ def check_k7(fa) -> dict:
     `live_tiles` keeps (`walked_tiles`); in bf16 the kernels' own counts of
     the pairs they walked (`kernel_walks`) must equal the rule's. No
     backward call may change its o. Returns the largest bf16 errors at the
-    SSL step's shapes, forward and backward."""
+    SSL step's shapes, forward and backward. Phase 4d passes `cases` =
+    [(ETE_CASE, ETE_SHAPE, None, 0.125)]: tap_setr_ete's one segment of 1765
+    tokens, whose faults are di = 0 and the unrounded fp32 kernels, with
+    five repeats; it returns that case's errors."""
     k7_err = {"fwd": 0.0, "bwd": 0.0}
-    cases = [(name, shape, packed_ids(shape[0], STUDENT_SEGMENTS) if name == "student" else None,
-              0.125) for name, shape in K7_SHAPES.items()]
-    inter = torch.randint(0, 5, (8, 457), generator=torch.Generator().manual_seed(3),
-                          dtype=torch.int32).cuda()
-    cases.append(("interleaved ids", (8, 6, 457, 64), inter, 0.1))
-    cases.append(("straddle", (8, 6, 457, 64), packed_ids(8, STRADDLE_SEGMENTS), 0.125))
+    if cases is None:
+        cases = [(name, shape,
+                  packed_ids(shape[0], STUDENT_SEGMENTS) if name == "student" else None, 0.125)
+                 for name, shape in K7_SHAPES.items()]
+        inter = torch.randint(0, 5, (8, 457), generator=torch.Generator().manual_seed(3),
+                              dtype=torch.int32).cuda()
+        cases.append(("interleaved ids", (8, 6, 457, 64), inter, 0.1))
+        cases.append(("straddle", (8, 6, 457, 64), packed_ids(8, STRADDLE_SEGMENTS), 0.125))
     bwd = K7_NAMES[2:]
 
     def caught(report, names, key):
@@ -1143,11 +1193,13 @@ def check_k7(fa) -> dict:
                                                              allow["through"]),
                       "bwd_alone": k7_worst(bwd, alone, ref[2:], allow["alone"])}
             planted = {}
-            if case == "student" and dtype == torch.bfloat16:
-                wrong = k7_outputs(fa, q, k, v, do, None, plain=False, scale=scale)
-                r = {**k7_worst(K7_NAMES[:2], wrong[:2], ref[:2], allow["fwd"]),
-                     **k7_worst(bwd, wrong[2:], ref[2:], allow["through"])}
-                planted["dropped_segment_mask"] = (r, caught(r, K7_NAMES, "worst_share_of_bound"))
+            if case in ("student", ETE_CASE) and dtype == torch.bfloat16:
+                if seg is not None:
+                    wrong = k7_outputs(fa, q, k, v, do, None, plain=False, scale=scale)
+                    r = {**k7_worst(K7_NAMES[:2], wrong[:2], ref[:2], allow["fwd"]),
+                         **k7_worst(bwd, wrong[2:], ref[2:], allow["through"])}
+                    planted["dropped_segment_mask"] = (r, caught(r, K7_NAMES,
+                                                                 "worst_share_of_bound"))
                 wrong = fa.flash_attn_bwd_kernel(q, k, v, torch.zeros_like(ref[0]), ref[1], do,
                                                  scale, seg)
                 r = k7_worst(bwd, wrong, ref[2:], allow["alone"])
@@ -1205,7 +1257,7 @@ def check_k7(fa) -> dict:
                             and not r["differing_share"] <= K7_DIFFER_SHARE):
                         fail(f"flash_attn backward differs from plain in {r['differing_share']} "
                              f"of {n}'s elements ({case}): above {K7_DIFFER_SHARE}")
-            if dtype == torch.bfloat16 and case in K7_SHAPES:
+            if dtype == torch.bfloat16 and (case in K7_SHAPES or case == ETE_CASE):
                 k7_err["fwd"] = max(k7_err["fwd"], report["fwd"]["o"]["max_abs_err"])
                 k7_err["bwd"] = max(k7_err["bwd"],
                                     *(report["bwd_through_kernel_forward"][n]["max_abs_err"]
@@ -1238,10 +1290,11 @@ def k3_allowance(q, k, v, ref, scale: float):
     return out
 
 
-def check_k3(ff) -> float:
+def check_k3(ff, shapes=FLASH_SHAPES) -> float:
     """Phase 2: K3 against its plain version (fp32 on the same values) at
-    the walks' shapes (H = 16, Dh = 64, N = 1765 and 1764, batch 2 and 16),
-    bf16 and fp32, each element within `k3_allowance`. In bf16 also: five
+    the walks' shapes (H = 16, Dh = 64, N = 1765 and 1764, batch 2 and 16;
+    phase 2b: `FUSE_K3_SHAPES`), bf16 and fp32, each element within
+    `k3_allowance`. In bf16 also: five
     more calls give the same bits (a race in the K/V ring would change them
     from run to run), and two planted faults must break the bound: the last
     key's v row zeroed (a dropped tail) and keys 128-255 given the v of
@@ -1249,7 +1302,7 @@ def check_k3(ff) -> float:
     flash_err = 0.0
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
-            for i, shape in enumerate(FLASH_SHAPES):
+            for i, shape in enumerate(shapes):
                 q, k, v = (x.to(dtype) for x in flash_inputs(shape, seed=i))
                 out = ff.flash_fwd(q, k, v, 0.125)
                 torch.cuda.synchronize()
@@ -1541,8 +1594,10 @@ def plain_patches(kernels) -> list:
     return [p for k in kernels for p in versions[k]]
 
 
-def seg_gate_step(model, x01, y, patches, regime, counts, reset_counts):
-    """One bf16 `Trainer` step of a copy of `model` with `patches`
+def seg_gate_step(model, x01, y, patches, regime, counts, reset_counts,
+                  subtrees=SEG_SUBTREES, **trainer_kw):
+    """One bf16 `Trainer` step (`trainer_kw`: its loss and softmax) of a
+    copy of `model` with `patches`
     ((module, name, function) triples) in place for the step only. The
     regime: "full", the step as it trains; "encoder fp32", the same step
     with the CNN encoder (`model.encoder`, which runs none of K1-K6) run in
@@ -1552,7 +1607,7 @@ def seg_gate_step(model, x01, y, patches, regime, counts, reset_counts):
     each subtree's flat fp64 gradient and the launches."""
     from adaptersis_tpu_torch.ops import ms_deform_attn
     from adaptersis_tpu_torch.train.trainer import Trainer
-    trainer = Trainer(copy.deepcopy(model), bf16=True)
+    trainer = Trainer(copy.deepcopy(model), bf16=True, **trainer_kw)
     if regime == "encoder fp32":
         encoder = trainer.model.encoder
         bf16_forward = encoder.forward
@@ -1578,7 +1633,7 @@ def seg_gate_step(model, x01, y, patches, regime, counts, reset_counts):
         ms_deform_attn.msda_fwd = core
     grads = {sub: torch.cat([p.grad.double().flatten() for n, p in
                              trainer.model.named_parameters() if n.split(".")[0] == sub])
-             for sub in SEG_SUBTREES}
+             for sub in subtrees}
     return loss, grads, counts()
 
 
@@ -2050,6 +2105,266 @@ def ssl_resume_run(counts, reset_counts, expect_ssl, smi) -> dict:
     return res
 
 
+# phase 8h: `train_seg`'s other models and decoders at full width
+VARIANT_STEPS = 3
+# (name, entry point, its extra flags, --model)
+VARIANTS = [("adapter mla", "train_mla", [], "adapter"),
+            ("adapter setr", "train_seg", ["--decoder", "setr"], "adapter"),
+            *((m, "train_seg", ["--model", m], m)
+              for m in ("tap_setr", "tap_unet", "tap_unet_fuse", "tap_masktrans",
+                        "tap_setr_ete"))]
+# the model whose checkpoint `--evaluate` validates again
+VARIANT_EVALUATED = "tap_setr_ete"
+
+
+def variant_expect(model: str, train: bool) -> dict:
+    """Launches per train step (or per validation forward) of `model` at
+    ViT-L/14 (24 blocks) with tanh GELU: the adapter model's as phase 8's;
+    each frozen walk of the taps 24 K3, K4 and K5 (unet_fuse walks three
+    times), one K6 per tap it norms (setr and masktrans read 4 blocks, the
+    UNets 1 per walk); tap_setr_ete's trained backbone 24 K7 forwards, and
+    in training 24 backwards."""
+    if model == "adapter":
+        return expect(1, 7 if train else 0)
+    out = {k: 0 for k in expect(0, 0)}
+    if model == "tap_setr_ete":
+        return {**out, "flash_attn": 24, "flash_attn_bwd": 24 if train else 0}
+    walks, norms = {"tap_setr": (1, 4), "tap_masktrans": (1, 4), "tap_unet": (1, 1),
+                    "tap_unet_fuse": (3, 3)}[model]
+    return {**out, "flash_fwd": 24 * walks, "fused_ln_qkv": 24 * walks,
+            "fused_ln_mlp": 24 * walks, "layernorm": norms}
+
+
+def variant_runs(counts, reset_counts, smi) -> dict:
+    """Phase 8h: `train_seg` (for the MLA decoder `train_mla`) on every
+    other `--model` and `--decoder` at full width: ViT-L/14 at 588 px,
+    bf16, tanh GELU, synthetic frames, batch 8, one epoch of 3 steps and a
+    validation of 2 forwards, each model from its seed. Each run must give
+    finite losses and metrics, move every trainable parameter and leave a
+    frozen backbone bit for bit (as its bf16 cast), and launch per train
+    step and per validation forward what `variant_expect` says. Then
+    `--evaluate` on `VARIANT_EVALUATED`'s checkpoint (its trained backbone
+    restored from it) must give the last validation's acc1."""
+    from adaptersis_tpu_torch import train_mla, train_seg
+    from adaptersis_tpu_torch.data.synthetic import SyntheticSeg
+    from adaptersis_tpu_torch.train.trainer import Trainer
+
+    work = ROOT / "build" / "smoke_variants"
+    shutil.rmtree(work, ignore_errors=True)
+    entries = {"train_seg": train_seg, "train_mla": train_mla}
+    seen, per = {}, {"train": [], "eval": []}
+    plain_build, plain_synthetic = train_seg.build_model, train_seg.SyntheticSeg
+    plain_train, plain_eval = Trainer.train_step, Trainer.eval_step
+
+    def build_recorded(args):
+        model = plain_build(args)
+        seen["model"] = model
+        seen["start"] = {k: v.detach().clone() for k, v in model.named_parameters()}
+        return model
+
+    def counted(kind, fn):
+        def wrap(self, *a, **kw):
+            before = counts()
+            out = fn(self, *a, **kw)
+            after = counts()
+            per[kind].append({k: after[k] - before[k] for k in after})
+            return out
+        return wrap
+
+    def argv(name):
+        return ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588", "--bf16",
+                "--gelu_approx", "--batch_size_per_gpu", str(VARIANT_BATCH), "--epochs", "1",
+                "--synthetic", "--seed", "0", "--num_workers", "4",
+                "--output_dir", str(work / name.replace(" ", "_"))]
+
+    report, failures = {}, []
+    train_seg.build_model = build_recorded
+    train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=VARIANT_STEPS * VARIANT_BATCH,
+                                                             **kw)
+    Trainer.train_step = counted("train", plain_train)
+    Trainer.eval_step = counted("eval", plain_eval)
+    try:
+        for name, entry, flags, model in VARIANTS:
+            per["train"].clear()
+            per["eval"].clear()
+            t0 = time.perf_counter()
+            reset_counts()
+            hist = entries[entry].main(argv(name) + flags)
+            seconds = time.perf_counter() - t0
+            m = seen.pop("model")
+            start = seen.pop("start")
+            unchanged, frozen_moved = [], []
+            for n_, p_ in m.named_parameters():
+                was = start[n_].to(p_.device, p_.dtype)
+                if p_.requires_grad and torch.equal(p_.detach(), was):
+                    unchanged.append(n_)
+                elif not p_.requires_grad and not torch.equal(p_.detach(), was):
+                    frozen_moved.append(n_)
+            trained = sorted({n_.split(".")[0] for n_, p_ in m.named_parameters()
+                              if p_.requires_grad})
+            del m, start
+            ep = hist[0]
+            r = {"entry": entry, "flags": flags, "seconds": seconds, "steps": len(per["train"]),
+                 "validation_forwards": len(per["eval"]), "train_losses": ep["train_losses"],
+                 "test_loss": ep.get("test_loss"), "test_dice": ep.get("test_dice"),
+                 "test_acc1": ep.get("test_acc1"), "train_img_per_s": ep["train_img_per_s"],
+                 "peak_mem_bytes": ep["peak_mem_bytes"], "trained_subtrees": trained,
+                 "per_train_step": per["train"][0] if per["train"] else None,
+                 "per_validation_forward": per["eval"][0] if per["eval"] else None,
+                 "unchanged_trainables": unchanged, "frozen_moved": frozen_moved}
+            report[name] = r
+            say("variant_training", name=name, arch="vit_large", imsize=588, dtype="bf16",
+                batch=VARIANT_BATCH, **r)
+            want_t, want_e = variant_expect(model, True), variant_expect(model, False)
+            if r["steps"] != VARIANT_STEPS or r["validation_forwards"] != 2:
+                failures.append(f"{name}: {r['steps']} steps, {r['validation_forwards']} "
+                                "validation forwards")
+            if not ep["train_losses_finite"] or not all(
+                    math.isfinite(ep.get(k, float("nan"))) for k in
+                    ("test_loss", "test_dice", "test_acc1")):
+                failures.append(f"{name}: losses or metrics not finite: {ep}")
+            if any(d != want_t for d in per["train"]):
+                failures.append(f"{name}: launches per train step {per['train']}, "
+                                f"expected {want_t}")
+            if any(d != want_e for d in per["eval"]):
+                failures.append(f"{name}: launches per validation forward {per['eval']}, "
+                                f"expected {want_e}")
+            if unchanged or frozen_moved:
+                failures.append(f"{name}: trainables unchanged {unchanged[:5]}, frozen "
+                                f"parameters moved {frozen_moved[:5]}")
+            if ("backbone" in trained) != (model == "tap_setr_ete"):
+                failures.append(f"{name}: trained subtrees {trained}")
+            if name != VARIANT_EVALUATED:
+                shutil.rmtree(work / name.replace(" ", "_"), ignore_errors=True)
+            torch.cuda.empty_cache()
+        per["eval"].clear()
+        reset_counts()
+        ev = train_seg.main(argv(VARIANT_EVALUATED) + ["--model", VARIANT_EVALUATED,
+                                                       "--evaluate"])
+        seen.clear()
+    finally:
+        train_seg.build_model, train_seg.SyntheticSeg = plain_build, plain_synthetic
+        Trainer.train_step, Trainer.eval_step = plain_train, plain_eval
+    last = report[VARIANT_EVALUATED]["test_acc1"]
+    res = {"evaluated": VARIANT_EVALUATED, "evaluate_acc1": ev[0]["test_acc1"],
+           "last_validation_acc1": last, "evaluate_launches": counts(),
+           "nvidia_smi": smi[0] if smi else "unavailable"}
+    say("variant_evaluate", **res)
+    # the same checkpoint in the same process: only cuDNN's algorithm choice
+    # may differ, moving acc1 by a pixel or two of 16 · 588²
+    if abs(res["evaluate_acc1"] - last) > 1e-3:
+        failures.append(f"--evaluate acc1 {res['evaluate_acc1']} against the last "
+                        f"validation's {last}")
+    if res["evaluate_launches"] != {k: 2 * v for k, v in
+                                    variant_expect(VARIANT_EVALUATED, False).items()}:
+        failures.append(f"--evaluate launches {res['evaluate_launches']}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if failures:
+        fail("8h: " + "; ".join(failures))
+    return {**report, "evaluate": res}
+
+
+# phase 8i: tap_setr_ete's train step, K7 against its plain version
+ETE_GATE_BATCH = 2
+ETE_SUBTREES = ("backbone", "head")
+
+
+def ete_gate_inputs(seed=0):
+    """tap_setr_ete at full width (ViT-L/14 at 588 px, the trained block
+    configuration, tanh GELU) from `seed`, every LayerScale γ drawn from
+    N(0, 0.1²) so that each block moves its tokens; one augmented batch
+    (with CLAHE) of `ETE_GATE_BATCH` seeded frames and masks."""
+    from adaptersis_tpu_torch.data.augment import (
+        apply_train_augment, draw_train_augment, draws_to)
+    from adaptersis_tpu_torch.models.layers import TRAINED
+    from adaptersis_tpu_torch.models.tap_segmentor import TapSegmentor
+    from adaptersis_tpu_torch.models.vit import build_backbone
+    from adaptersis_tpu_torch.train.convert import seeded_init_
+
+    dev, B, size = torch.device("cuda"), ETE_GATE_BATCH, 588
+    impls = dict(zip(("attn_impl", "ln_impl", "qkv_impl", "mlp_impl"), TRAINED))
+    backbone = build_backbone("vit_large", img_size=518, patch_size=14, gelu_approx=True,
+                              **impls)
+    model = seeded_init_(TapSegmentor(backbone, num_classes=2, decoder="setr_ete"), seed=seed)
+    rng = np.random.default_rng(32 + seed)
+    with torch.no_grad():
+        for n, p in backbone.named_parameters():
+            if n.endswith(".gamma"):
+                p.copy_(torch.from_numpy(0.1 * rng.standard_normal(p.shape, np.float32)))
+    imgs = torch.from_numpy(rng.integers(0, 256, (B, size, size, 3), np.uint8)).to(dev)
+    masks = torch.from_numpy((rng.uniform(size=(B, size, size)) > 0.8)
+                             .astype(np.int32)).to(dev)
+    draws = draws_to(draw_train_augment(torch.Generator().manual_seed(5 + seed), B, size), dev)
+    return model.to(dev), *apply_train_augment(imgs, masks, draws)
+
+
+def ete_step_gate(fa, counts, reset_counts) -> dict:
+    """Phase 8i: tap_setr_ete's bf16 train step (`ete_gate_inputs`, its loss
+    CE + DC on the raw logits) on four sides from the same weights and
+    batch: K7 (the kernel side); `flash_attn_plain` patched into
+    `models.layers` (the plain side); PyTorch's SDPA there (the floor: an
+    equally valid attention, with its own roundings); and a planted fault,
+    K7 on q, k and v moved by one head. Against the plain side: the loss
+    (relative, `SSL_GATE_LOSS_BOUND`) and per subtree (backbone, head) the
+    gradients' `grad_distance`, held as phase 8e holds its subtrees: within
+    max(1e-1, 2 × the floor's distance); the fault must break a bound. A
+    zero gradient on the plain side fails, and so do K7 launches other than
+    24 forwards and 24 backwards on the kernel and fault sides and none on
+    the others."""
+    from adaptersis_tpu_torch.models import layers
+    F = torch.nn.functional
+    t0 = time.perf_counter()
+    model, x01, y = ete_gate_inputs()
+    kernel = layers.flash_attn
+    sides = {"kernel": [], "plain": [(layers, "flash_attn", fa.flash_attn_plain)],
+             "floor": [(layers, "flash_attn", lambda q, k, v, scale, seg:
+                        F.scaled_dot_product_attention(q, k, v, scale=scale))],
+             "heads moved": [(layers, "flash_attn", lambda q, k, v, scale, seg: kernel(
+                 *(t.roll(1, dims=1) for t in (q, k, v)), scale, seg))]}
+    losses, grads, launches = {}, {}, {}
+    for side, patches in sides.items():
+        losses[side], grads[side], launches[side] = seg_gate_step(
+            model, x01, y, patches, "full", counts, reset_counts, subtrees=ETE_SUBTREES,
+            loss="ce_dc", softmax=False)
+    measures = ("l2_dist", "max_rel")
+    report, fault = {}, {}
+    for sub, g in grads["plain"].items():
+        r = grad_distance(grads["kernel"][sub], g)
+        floor = grad_distance(grads["floor"][sub], g)
+        r["floor"] = {k: floor[k] for k in measures}
+        r["bound"] = {k: max(SSL_GATE_BOUND, 2 * floor[k]) for k in measures}
+        report[sub] = r
+        d = grad_distance(grads["heads moved"][sub], g)
+        fault[sub] = max(d[k] / r["bound"][k] for k in measures)
+    loss_err = {side: abs(v - losses["plain"]) / max(abs(losses["plain"]), 1e-30)
+                for side, v in losses.items() if side != "plain"}
+    out = {"losses": losses, "loss_rel_err": loss_err, "subtrees": report,
+           "fault_share_of_bound": fault, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    say("ete_step_gate", arch="vit_large", imsize=588, batch=ETE_GATE_BATCH, dtype="bf16",
+        bound=SSL_GATE_BOUND, loss_bound=SSL_GATE_LOSS_BOUND, **out)
+    k7 = {**{k: 0 for k in expect(0, 0)}, "flash_attn": 24, "flash_attn_bwd": 24}
+    for side, got in launches.items():
+        want = k7 if side in ("kernel", "heads moved") else {k: 0 for k in k7}
+        if got != want:
+            fail(f"8i: launches {got} on the {side} side, expected {want}")
+    dead = [sub for sub, r in report.items() if not r["norm_plain"] > 0]
+    if dead:
+        fail(f"8i: zero gradient on the plain side in {dead}")
+    if not all(math.isfinite(loss_err[side]) and loss_err[side] <= SSL_GATE_LOSS_BOUND
+               for side in ("kernel", "floor")):
+        fail(f"8i: losses differ {losses}")
+    if not max(fault.values()) > 1:
+        fail(f"8i: the bounds pass q, k and v moved by one head: {fault}")
+    for sub, r in report.items():
+        if not all(r[k] <= r["bound"][k] for k in measures):
+            fail(f"8i: {sub} gradients differ: {r}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def narrow_model():
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
     from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
@@ -2134,6 +2449,9 @@ def main() -> None:
     # (`check_k3`)
     flash_err = check_k3(ff)
 
+    # ---- 2b. K3 at tap_unet_fuse's extra walks (N = 3970 and 442)
+    fuse_k3_err = check_k3(ff, FUSE_K3_SHAPES)
+
     # ---- 3. K1 (deformable attention forward) vs its plain version, per
     # element (`check_msda_fwd`)
     msda_err = check_msda_fwd(mc)
@@ -2162,6 +2480,9 @@ def main() -> None:
     # ---- 4c. K7 (flash attention with segment ids) vs its plain version
     # (`check_k7`)
     k7_err = check_k7(fa)
+
+    # ---- 4d. K7 at tap_setr_ete's geometry: one 1765-token segment, no ids
+    ete_k7_err = check_k7(fa, [(ETE_CASE, ETE_SHAPE, None, 0.125)])
 
     # ---- 5. narrow whole model: CPU plain paths vs CUDA kernels, fp32
     model = narrow_model()
@@ -2554,10 +2875,20 @@ def main() -> None:
     # ---- 8g. the SSL checkpoint and resume at full width (`ssl_resume_run`)
     ssl_resume_run(counts, reset_counts, expect_ssl, smi)
 
+    # ---- 8h. the other models and decoders at full width (`variant_runs`)
+    variant_runs(counts, reset_counts, smi)
+
+    # ---- 8i. tap_setr_ete's train step, K7 against its plain version
+    # (`ete_step_gate`)
+    ete_step_gate(fa, counts, reset_counts)
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
     say_times(name, smi, times, bounds, extra, dev, host)
+    say("variant_geometries", k3_unet_fuse_max_abs_err=fuse_k3_err,
+        k7_setr_ete_max_abs_err=ete_k7_err, device=name,
+        nvidia_smi=smi[0] if smi else "unavailable")
 
     def on_path(key, prefix):
         return (key.startswith(prefix) and f"B={TRAIN_BATCH}" in key

@@ -81,11 +81,11 @@ def test_challenge_metrics_match_jax_with_empty_maps():
 
 
 def test_unported_losses_exit_naming_the_item():
-    assert get_loss("dc") is LOSSES["dc"]
-    assert set(LOSSES) < set(JAX_LOSSES)
-    for name in set(JAX_LOSSES) - set(LOSSES):
-        with pytest.raises(SystemExit, match="M11"):
-            get_loss(name)
+    """The registry now has every name of the JAX package's, so only a name
+    outside it exits."""
+    assert set(LOSSES) == set(JAX_LOSSES)
+    for name in JAX_LOSSES:
+        assert get_loss(name) is LOSSES[name]
     with pytest.raises(SystemExit, match="unknown"):
         get_loss("no_such_loss")
 

@@ -92,8 +92,17 @@ def test_synthetic_dataset_matches_jax():
 
 
 def test_other_decoders_not_ported():
-    with pytest.raises(NotImplementedError, match="M11"):
-        AdapterSegmentor(DinoVisionTransformer(**VIT), decoder_type="mla")
+    """The other decoders are ported now (held against the JAX package in
+    test_torch_tap_segmentor.py): both build and give logits of the input's
+    size; an unknown decoder_type raises."""
+    x = torch.rand(1, 56, 56, 3)
+    for decoder in ("mla", "setr"):
+        model = AdapterSegmentor(DinoVisionTransformer(**VIT), decoder_type=decoder,
+                                 **HEAD).eval()
+        with torch.no_grad():
+            assert model(x).shape == (1, 56, 56, 2)
+    with pytest.raises(ValueError, match="decoder_type"):
+        AdapterSegmentor(DinoVisionTransformer(**VIT), decoder_type="unet")
 
 
 def test_evaluate_requires_a_gpu(monkeypatch):

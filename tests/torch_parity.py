@@ -58,6 +58,20 @@ def library_flash_interpret():
         yield
 
 
+@pytest.fixture(scope="module")
+def single_thread():
+    """torch on one intra-op thread for a module's tests. The suite runs in
+    several worker processes on one machine: small CPU ops split over every
+    core by each worker spend their time waiting on each other (a tiny
+    train_seg epoch took 30 times as long under six workers as alone)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(kept)
+
+
 def init_perturbed(module, seed: int, *args) -> dict:
     """Flax variables of `module` for inputs `args`, every leaf drawn by
     `perturb`. Only the shapes of the module's own init are used."""
