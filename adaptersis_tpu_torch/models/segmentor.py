@@ -45,6 +45,11 @@ class AdapterSegmentor(nn.Module):
                  decoder_features: Optional[Sequence[int]] = None,
                  parity_frozen_head: bool = False, mla_last_block_bug: bool = False):
         super().__init__()
+        if backbone.num_register_tokens:
+            raise ValueError(
+                f"the adapter segmentor reads the patch tokens as tokens[:, 1:], so a backbone "
+                f"with {backbone.num_register_tokens} register tokens does not fit it (the JAX "
+                "package fails there too, adding the taps to the adapter tokens)")
         E = backbone.embed_dim
         self.backbone = backbone
         self.n_last_blocks = n_last_blocks

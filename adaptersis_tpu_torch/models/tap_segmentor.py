@@ -14,6 +14,8 @@ backbone's feature taps decoded by one of five heads (`decoder`):
     DecoderSETR (256, 128, 64), the backbone trained end to end
     (eval_dinov2_setr_cross_ete.py).
 Every variant's logits are resized bilinearly to the input size, in fp32.
+A DINO-v1 backbone fits none of them (its taps keep the cls token): the
+constructor raises, where the JAX package fails at the taps' reshape.
 
 The frozen taps run under torch.no_grad(), so the deployed configuration's
 forward-only kernels serve them. "setr_ete" differentiates through the
@@ -32,7 +34,7 @@ from ..ops.resize import resize_bilinear
 from .decoders import DecoderSETR, FCUUp
 from .masktrans import MaskTransformer
 from .unet_parts import DoubleConv, Down, FeatureUNet, OutConv, Up
-from .vit import DinoVisionTransformer
+from .vit import DinoV1VisionTransformer, DinoVisionTransformer
 
 DECODERS = ("setr", "unet", "unet_fuse", "masktrans", "setr_ete")
 
@@ -78,6 +80,10 @@ class TapSegmentor(nn.Module):
         super().__init__()
         if decoder not in DECODERS:
             raise ValueError(f"unknown tap decoder {decoder!r}; choose from {DECODERS}")
+        if isinstance(backbone, DinoV1VisionTransformer):
+            raise ValueError("a DINO-v1 backbone's taps keep the cls token and its forward "
+                             "returns no dict, so no tap model reads it (the JAX package fails "
+                             "there too); use the adapter model")
         self.train_backbone = decoder == "setr_ete"
         if self.train_backbone and backbone.blocks[0].attn_impl != "flash":
             raise ValueError("a trained backbone needs the trained block configuration "

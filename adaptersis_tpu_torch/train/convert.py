@@ -195,15 +195,12 @@ HEAD_PREFIXES = ("dino_head.", "ibot_head.")
 
 def load_dinov2_backbone(backbone: nn.Module, path, checkpoint_key: str = "teacher") -> None:
     """Load a DINOv2 `.pth` into the port's ViT, strictly: every parameter
-    with its shape, and no key but the SSL heads' left over. Register tokens
-    and SwiGLU MLPs (`vit_giant2`) raise: the port's ViT has neither yet."""
+    with its shape, and no key but the SSL heads' left over. The ViT must
+    be built to match the checkpoint: register tokens (`register_tokens`),
+    SwiGLU FFNs (`mlp.w12`, `mlp.w3`: `vit_giant2`) and blocks without
+    LayerScale (DINO-v1's) load as their names say."""
     sd = flatten_chunked_block_keys(load_torch_state_dict(path, checkpoint_key))
     sd = {k: v for k, v in sd.items() if not k.startswith(HEAD_PREFIXES)}
-    unported = sorted(k for k in sd if k == "register_tokens"
-                      or re.search(r"\.mlp\.(w12|w3)\.", k))
-    if unported:
-        raise ValueError(f"{path}: {unported[:3]}...: register tokens and SwiGLU MLPs are not "
-                         "ported yet (ROADMAP.md, M2b: the other backbones of --arch)")
     backbone.load_state_dict(sd, strict=True)
 
 

@@ -16,6 +16,7 @@ seconds since the start):
      dropped tail key, a stale K/V ring stage) must break the bound;
   2b. K3 the same way at tap_unet_fuse's extra walks of ViT-L/14 at 588 px,
      N = 3970 (the 1.5× frame) and 442 (the 0.5× frame), batch 2 and 8;
+  2c. K3 the same way at ViT-g/14's 24 heads (`G_FLASH_SHAPES`);
   3. K1 deformable-attention forward vs msda_plain at the CAViT and CACNN
      geometries of ViT-L/14 at 588 px, bf16 values, each element within a
      bound from its own terms (`msda_allowances`): batch 2 and 16 on
@@ -25,7 +26,9 @@ seconds since the start):
      (coordinates within one fp32 rounding of k/W or (k + ½)/W) and all
      points outside; five more calls at CAViT batch 16 must give the same
      bits, and a level's start offset moved by one token must break the
-     bound;
+     bound; 3b. the same at ViT-g/14's adapters (`G_MSDA_CASES`: head width
+     D = 192, bf16 and fp32 values, batch 2 and 16, uniform and model-like
+     points and a hot token);
   4. K2 deformable-attention backward vs autograd of msda_plain in the same
      cases, with a seeded fp32 incoming gradient: dvalue (bf16, half an ulp
      plus the fp32 reordering of the element's own sum), dloc and daw per
@@ -33,7 +36,7 @@ seconds since the start):
      (whose bins several warps sum), must give bit-identical dvalue, dloc
      and daw, and two planted faults must break the dvalue
      bound (each token's first contribution dropped; every point's x0 and
-     x0+1 corner weights swapped);
+     x0+1 corner weights swapped); 4a. the same at `G_MSDA_CASES`;
   4b. K6 LayerNorm, K4 fused LN → qkv → head split and K5 fused LN → MLP →
      LayerScale → residual vs their plain versions, bf16 and fp32, C = 1024,
      H = 16, N = 1765 and 1764, batch 2 and 16, and 3 images of 1765 (the
@@ -42,7 +45,10 @@ seconds since the start):
      and in fp32; K5 per element; planted faults must break the bounds (K4:
      q, k, v moved by one head, one k-step of x not normalised; K5: b2
      dropped, an fc2 k-slice lost, in fp32 the exact GELU) and five more
-     bf16 calls of each must give the same bits;
+     bf16 calls of each must give the same bits; then K6 and K4 the same
+     way at ViT-g/14's C = 1536, H = 24 (`G_ROW_SHAPES`: its SwiGLU blocks
+     run no K5) and K6, K4 and K5 at vit_tiny's C = 192, H = 3
+     (`TINY_ROW_SHAPES`);
   4c. K7 flash attention with segment ids vs its plain version, bf16 and
      fp32, each element against a bound from its own terms: the forward
      (output and logsumexp), dq, dk and dv through autograd with a seeded
@@ -61,6 +67,9 @@ seconds since the start):
      segment (no ids): forward and backward per element, the planted
      faults di = 0 and p and ds not rounded to bf16, five bit-identical
      repeats;
+  4e. K7 the same way at ViT-g/14's SSL step (`G_K7_SHAPES`: the student's
+     (16, 24, 457, 64) with its planted faults and repeats, the teacher's
+     (16, 24, 257, 64));
   5. a narrow whole model (fp32, TF32 off), seeded: CPU (plain paths) vs
      CUDA (kernels), eval logits and metrics, and the launches per forward
      (10 K3, 7 K1, 10 K4, 10 K5, 4 K6);
@@ -113,9 +122,9 @@ seconds since the start):
      twice the floor's distance in normalised L2 distance and max relative
      error, two planted faults (q, k, v moved by one head; K5 without b2)
      beyond them; `seg_step_gate`;
-  8h. `train_seg`'s other models and decoders at full width (ViT-L/14 at
-     588 px, bf16, tanh GELU, batch 8, synthetic, one epoch of 3 steps and
-     a validation): the adapter model with the MLA decoder (through
+  8h. `train_seg`'s other models and decoders at the paper's width (ViT-L/14
+     at 588 px cut to `VARIANT_DEPTH` = 12 of its 24 blocks, bf16, tanh
+     GELU, batch 8, synthetic, one epoch of 3 steps and a validation): the adapter model with the MLA decoder (through
      `train_mla`) and with SETR's, and tap_setr, tap_unet, tap_unet_fuse,
      tap_masktrans and tap_setr_ete; finite losses, every trainable moved,
      a frozen backbone unchanged, launches per train step and validation
@@ -127,6 +136,16 @@ seconds since the start):
      the floor and q, k, v moved by one head as the planted fault, per
      subtree (backbone, head) within max(1e-1, 2 × floor)
      (`ete_step_gate`);
+  8j. ViT-g/14 through `train_seg --config_file configs/vitg14_pretrain.yaml
+     --imsize 588 --bf16 --synthetic` at batch 8 (`variant_runs` with
+     `G_RUNS`: 3 steps, a validation of 2 forwards, launches per step as
+     `G_PER_FORWARD` predicts, img/s, peak memory, then `--evaluate` on its
+     checkpoint), and its train step at batch 2 on phase 8e's sides
+     (`seg_step_gate` with arch vit_giant2; the moved heads as the fault);
+  8k. ViT-g/14's SSL step: `pretrain --arch vit_giant2 --bf16 --synthetic`
+     at the default crops, batch 8, 2 steps (`vitg_ssl_run`);
+  8l. `visualize_attention` on the card (`attention_map_run`): a seeded
+     ViT-S/14 `.pth` (against the CPU's plain path) and ViT-g/14's draw;
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -141,9 +160,12 @@ seconds since the start):
      into its four kernels (point, tile sort, plan, sum) from torch.profiler's
      trace (`kernel_split`); K3 at tap_unet_fuse's N = 3970 and 442 and K7
      forward and backward at tap_setr_ete's (16, 16, 1765, 64), each against
-     SDPA. The kernels line gives the training path's (batch 16,
-     uniform points) numbers and the launches of `bench`'s run for K1-K6,
-     the SSL step's numbers and the launches of `bench_ssl`'s run for K7.
+     SDPA; and at batch 16 the new shapes of phases 2c-4e ("vitg ..." and
+     "vit_tiny ..." keys). The kernels line gives the training path's
+     (batch 16, uniform points) numbers and the launches of `bench`'s run
+     for K1-K6, the SSL step's numbers and the launches of `bench_ssl`'s run
+     for K7, and in each row `new_shapes` (ViT-g's and vit_tiny's numbers)
+     and `launches_vitg_step` (per step of 8j, or of 8k for K7).
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 
@@ -214,13 +236,43 @@ T0 = time.perf_counter()
 # ViT-L/14 @ 588 px: CAViT's 42² ViT-token queries sample the 73², 36², 18²
 # CNN pyramid, CACNN's pyramid queries sample the 42² ViT tokens
 PYRAMID, VIT_GRID = [(73, 73), (36, 36), (18, 18)], [(42, 42)]
-MSDA_CASES = [(f"{case} B={B}", (B, S, 8, 128), Lq, shapes, 4, queries)
+MSDA_GEOMETRIES = (("cavit", 6949, 1764, PYRAMID, VIT_GRID), ("cacnn", 1764, 6949, VIT_GRID, PYRAMID))
+# ... and the values' dtype
+MSDA_CASES = [(f"{case} B={B}", (B, S, 8, 128), Lq, shapes, 4, queries, torch.bfloat16)
               for B in (FULL_BATCH, TRAIN_BATCH)
-              for case, S, Lq, shapes, queries in (("cavit", 6949, 1764, PYRAMID, VIT_GRID),
-                                                   ("cacnn", 1764, 6949, VIT_GRID, PYRAMID))]
+              for case, S, Lq, shapes, queries in MSDA_GEOMETRIES]
 # phases 3 and 4 also hold K1 and K2 at batch 2 of both geometries on these
 # points (`msda_inputs`), and at batch 16 on model-like ones
 MSDA_POINTS = ("hot token", "pixel edges", "all outside")
+# ViT-g/14 at 588 px (M2b): 1536 wide, 40 blocks of 24 heads of 64 with a
+# SwiGLU FFN (no K5); the adapters keep 8 heads, so their deformable
+# attention runs at head width D = 192 (K1's 32-lane group with 8 idle lanes
+# in bf16, K2's two-pass sum), in bf16 and fp32; vit_tiny is 192 wide with 3
+# heads (K4, K5 and K6 at C = 192). Phases 2-4c hold the kernels at these
+# shapes too, phase 9 times them (keys "vitg ..." and "vit_tiny ...")
+G_HEADS, G_WIDTH, TINY_HEADS, TINY_WIDTH = 24, 1536, 3, 192
+G_FLASH_SHAPES = [(B, G_HEADS, N, 64) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765, 1764)]
+G_MSDA_CASES = [(f"vitg {case} B={B} {str(dt)[6:]}", (B, S, 8, G_WIDTH // 8), Lq, shapes, 4,
+                 queries, dt)
+                for dt in (torch.bfloat16, torch.float32) for B in (FULL_BATCH, TRAIN_BATCH)
+                for case, S, Lq, shapes, queries in MSDA_GEOMETRIES]
+G_MSDA_POINTS = ("hot token",)
+G_ROW_SHAPES = [(B, N, G_WIDTH) for B in (FULL_BATCH, TRAIN_BATCH) for N in (1765, 1764)] + [
+    (3, 1765, G_WIDTH)]
+TINY_ROW_SHAPES = [(B, N, TINY_WIDTH) for B in (FULL_BATCH, TRAIN_BATCH)
+                   for N in (1765, 1764)] + [(3, 1765, TINY_WIDTH)]
+# K7 at ViT-g's SSL step (`pretrain --arch vit_giant2` at its default crops,
+# batch 8: 16 global crops, 24 heads; the same packing as ViT-S's)
+G_SSL_BATCH = 8
+G_K7_SHAPES = {"vitg student": (2 * G_SSL_BATCH, G_HEADS, sum(STUDENT_SEGMENTS), 64),
+               "vitg teacher": (2 * G_SSL_BATCH, G_HEADS, TEACHER_N, 64)}
+# per ViT-g adapter forward: 40 blocks in each of the two walks, 80 K3 and
+# K4; the SwiGLU MLP halves take K6 (80) and the 4 tap norms (4); no K5
+G_PER_FORWARD = {"flash_fwd": 80, "msda_fwd": 7, "fused_ln_qkv": 80, "fused_ln_mlp": 0,
+                 "layernorm": 84}
+# per ViT-g SSL step: the teacher's and the student's 40 blocks forward, the
+# student's backward
+G_SSL_PER_STEP = {"flash_attn": 80, "flash_attn_bwd": 40}
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -242,8 +294,9 @@ def flash_inputs(shape, seed):
     return [x.to(torch.bfloat16).cuda() for x in (q, k, v)]
 
 
-def msda_inputs(vshape, Lq, shapes, P, seed, points="uniform", queries=None):
-    """value bf16 ~ N(0, 1), aw a softmax over each head's L·P points, g ~
+def msda_inputs(vshape, Lq, shapes, P, seed, points="uniform", queries=None,
+                dtype=torch.bfloat16):
+    """value ~ N(0, 1) in `dtype`, aw a softmax over each head's L·P points, g ~
     N(0, 1) fp32, and the sampling locations by `points`: "uniform" in
     [−0.1, 1.1] (points partly outside their levels); "model", each query's
     reference point on its grid (`queries`) plus the sampling_offsets bias
@@ -257,7 +310,7 @@ def msda_inputs(vshape, Lq, shapes, P, seed, points="uniform", queries=None):
     g = torch.Generator().manual_seed(seed)
     B, S, M, D = vshape
     L = len(shapes)
-    value = torch.randn(vshape, generator=g).to(torch.bfloat16)
+    value = torch.randn(vshape, generator=g).to(dtype)
     loc = torch.rand((B, Lq, M, L, P, 2), generator=g) * 1.2 - 0.1
     aw = torch.softmax(torch.randn((B, Lq, M, L * P), generator=g), -1)
     grad = torch.randn((B, Lq, M * D), generator=g)
@@ -530,18 +583,24 @@ def x_weights_swapped(loc, shapes):
     return out
 
 
-def msda_cases():
-    """Phase 3 and 4's cases: (index, case, points) over MSDA_CASES: the
-    uniform points everywhere, the model-like ones at batch 16, the
-    MSDA_POINTS at batch 2."""
-    for i, (case, vshape, *_) in enumerate(MSDA_CASES):
-        extra = ["model"] if vshape[0] == TRAIN_BATCH else list(MSDA_POINTS)
+def msda_cases(cases, at_b2):
+    """Phase 3 and 4's cases: (index, case tuple, points) over `cases`: the
+    uniform points everywhere, the model-like ones at batch 16, `at_b2`
+    (MSDA_POINTS, G_MSDA_POINTS) at batch 2."""
+    for i, c in enumerate(cases):
+        extra = ["model"] if c[1][0] == TRAIN_BATCH else list(at_b2)
         for points in ["uniform", *extra]:
-            yield i, case, points
+            yield i, c, points
 
 
-def check_msda_fwd(mc) -> float:
-    """Phase 3: K1 against msda_plain on the same bf16 values, every element
+def repeated(case: str, vshape, points: str) -> bool:
+    """Where phases 3 and 4 call a kernel five more times: CAViT's geometry
+    at batch 16 on uniform points (and, for K2, every hot token)."""
+    return points == "uniform" and vshape[0] == TRAIN_BATCH and "cavit" in case
+
+
+def check_msda_fwd(mc, cases=MSDA_CASES, at_b2=MSDA_POINTS) -> float:
+    """Phase 3: K1 against msda_plain on the same values, every element
     within its bound (`msda_allowances`), in every case of `msda_cases`.
     Five more calls at CAViT batch 16 must give the same bits, and on the
     uniform batch-2 points a planted fault must break the bound: a level's
@@ -549,9 +608,9 @@ def check_msda_fwd(mc) -> float:
     error on uniform points."""
     worst = 0.0
     with torch.no_grad():
-        for i, case, points in msda_cases():
-            _, vshape, Lq, shapes, P, queries = MSDA_CASES[i]
-            value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, 10 + i, points, queries)
+        for i, (case, vshape, Lq, shapes, P, queries, dt), points in msda_cases(cases, at_b2):
+            value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, 10 + i, points, queries,
+                                               dt)
             out = mc.msda_fwd(value, loc, aw, shapes)
             torch.cuda.synchronize()
             ref = mc.msda_plain(value, loc, aw, shapes)
@@ -565,11 +624,11 @@ def check_msda_fwd(mc) -> float:
                     (mc.msda_fwd(level_moved(value, shapes), loc, aw, shapes) - ref).abs(), allow)
                 if not report["level_moved_share"] > 1:
                     fail(f"msda_fwd: the bound passes a level moved by one token ({case})")
-            if points == "uniform" and case == f"cavit B={TRAIN_BATCH}":
+            if repeated(case, vshape, points):
                 report["repeats_bit_identical"] = same_bits(
                     "msda_fwd", [out], lambda: [mc.msda_fwd(value, loc, aw, shapes)])
-            say("msda_check", case=case, points=points, value=list(vshape), Lq=Lq,
-                levels=shapes, **report)
+            say("msda_check", case=case, points=points, value=list(vshape), dtype=str(dt),
+                Lq=Lq, levels=shapes, **report)
             if not report["worst_share_of_bound"] <= 1:
                 fail(f"msda_fwd disagrees with plain ({case}, {points}): an error is "
                      f"{report['worst_share_of_bound']} of its bound")
@@ -580,7 +639,7 @@ def check_msda_fwd(mc) -> float:
     return worst
 
 
-def check_msda_bwd(mc) -> float:
+def check_msda_bwd(mc, cases=MSDA_CASES, at_b2=MSDA_POINTS) -> float:
     """Phase 4: K2 against the autograd of msda_plain (fp32 sums of the same
     bf16 values) with a seeded fp32 incoming gradient, dvalue, dloc and daw
     each element within its bound (`msda_allowances`), in every case of
@@ -593,9 +652,8 @@ def check_msda_bwd(mc) -> float:
     point's x0 and x0+1 corner weights swapped (`x_weights_swapped`).
     Returns the largest error on uniform points."""
     worst = 0.0
-    for i, case, points in msda_cases():
-        _, vshape, Lq, shapes, P, queries = MSDA_CASES[i]
-        value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, 20 + i, points, queries)
+    for i, (case, vshape, Lq, shapes, P, queries, dt), points in msda_cases(cases, at_b2):
+        value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, 20 + i, points, queries, dt)
         got = mc.msda_bwd(value, loc, aw, grad, shapes)
         torch.cuda.synchronize()
         if got[0].dtype != value.dtype:
@@ -627,12 +685,11 @@ def check_msda_bwd(mc) -> float:
                     fail(f"msda_bwd: the dvalue bound passes a planted fault ({case}): "
                          f"{report['planted_faults_share']}")
                 del wrong
-            if points == "uniform" and case == f"cavit B={TRAIN_BATCH}" \
-                    or points == "hot token":
+            if repeated(case, vshape, points) or points == "hot token":
                 report["repeats_bit_identical"] = same_bits(
                     "msda_bwd", got, lambda: mc.msda_bwd(value, loc, aw, grad, shapes))
-        say("msda_bwd_check", case=case, points=points, value=list(vshape), Lq=Lq,
-            levels=shapes, **report)
+        say("msda_bwd_check", case=case, points=points, value=list(vshape), dtype=str(dt),
+            Lq=Lq, levels=shapes, **report)
         del value, loc, aw, grad, got, want, leaves, allows
         torch.cuda.empty_cache()
     return worst
@@ -728,7 +785,9 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
     (`cuda_ms`), `dev[key]` = (kernel, library) from graph replay
     (`device_ms`), `host[key]` = (kernel, library) µs per call
     (`host_us`, for K3 and SDPA, K6 and F.layer_norm); `extra[key]` holds
-    what else a kernel replaced."""
+    what else a kernel replaced. ViT-g's and vit_tiny's shapes (M2b) are
+    timed at batch 16 under keys "vitg ..." and "vit_tiny ...", kept out of
+    the kernels line."""
     F = torch.nn.functional
     times, bounds, extra, dev, host = {}, {}, {}, {}, {}
 
@@ -742,49 +801,43 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
         if host_too:
             host[key] = (host_us(kernel), None if library is None else host_us(library))
 
-    with torch.no_grad():
-        for shape in FLASH_SHAPES:
-            q, k, v = flash_inputs(shape, seed=0)
+    def flash_times(shapes, tag="", k7_body=False, host_too=False, seed=0):
+        for shape in shapes:
+            q, k, v = flash_inputs(shape, seed=seed)
             B, H, N, Dh = shape
-            timed(f"flash_fwd B={B} N={N}", lambda: ff.flash_fwd(q, k, v, 0.125),
-                  lambda: ff.flash_fwd_plain(q, k, v, 0.125),
-                  lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125), host_too=True)
-            bounds[f"flash_fwd B={B} N={N}"] = bound_ms(4 * q.numel() * q.element_size(),
-                                                        4 * B * H * N * N * Dh, "bf16")
-            # K7's forward body (no ids) on K3's inputs: whether one body
-            # could serve both
-            extra[f"flash_fwd B={B} N={N}"] = {
-                "k7_fwd_device": device_ms(lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125))}
-            del q, k, v
-            torch.cuda.empty_cache()
-        # K3 at tap_unet_fuse's extra walks (1.5× and 0.5× frames), batch 16;
-        # kept out of the kernels line's mean over the main path's calls
-        for N in FUSE_N:
-            q, k, v = flash_inputs((TRAIN_BATCH, 16, N, 64), seed=1)
-            key = f"unet_fuse flash_fwd B={TRAIN_BATCH} N={N}"
+            key = f"{tag}flash_fwd B={B} N={N}"
             timed(key, lambda: ff.flash_fwd(q, k, v, 0.125),
                   lambda: ff.flash_fwd_plain(q, k, v, 0.125),
-                  lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
-            bounds[key] = bound_ms(4 * q.numel() * q.element_size(),
-                                   4 * TRAIN_BATCH * 16 * N * N * 64, "bf16")
+                  lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125),
+                  host_too=host_too)
+            bounds[key] = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * N * N * Dh,
+                                   "bf16")
+            if k7_body:
+                # K7's forward body (no ids) on K3's inputs: whether one body
+                # could serve both
+                extra[key] = {"k7_fwd_device": device_ms(
+                    lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125))}
             del q, k, v
             torch.cuda.empty_cache()
-        # K1 and K2 on uniform points (the kernels line's), on model-like
-        # ones and, at batch 16, with a hot token; beside the HBM bound, the
-        # corner rows each call moves through the L2 (in-level corners × D ×
-        # 2 bytes, and for K2's dV pass a 4·D byte g row per corner) and the
-        # rate reached on the device; K2's device time split into its four
-        # kernels (`kernel_split`)
-        for i, (case, vshape, Lq, shapes, P, queries) in enumerate(MSDA_CASES):
-            hot = ["hot token"] if vshape[0] == TRAIN_BATCH else []
+
+    def msda_times(cases, tag="", hot_too=True):
+        """K1 and K2 on uniform points (the kernels line's), on model-like
+        ones and, at batch 16, with a hot token; beside the HBM bound, the
+        corner rows each call moves through the L2 (in-level corners × D ×
+        the value's bytes, and for K2's dV pass a 4·D byte g row per
+        corner) and the rate reached on the device; K2's device time split
+        into its four kernels (`kernel_split`)"""
+        for i, (case, vshape, Lq, shapes, P, queries, dt) in enumerate(cases):
+            hot = ["hot token"] if vshape[0] == TRAIN_BATCH and hot_too else []
             for points in ("uniform", "model", *hot):
                 value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, 10 + i, points,
-                                                   queries)
+                                                   queries, dt)
                 D = vshape[3]
                 corners = valid_corners(loc, aw, shapes)
                 small = (loc.numel() + aw.numel()) * 4
-                tag = "" if points == "uniform" else f" {points}"
-                key = f"msda_fwd {case}{tag}"
+                name = case[len(tag):] if case.startswith(tag) else case
+                pts = "" if points == "uniform" else f" {points}"
+                key = f"{tag}msda_fwd {name}{pts}"
                 timed(key, lambda: mc.msda_fwd(value, loc, aw, shapes),
                       lambda: mc.msda_plain(value, loc, aw, shapes))
                 bounds[key] = bound_ms(value.numel() * value.element_size() + small
@@ -792,7 +845,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                 l2 = corners * D * value.element_size()
                 extra[key] = {"corners_inside": corners, "l2_bytes": l2,
                               "l2_tb_per_s": l2 / dev[key][0] * 1e-9}
-                key = f"msda_bwd {case}{tag}"
+                key = f"{tag}msda_bwd {name}{pts}"
                 with torch.enable_grad():
                     leaves = [value.float().requires_grad_(), loc.clone().requires_grad_(),
                               aw.clone().requires_grad_()]
@@ -810,19 +863,21 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                                   ("point_kernel", "sort_kernel", "plan_kernel", "sum_kernel"))}
                 del leaves, out, value, loc, aw, grad
                 torch.cuda.empty_cache()
-        # K6, K4 and K5 at the walks' shapes, bf16 with bf16 parameters (the
-        # frozen backbone's, read in place). Beside plain and library:
-        # the unfused PyTorch sequence each replaced (under autocast, as the
-        # training step ran it: LayerNorm to fp32, casts, F.linear, the q/k/v
-        # relayout, GELU) and cuBLAS's GEMMs alone on the normalised input
-        for shape in ROW_SHAPES:
+
+    def row_times(shapes, heads, tag="", k5=True):
+        """K6, K4 and K5 at the walks' shapes, bf16 with bf16 parameters (the
+        frozen backbone's, read in place). Beside plain and library: the
+        unfused PyTorch sequence each replaced (under autocast, as the
+        training step ran it: LayerNorm to fp32, casts, F.linear, the q/k/v
+        relayout, GELU) and cuBLAS's GEMMs alone on the normalised input"""
+        for shape in shapes:
             x, p = row_inputs(shape, torch.bfloat16, seed=0, params_dtype=torch.bfloat16)
             B, N, C = shape
             R = B * N
             lw, lb = p["ln_w"].to(x.dtype), p["ln_b"].to(x.dtype)
             xn = F.layer_norm(x, (C,), lw, lb, 1e-6)
             xb, pe = x.numel() * x.element_size(), p["ln_w"].element_size()
-            key = f"layernorm B={B} N={N}"
+            key = f"{tag}layernorm B={B} N={N}"
             timed(key, lambda: ln.layernorm(x, p["ln_w"], p["ln_b"]),
                   lambda: ln.layernorm_plain(x, p["ln_w"], p["ln_b"]),
                   lambda: F.layer_norm(x, (C,), lw, lb, 1e-6), host_too=True)
@@ -832,11 +887,11 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             def unfused_qkv():
                 with torch.autocast("cuda", dtype=torch.bfloat16):
                     y = F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w"], p["b"])
-                qkv = y.reshape(B, N, 3, HEADS, C // HEADS).permute(2, 0, 3, 1, 4)
+                qkv = y.reshape(B, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
                 return [t.contiguous() for t in qkv]
 
-            key = f"fused_ln_qkv B={B} N={N}"
-            qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
+            key = f"{tag}fused_ln_qkv B={B} N={N}"
+            qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], heads)
             timed(key, lambda: fq.fused_ln_qkv(*qkv_args),
                   lambda: fq.fused_ln_qkv_plain(*qkv_args))
             flops = 2 * R * C * 3 * C
@@ -845,6 +900,10 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                           "tflops_device": flops / dev[key][0] * 1e-9}
             # reads x, the LN parameters, w, b; writes q, k, v (3·x)
             bounds[key] = bound_ms(4 * xb + p["w"].numel() * 2 + (2 + 3) * C * pe, flops, "bf16")
+            if not k5:
+                del x, p, xn
+                torch.cuda.empty_cache()
+                continue
 
             def unfused_mlp():
                 with torch.autocast("cuda", dtype=torch.bfloat16):
@@ -853,7 +912,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                     return x + p["gamma"].to(x.dtype) * F.linear(h, p["w2"], p["b2"])
 
             h = F.gelu(F.linear(xn, p["w1"], p["b1"].to(x.dtype)), approximate="tanh")
-            key = f"fused_ln_mlp B={B} N={N}"
+            key = f"{tag}fused_ln_mlp B={B} N={N}"
             mlp_args = (x, p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
             timed(key, lambda: fm.fused_ln_mlp(*mlp_args),
                   lambda: fm.fused_ln_mlp_plain(*mlp_args))
@@ -866,23 +925,25 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe, flops, "bf16")
             del x, p, xn, h
             torch.cuda.empty_cache()
-        # K7 at the SSL step's shapes and at tap_setr_ete's (batch 16, one
-        # segment), bf16: forward, and backward from the forward's o and lse;
-        # beside plain, PyTorch's SDPA with the boolean block-diagonal mask
-        # (the student's; none for the teacher and setr_ete), forward and its
-        # backward alone (autograd.grad with the graph kept; graphed on the
-        # stream its forward ran on)
-        ete = (TRAIN_BATCH,) + ETE_SHAPE[1:]
-        for case, shape in {**K7_SHAPES, f"{ETE_CASE} B={TRAIN_BATCH}": ete}.items():
+
+    def k7_times(cases, tag=""):
+        """K7 bf16: forward, and backward from the forward's o and lse;
+        beside plain, PyTorch's SDPA with the boolean block-diagonal mask
+        (the student's; none for the teacher and setr_ete), forward and its
+        backward alone (autograd.grad with the graph kept; graphed on the
+        stream its forward ran on)"""
+        for case, shape in cases.items():
             q, k, v, do = k7_inputs(shape, torch.bfloat16, seed=0)
             B, H, N, Dh = shape
-            segs = STUDENT_SEGMENTS if case == "student" else [N]
-            seg = packed_ids(B, segs) if case == "student" else None
+            student = case.endswith("student")
+            segs = STUDENT_SEGMENTS if student else [N]
+            seg = packed_ids(B, segs) if student else None
             mask = None if seg is None else seg[:, None, :, None] == seg[:, None, None, :]
             o, lse = fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg)
             pairs = own_segment_pairs(B, H, segs)
             tb, ib = q.numel() * q.element_size(), (0 if seg is None else seg.numel() * 4)
-            key = f"flash_attn {case}"
+            name = case[len(tag):] if case.startswith(tag) else case
+            key = f"{tag}flash_attn {name}"
             timed(key, lambda: fa.flash_attn_fwd_kernel(q, k, v, 0.125, seg),
                   lambda: fa.flash_attn_fwd_plain(q, k, v, 0.125, seg),
                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125))
@@ -891,7 +952,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, "bf16")
             if seg is None:  # K3's body on the teacher's inputs (no lse store)
                 extra[key] = {"k3_device": device_ms(lambda: ff.flash_fwd(q, k, v, 0.125))}
-            key = f"flash_attn_bwd {case}"
+            key = f"{tag}flash_attn_bwd {name}"
             side = torch.cuda.Stream()
             with torch.enable_grad():
                 leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -921,6 +982,26 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             bounds[key] = bound_ms(8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, "bf16")
             del q, k, v, do, o, lse, leaves, out, leaves_side, out_side, mask
             torch.cuda.empty_cache()
+
+    def at_16(shapes):
+        return [s for s in shapes if s[0] == TRAIN_BATCH]
+
+    with torch.no_grad():
+        flash_times(FLASH_SHAPES, k7_body=True, host_too=True)
+        # K3 at tap_unet_fuse's extra walks (1.5× and 0.5× frames), batch 16
+        flash_times([(TRAIN_BATCH, 16, N, 64) for N in FUSE_N], "unet_fuse ", seed=1)
+        msda_times(MSDA_CASES)
+        row_times(ROW_SHAPES, HEADS)
+        # K7 at the SSL step's shapes and at tap_setr_ete's (batch 16, one
+        # segment)
+        k7_times({**K7_SHAPES, f"{ETE_CASE} B={TRAIN_BATCH}": (TRAIN_BATCH,) + ETE_SHAPE[1:]})
+        # ViT-g/14 and vit_tiny (M2b)
+        flash_times(at_16(G_FLASH_SHAPES), "vitg ")
+        msda_times([c for c in G_MSDA_CASES if c[1][0] == TRAIN_BATCH
+                    and c[6] == torch.bfloat16], "vitg ", hot_too=False)
+        row_times(at_16(G_ROW_SHAPES), G_HEADS, "vitg ", k5=False)
+        row_times(at_16(TINY_ROW_SHAPES), TINY_HEADS, "vit_tiny ")
+        k7_times(G_K7_SHAPES, "vitg ")
     return times, bounds, extra, dev, host
 
 
@@ -1193,7 +1274,7 @@ def check_k7(fa, cases=None) -> dict:
                                                              allow["through"]),
                       "bwd_alone": k7_worst(bwd, alone, ref[2:], allow["alone"])}
             planted = {}
-            if case in ("student", ETE_CASE) and dtype == torch.bfloat16:
+            if case in ("student", "vitg student", ETE_CASE) and dtype == torch.bfloat16:
                 if seg is not None:
                     wrong = k7_outputs(fa, q, k, v, do, None, plain=False, scale=scale)
                     r = {**k7_worst(K7_NAMES[:2], wrong[:2], ref[:2], allow["fwd"]),
@@ -1257,7 +1338,8 @@ def check_k7(fa, cases=None) -> dict:
                             and not r["differing_share"] <= K7_DIFFER_SHARE):
                         fail(f"flash_attn backward differs from plain in {r['differing_share']} "
                              f"of {n}'s elements ({case}): above {K7_DIFFER_SHARE}")
-            if dtype == torch.bfloat16 and (case in K7_SHAPES or case == ETE_CASE):
+            if dtype == torch.bfloat16 and (case in K7_SHAPES or case in G_K7_SHAPES
+                                            or case == ETE_CASE):
                 k7_err["fwd"] = max(k7_err["fwd"], report["fwd"]["o"]["max_abs_err"])
                 k7_err["bwd"] = max(k7_err["bwd"],
                                     *(report["bwd_through_kernel_forward"][n]["max_abs_err"]
@@ -1341,15 +1423,71 @@ def check_k3(ff, shapes=FLASH_SHAPES) -> float:
     return flash_err
 
 
-def check_row_kernels(ln, fq, fm) -> dict:
-    """Phase 4b (see main): K6, K4 and K5 against their plain versions,
-    per shape in bf16 and fp32; the first shape also plants faults and
-    (bf16) repeats each call five times. Returns the largest bf16 errors."""
+def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
+    """Phase 4b's K5 case: every element within `mlp_allowance`; with
+    `planted` also the planted faults and (bf16) five repeats. Records into
+    `report` and `row_err`."""
+    dtype, C = x.dtype, x.shape[-1]
+    bf = dtype == torch.bfloat16
+    mlp_args = (p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
+    out = fm.fused_ln_mlp(x, *mlp_args)
+    ref = fm.fused_ln_mlp_plain(x, *mlp_args)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != dtype or not out.is_contiguous():
+        fail(f"fused_ln_mlp returned {tuple(out.shape)} {out.dtype}")
+    diff = (out.float() - ref.float()).abs()
+    allow = mlp_allowance(x, ref, p, ln, fm)
+    worst = (diff / allow).max().item()
+    report["fused_ln_mlp"] = {"max_abs_err": diff.max().item(),
+                              "worst_share_of_bound": worst,
+                              "bound_max": allow.max().item(),
+                              "bound_min": allow.min().item()}
+    if not worst <= 1.0:
+        fail(f"fused_ln_mlp kernel disagrees with plain at {shape} {dtype}: "
+             f"an error is {worst} of its per-element bound")
+    if planted:
+        # the bound fails a wrong K5: the kernel given b2 = 0 or an fc2
+        # weight with a 64-wide slice of K zeroed (as if its K loop skipped
+        # a step); in fp32 also the plain version with the exact GELU in
+        # place of tanh's
+        w2_cut = p["w2"].clone()
+        w2_cut[:, C:C + 64] = 0
+        wrong = {"b2 dropped": fm.fused_ln_mlp(x, *mlp_args[:5],
+                                               torch.zeros_like(p["b2"]), p["gamma"]),
+                 "fc2 K slice lost": fm.fused_ln_mlp(x, *mlp_args[:4], w2_cut,
+                                                     p["b2"], p["gamma"])}
+        if not bf:
+            tanh_gelu = fm.gelu_tanh
+            fm.gelu_tanh = torch.nn.functional.gelu
+            try:
+                wrong["exact GELU"] = fm.fused_ln_mlp_plain(x, *mlp_args)
+            finally:
+                fm.gelu_tanh = tanh_gelu
+        caught = {k: ((o.float() - ref.float()).abs() / allow).max().item()
+                  for k, o in wrong.items()}
+        report["fused_ln_mlp"]["wrong_kernels_worst_share"] = caught
+        if not all(v > 1.0 for v in caught.values()):
+            fail(f"fused_ln_mlp: the bound passes a wrong kernel at {dtype}: {caught}")
+        if bf:
+            report["fused_ln_mlp"]["repeats_equal"] = same_bits(
+                "fused_ln_mlp", [out], lambda: [fm.fused_ln_mlp(x, *mlp_args)])
+        del wrong, w2_cut
+    if bf:
+        row_err["fused_ln_mlp"] = max(row_err["fused_ln_mlp"], diff.max().item())
+
+
+def check_row_kernels(ln, fq, fm, shapes=ROW_SHAPES + [STRADDLE_ROWS], heads=HEADS,
+                      k5=True) -> dict:
+    """Phase 4b (see main): K6, K4 and (with `k5`) K5 against their plain
+    versions, per shape in bf16 and fp32, K4 with `heads` heads; the first
+    shape also plants faults and (bf16) repeats each call five times.
+    Returns the largest bf16 errors."""
     row_err = {"layernorm": 0.0, "fused_ln_qkv": 0.0, "fused_ln_mlp": 0.0}
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
             bf = dtype == torch.bfloat16
-            for i, shape in enumerate(ROW_SHAPES + [STRADDLE_ROWS]):
+            for i, shape in enumerate(shapes):
+                C = shape[2]
                 pdt = torch.bfloat16 if bf and shape[1] == 1765 else torch.float32
                 x, p = row_inputs(shape, dtype, seed=30 + i, params_dtype=pdt)
                 xn = ln.ln_rows(x, p["ln_w"], p["ln_b"], 1e-6).to(dtype).float()
@@ -1357,7 +1495,7 @@ def check_row_kernels(ln, fq, fm) -> dict:
                 out = ln.layernorm(x, p["ln_w"], p["ln_b"])
                 ref = ln.layernorm_plain(x, p["ln_w"], p["ln_b"])
                 row_check(report, row_err, "layernorm", [(out, ref)], 0.0, shape, dtype)
-                qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], HEADS)
+                qkv_args = (x, p["ln_w"], p["ln_b"], p["w"], p["b"], heads)
                 out = fq.fused_ln_qkv(*qkv_args)
                 ref = fq.fused_ln_qkv_plain(*qkv_args)
                 bound = row_check(report, row_err, "fused_ln_qkv", list(zip(out, ref)),
@@ -1367,9 +1505,9 @@ def check_row_kernels(ln, fq, fm) -> dict:
                     # the bound fails a wrong K4: q, k and v each moved by one
                     # head, and one 64-wide k-step of x left unnormalised
                     xs = xn.clone()
-                    xs[..., 512:576] = x[..., 512:576].float()
+                    xs[..., C // 2:C // 2 + 64] = x[..., C // 2:C // 2 + 64].float()
                     wrong = {"heads moved": [o.roll(1, dims=1) for o in out],
-                             "k-step not normalised": qkv_from_xn(xs, p["w"], p["b"], HEADS,
+                             "k-step not normalised": qkv_from_xn(xs, p["w"], p["b"], heads,
                                                                   dtype)}
                     caught = {k: max((o.float() - r.float()).abs().max().item()
                                      for o, r in zip(os_, ref)) / bound
@@ -1381,54 +1519,11 @@ def check_row_kernels(ln, fq, fm) -> dict:
                         report["fused_ln_qkv"]["repeats_equal"] = same_bits(
                             "fused_ln_qkv", out, lambda: fq.fused_ln_qkv(*qkv_args))
                     del xs, wrong
-                mlp_args = (p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
-                out = fm.fused_ln_mlp(x, *mlp_args)
-                ref = fm.fused_ln_mlp_plain(x, *mlp_args)
-                torch.cuda.synchronize()
-                if out.shape != ref.shape or out.dtype != dtype or not out.is_contiguous():
-                    fail(f"fused_ln_mlp returned {tuple(out.shape)} {out.dtype}")
-                diff = (out.float() - ref.float()).abs()
-                allow = mlp_allowance(x, ref, p, ln, fm)
-                worst = (diff / allow).max().item()
-                report["fused_ln_mlp"] = {"max_abs_err": diff.max().item(),
-                                          "worst_share_of_bound": worst,
-                                          "bound_max": allow.max().item(),
-                                          "bound_min": allow.min().item()}
-                if not worst <= 1.0:
-                    fail(f"fused_ln_mlp kernel disagrees with plain at {shape} {dtype}: "
-                         f"an error is {worst} of its per-element bound")
-                if i == 0:
-                    # the bound fails a wrong K5: the kernel given b2 = 0 or
-                    # an fc2 weight with a 64-wide slice of K zeroed (as if
-                    # its K loop skipped a step); in fp32 also the plain
-                    # version with the exact GELU in place of tanh's
-                    w2_cut = p["w2"].clone()
-                    w2_cut[:, 1024:1088] = 0
-                    wrong = {"b2 dropped": fm.fused_ln_mlp(x, *mlp_args[:5],
-                                                           torch.zeros_like(p["b2"]), p["gamma"]),
-                             "fc2 K slice lost": fm.fused_ln_mlp(x, *mlp_args[:4], w2_cut,
-                                                                 p["b2"], p["gamma"])}
-                    if not bf:
-                        tanh_gelu = fm.gelu_tanh
-                        fm.gelu_tanh = torch.nn.functional.gelu
-                        try:
-                            wrong["exact GELU"] = fm.fused_ln_mlp_plain(x, *mlp_args)
-                        finally:
-                            fm.gelu_tanh = tanh_gelu
-                    caught = {k: ((o.float() - ref.float()).abs() / allow).max().item()
-                              for k, o in wrong.items()}
-                    report["fused_ln_mlp"]["wrong_kernels_worst_share"] = caught
-                    if not all(v > 1.0 for v in caught.values()):
-                        fail(f"fused_ln_mlp: the bound passes a wrong kernel at {dtype}: {caught}")
-                    if bf:
-                        report["fused_ln_mlp"]["repeats_equal"] = same_bits(
-                            "fused_ln_mlp", [out], lambda: [fm.fused_ln_mlp(x, *mlp_args)])
-                    del wrong, w2_cut
-                if bf:
-                    row_err["fused_ln_mlp"] = max(row_err["fused_ln_mlp"], diff.max().item())
+                if k5:
+                    check_k5(fm, ln, x, p, report, row_err, shape, planted=i == 0)
                 say("row_kernels_check", dtype=str(dtype), params=str(pdt), shape=list(shape),
-                    heads=HEADS, **report)
-                del x, p, xn, out, ref, diff, allow
+                    heads=heads, **report)
+                del x, p, xn, out, ref
         torch.cuda.empty_cache()
 
     return row_err
@@ -1546,19 +1641,19 @@ SEG_SUBTREES = ("cross_vit", "cross_cnn", "encoder", "decoder", "level_embed")
 SEG_GATE_PROBES = ("location gradient stopped", "encoder fp32")
 
 
-def seg_gate_inputs(seed=0):
-    """`bench`'s model (ViT-L/14 at 588 px, tanh GELU, 4 taps) from `seed`
-    with every LayerScale γ of the frozen backbone drawn from N(0, 0.1²), so
-    that each block moves its tokens; one augmented batch (with CLAHE) of
-    `SEG_GATE_BATCH` seeded uint8 frames and masks."""
+def seg_gate_inputs(seed=0, arch="vit_large", batch=SEG_GATE_BATCH):
+    """`bench`'s model (ViT-L/14 at 588 px, tanh GELU, 4 taps; or `arch`'s)
+    from `seed` with every LayerScale γ of the frozen backbone drawn from
+    N(0, 0.1²), so that each block moves its tokens; one augmented batch
+    (with CLAHE) of `batch` seeded uint8 frames and masks."""
     from adaptersis_tpu_torch.data.augment import (
         apply_train_augment, draw_train_augment, draws_to)
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
     from adaptersis_tpu_torch.models.vit import build_backbone
     from adaptersis_tpu_torch.train.convert import seeded_init_
 
-    dev, B, size = torch.device("cuda"), SEG_GATE_BATCH, 588
-    backbone = build_backbone("vit_large", img_size=518, patch_size=14, gelu_approx=True)
+    dev, B, size = torch.device("cuda"), batch, 588
+    backbone = build_backbone(arch, img_size=518, patch_size=14, gelu_approx=True)
     model = seeded_init_(AdapterSegmentor(backbone, num_classes=2, n_last_blocks=4), seed=seed)
     rng = np.random.default_rng(22 + seed)
     with torch.no_grad():
@@ -1697,11 +1792,13 @@ def seg_gate_sides() -> dict:
                 x, lw, lb, w1, b1, w2, torch.zeros_like(b2), *a))]}
 
 
-def seg_step_gate(counts, reset_counts, expected, seed=0, probes=()) -> dict:
+def seg_step_gate(counts, reset_counts, expected, seed=0, probes=(), arch="vit_large",
+                  batch=SEG_GATE_BATCH, faults=("heads moved", "b2 dropped")) -> dict:
     """Phase 8e (M9, the ViT-L half): the deployed configuration's train
     step (`seg_gate_inputs`: `bench`'s model, bf16, batch 8) on the five
     `seg_gate_sides`, all from the same seeded weights on the same augmented
-    batch. Compared against the plain side: the loss (relative,
+    batch; phase 8j runs it on ViT-g/14 at batch 2 with `faults` = the heads
+    moved alone (its SwiGLU blocks run no K5). Compared against the plain side: the loss (relative,
     `SSL_GATE_LOSS_BOUND`) and per trainable subtree the gradients
     (`grad_distance`: the JAX gate's measures). Each subtree's distance
     must lie within the JAX gate's bf16/bs8 bound `SSL_GATE_BOUND` or,
@@ -1715,8 +1812,10 @@ def seg_step_gate(counts, reset_counts, expected, seed=0, probes=()) -> dict:
     floor sides. Each of `probes` (`SEG_GATE_PROBES`) runs the kernel,
     plain and floor sides once more in that regime, reported, not held."""
     t0 = time.perf_counter()
-    model, x01, y = seg_gate_inputs(seed)
-    sides, measures = seg_gate_sides(), ("l2_dist", "max_rel")
+    model, x01, y = seg_gate_inputs(seed, arch, batch)
+    sides = {k: v for k, v in seg_gate_sides().items()
+             if k in ("kernel", "plain", "floor") or k in faults}
+    measures = ("l2_dist", "max_rel")
     out, launches = {}, {}
     for regime in ("full", *probes):
         losses, grads = {}, {}
@@ -1724,21 +1823,22 @@ def seg_step_gate(counts, reset_counts, expected, seed=0, probes=()) -> dict:
             if regime == "full" or side in ("kernel", "plain", "floor"):
                 losses[side], grads[side], launches[f"{regime}: {side}"] = seg_gate_step(
                     model, x01, y, patches, regime, counts, reset_counts)
-        report, faults = {}, {f: {} for f in ("heads moved", "b2 dropped") if f in grads}
+        report, shares = {}, {f: {} for f in faults if f in grads}
         for sub, g in grads["plain"].items():
             r = grad_distance(grads["kernel"][sub], g)
             floor = grad_distance(grads["floor"][sub], g)
             r["floor"] = {k: floor[k] for k in measures}
             r["bound"] = {k: max(SSL_GATE_BOUND, 2 * floor[k]) for k in measures}
             report[sub] = r
-            for side, f in faults.items():
+            for side, f in shares.items():
                 d = grad_distance(grads[side][sub], g)
                 f[sub] = max(d[k] / r["bound"][k] for k in measures)
         out[regime] = {"losses": losses, "loss_rel_err": {
             side: abs(v - losses["plain"]) / max(abs(losses["plain"]), 1e-30)
             for side, v in losses.items() if side != "plain"}, "subtrees": report,
-            "faults_share_of_bound": faults}
-    say("seg_step_gate", seed=seed, dtype="bf16", seconds=time.perf_counter() - t0,
+            "faults_share_of_bound": shares}
+    say("seg_step_gate", arch=arch, batch=batch, seed=seed, dtype="bf16",
+        seconds=time.perf_counter() - t0,
         bound=SSL_GATE_BOUND, loss_bound=SSL_GATE_LOSS_BOUND, launches=launches, **out)
     none = {k: 0 for k in expected}
     for key, got in launches.items():
@@ -2105,8 +2205,10 @@ def ssl_resume_run(counts, reset_counts, expect_ssl, smi) -> dict:
     return res
 
 
-# phase 8h: `train_seg`'s other models and decoders at full width
-VARIANT_STEPS = 3
+# phase 8h: `train_seg`'s other models and decoders at the paper's width,
+# ViT-L/14 cut to 12 of its 24 blocks, to keep the whole script within
+# 600 s, half its 1200 s limit, after ViT-g's phases
+VARIANT_STEPS, VARIANT_DEPTH = 3, 12
 # (name, entry point, its extra flags, --model)
 VARIANTS = [("adapter mla", "train_mla", [], "adapter"),
             ("adapter setr", "train_seg", ["--decoder", "setr"], "adapter"),
@@ -2119,37 +2221,55 @@ VARIANT_EVALUATED = "tap_setr_ete"
 
 def variant_expect(model: str, train: bool) -> dict:
     """Launches per train step (or per validation forward) of `model` at
-    ViT-L/14 (24 blocks) with tanh GELU: the adapter model's as phase 8's;
-    each frozen walk of the taps 24 K3, K4 and K5 (unet_fuse walks three
-    times), one K6 per tap it norms (setr and masktrans read 4 blocks, the
-    UNets 1 per walk); tap_setr_ete's trained backbone 24 K7 forwards, and
-    in training 24 backwards."""
+    ViT-L/14 cut to D = VARIANT_DEPTH blocks, with tanh GELU: the adapter
+    model's 2D K3, K4 and K5, 4 K6, 7 K1 (and 7 K2); each frozen walk of
+    the taps D K3, K4 and K5 (unet_fuse walks three times), one K6 per tap
+    it norms (setr and masktrans read 4 blocks, the UNets 1 per walk);
+    tap_setr_ete's trained backbone D K7 forwards, and in training D
+    backwards."""
+    D = VARIANT_DEPTH
     if model == "adapter":
-        return expect(1, 7 if train else 0)
+        per = {"flash_fwd": 2 * D, "msda_fwd": 7, "fused_ln_qkv": 2 * D,
+               "fused_ln_mlp": 2 * D, "layernorm": 4}
+        return expect(1, 7 if train else 0, per)
     out = {k: 0 for k in expect(0, 0)}
     if model == "tap_setr_ete":
-        return {**out, "flash_attn": 24, "flash_attn_bwd": 24 if train else 0}
+        return {**out, "flash_attn": D, "flash_attn_bwd": D if train else 0}
     walks, norms = {"tap_setr": (1, 4), "tap_masktrans": (1, 4), "tap_unet": (1, 1),
                     "tap_unet_fuse": (3, 3)}[model]
-    return {**out, "flash_fwd": 24 * walks, "fused_ln_qkv": 24 * walks,
-            "fused_ln_mlp": 24 * walks, "layernorm": norms}
+    return {**out, "flash_fwd": D * walks, "fused_ln_qkv": D * walks,
+            "fused_ln_mlp": D * walks, "layernorm": norms}
 
 
-def variant_runs(counts, reset_counts, smi) -> dict:
+def variant_argv() -> list:
+    """Phase 8h's flags: ViT-L/14 at 588 px, bf16, tanh GELU, batch 8 (its depth
+    cut by `variant_runs`)."""
+    return ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588", "--bf16",
+            "--gelu_approx", "--batch_size_per_gpu", str(VARIANT_BATCH)]
+
+
+def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
+                 want=variant_expect, evaluated=VARIANT_EVALUATED, phase="8h",
+                 arch="vit_large", depth=VARIANT_DEPTH) -> dict:
     """Phase 8h: `train_seg` (for the MLA decoder `train_mla`) on every
-    other `--model` and `--decoder` at full width: ViT-L/14 at 588 px,
-    bf16, tanh GELU, synthetic frames, batch 8, one epoch of 3 steps and a
+    other `--model` and `--decoder` at the paper's width: ViT-L/14 at 588
+    px cut to `VARIANT_DEPTH` blocks, bf16, tanh GELU, synthetic frames,
+    batch 8, one epoch of 3 steps and a
     validation of 2 forwards, each model from its seed. Each run must give
     finite losses and metrics, move every trainable parameter and leave a
     frozen backbone bit for bit (as its bf16 cast), and launch per train
     step and per validation forward what `variant_expect` says. Then
     `--evaluate` on `VARIANT_EVALUATED`'s checkpoint (its trained backbone
-    restored from it) must give the last validation's acc1."""
+    restored from it) must give the last validation's acc1. `depth` (if
+    not None) cuts `arch`'s blocks for these runs. Phase 8j runs the same on
+    ViT-g/14 at its full depth (`runs`, `flags`, `want`, `evaluated`)."""
+    from functools import partial
+
     from adaptersis_tpu_torch import train_mla, train_seg
-    from adaptersis_tpu_torch.data.synthetic import SyntheticSeg
+    from adaptersis_tpu_torch.models import vit
     from adaptersis_tpu_torch.train.trainer import Trainer
 
-    work = ROOT / "build" / "smoke_variants"
+    work = ROOT / "build" / f"smoke_variants_{phase}"
     shutil.rmtree(work, ignore_errors=True)
     entries = {"train_seg": train_seg, "train_mla": train_mla}
     seen, per = {}, {"train": [], "eval": []}
@@ -2172,24 +2292,25 @@ def variant_runs(counts, reset_counts, smi) -> dict:
         return wrap
 
     def argv(name):
-        return ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588", "--bf16",
-                "--gelu_approx", "--batch_size_per_gpu", str(VARIANT_BATCH), "--epochs", "1",
-                "--synthetic", "--seed", "0", "--num_workers", "4",
-                "--output_dir", str(work / name.replace(" ", "_"))]
+        return flags() + ["--epochs", "1", "--synthetic", "--seed", "0", "--num_workers", "4",
+                          "--output_dir", str(work / name.replace(" ", "_"))]
 
     report, failures = {}, []
+    full_depth = vit.ARCHS[arch]
+    if depth is not None:
+        vit.ARCHS[arch] = partial(full_depth, depth=depth)
     train_seg.build_model = build_recorded
     train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=VARIANT_STEPS * VARIANT_BATCH,
                                                              **kw)
     Trainer.train_step = counted("train", plain_train)
     Trainer.eval_step = counted("eval", plain_eval)
     try:
-        for name, entry, flags, model in VARIANTS:
+        for name, entry, extra, model in runs:
             per["train"].clear()
             per["eval"].clear()
             t0 = time.perf_counter()
             reset_counts()
-            hist = entries[entry].main(argv(name) + flags)
+            hist = entries[entry].main(argv(name) + extra)
             seconds = time.perf_counter() - t0
             m = seen.pop("model")
             start = seen.pop("start")
@@ -2204,7 +2325,7 @@ def variant_runs(counts, reset_counts, smi) -> dict:
                               if p_.requires_grad})
             del m, start
             ep = hist[0]
-            r = {"entry": entry, "flags": flags, "seconds": seconds, "steps": len(per["train"]),
+            r = {"entry": entry, "flags": extra, "seconds": seconds, "steps": len(per["train"]),
                  "validation_forwards": len(per["eval"]), "train_losses": ep["train_losses"],
                  "test_loss": ep.get("test_loss"), "test_dice": ep.get("test_dice"),
                  "test_acc1": ep.get("test_acc1"), "train_img_per_s": ep["train_img_per_s"],
@@ -2213,9 +2334,9 @@ def variant_runs(counts, reset_counts, smi) -> dict:
                  "per_validation_forward": per["eval"][0] if per["eval"] else None,
                  "unchanged_trainables": unchanged, "frozen_moved": frozen_moved}
             report[name] = r
-            say("variant_training", name=name, arch="vit_large", imsize=588, dtype="bf16",
-                batch=VARIANT_BATCH, **r)
-            want_t, want_e = variant_expect(model, True), variant_expect(model, False)
+            say("variant_training", name=name, arch=arch, depth=depth, imsize=588,
+                dtype="bf16", batch=VARIANT_BATCH, **r)
+            want_t, want_e = want(model, True), want(model, False)
             if r["steps"] != VARIANT_STEPS or r["validation_forwards"] != 2:
                 failures.append(f"{name}: {r['steps']} steps, {r['validation_forwards']} "
                                 "validation forwards")
@@ -2234,34 +2355,35 @@ def variant_runs(counts, reset_counts, smi) -> dict:
                                 f"parameters moved {frozen_moved[:5]}")
             if ("backbone" in trained) != (model == "tap_setr_ete"):
                 failures.append(f"{name}: trained subtrees {trained}")
-            if name != VARIANT_EVALUATED:
+            if name != evaluated:
                 shutil.rmtree(work / name.replace(" ", "_"), ignore_errors=True)
             torch.cuda.empty_cache()
         per["eval"].clear()
         reset_counts()
-        ev = train_seg.main(argv(VARIANT_EVALUATED) + ["--model", VARIANT_EVALUATED,
-                                                       "--evaluate"])
+        ev = train_seg.main(argv(evaluated) + [*next(r[2] for r in runs if r[0] == evaluated),
+                                               "--evaluate"])
         seen.clear()
     finally:
         train_seg.build_model, train_seg.SyntheticSeg = plain_build, plain_synthetic
         Trainer.train_step, Trainer.eval_step = plain_train, plain_eval
-    last = report[VARIANT_EVALUATED]["test_acc1"]
-    res = {"evaluated": VARIANT_EVALUATED, "evaluate_acc1": ev[0]["test_acc1"],
+        vit.ARCHS[arch] = full_depth
+    last = report[evaluated]["test_acc1"]
+    res = {"evaluated": evaluated, "evaluate_acc1": ev[0]["test_acc1"],
            "last_validation_acc1": last, "evaluate_launches": counts(),
            "nvidia_smi": smi[0] if smi else "unavailable"}
-    say("variant_evaluate", **res)
+    say("variant_evaluate", arch=arch, **res)
     # the same checkpoint in the same process: only cuDNN's algorithm choice
     # may differ, moving acc1 by a pixel or two of 16 · 588²
     if abs(res["evaluate_acc1"] - last) > 1e-3:
         failures.append(f"--evaluate acc1 {res['evaluate_acc1']} against the last "
                         f"validation's {last}")
-    if res["evaluate_launches"] != {k: 2 * v for k, v in
-                                    variant_expect(VARIANT_EVALUATED, False).items()}:
+    want_ev = next(r[3] for r in runs if r[0] == evaluated)
+    if res["evaluate_launches"] != {k: 2 * v for k, v in want(want_ev, False).items()}:
         failures.append(f"--evaluate launches {res['evaluate_launches']}")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     if failures:
-        fail("8h: " + "; ".join(failures))
+        fail(f"{phase}: " + "; ".join(failures))
     return {**report, "evaluate": res}
 
 
@@ -2365,6 +2487,93 @@ def ete_step_gate(fa, counts, reset_counts) -> dict:
     return out
 
 
+# phase 8j: ViT-g/14 through `train_seg` at full width (M2b): its config file
+# selects vit_giant2; the adapter model, bf16, 588 px, batch 8, 3 steps
+G_CONFIG = ROOT / "configs" / "vitg14_pretrain.yaml"
+G_RUNS = [("vitg adapter", "train_seg", [], "adapter")]
+G_GATE_BATCH = 2
+
+
+def vitg_argv() -> list:
+    return ["--config_file", str(G_CONFIG), "--imsize", "588", "--bf16",
+            "--batch_size_per_gpu", str(VARIANT_BATCH)]
+
+
+def vitg_expect(model: str, train: bool) -> dict:
+    """Launches per ViT-g adapter train step (or validation forward)."""
+    return expect(1, 7 if train else 0, G_PER_FORWARD)
+
+
+def vitg_ssl_run(counts, reset_counts, expect_ssl, smi) -> dict:
+    """Phase 8k: `pretrain --arch vit_giant2 --bf16 --synthetic` at its
+    default crops (224 and 98 px, 8 local crops), batch `G_SSL_BATCH`, two
+    steps: finite losses and parts, img/s (of the second step), peak memory,
+    and 80 K7 forwards and 40 backwards per step at 24 heads."""
+    from adaptersis_tpu_torch import pretrain
+    argv = ["--arch", "vit_giant2", "--bf16", "--synthetic", "--batch_size_per_gpu",
+            str(G_SSL_BATCH), "--epochs", "1", "--steps_per_epoch", "2", "--warmup_epochs", "0"]
+    t0 = time.perf_counter()
+    reset_counts()
+    arch, hist = pretrain.run(pretrain.get_args_parser().parse_args(argv))
+    launches = counts()
+    del arch
+    torch.cuda.empty_cache()
+    res = {"argv": argv, "epochs": hist, "launches": launches,
+           "per_step": {k: v / 2 for k, v in launches.items()},
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi[0] if smi else "unavailable"}
+    say("vitg_ssl", arch="vit_giant2", batch=G_SSL_BATCH, dtype="bf16", **res)
+    if len(hist) != 1 or hist[0]["steps"] != 2 or not all(
+            math.isfinite(hist[0][k]) for k in ("total_loss", "dino", "ibot", "koleo",
+                                                 "img_per_s", "peak_mem_bytes")):
+        fail(f"8k: {hist}")
+    if launches != expect_ssl(2, G_SSL_PER_STEP):
+        fail(f"8k: launches {launches} in 2 steps, expected {G_SSL_PER_STEP} per step")
+    return res
+
+
+def attention_map_run(counts, reset_counts, smi) -> dict:
+    """Phase 8l: `visualize_attention` on the card at its default 448 px,
+    on a seeded ViT-S/14 `.pth` (the same run on the CPU's plain path must
+    give the same probabilities within 1e-4: fp32 on both, other summation
+    orders through 12 blocks) and on vit_giant2's seeded draw; each writes
+    2 × heads PNGs, each probability row sums to 1 within 1e-5, and the
+    walk launches K4 in every block, K3 and K6 in all but the last (whose
+    attention the hook computes in plain torch) and no K5."""
+    from adaptersis_tpu_torch import visualize_attention
+    from adaptersis_tpu_torch.models.vit import ARCHS
+    from adaptersis_tpu_torch.train.convert import seeded_init_
+    work = ROOT / "build" / "smoke_attention"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    pth = work / "vits14.pth"
+    torch.save({"teacher": seeded_init_(ARCHS["vit_small"](), seed=4).state_dict()}, pth)
+    res = {}
+    for arch, heads, depth, weights in (("vit_small", 6, 12, pth), ("vit_giant2", 24, 40, None)):
+        def run(device):
+            argv = ["--arch", arch, "--device", device, "--output_dir", str(work / device / arch)]
+            argv += ["--pretrained_weights", str(weights)] if weights else []
+            return visualize_attention.run(visualize_attention.get_args_parser().parse_args(argv))
+
+        reset_counts()
+        attn, paths = run("cuda")
+        launches = counts()
+        r = {"heads": attn.shape[0], "tokens": attn.shape[1], "pngs": len(paths),
+             "row_sum_max_err": (attn.sum(-1) - 1).abs().max().item(), "launches": launches}
+        want = {**{k: 0 for k in launches}, "fused_ln_qkv": depth, "flash_fwd": depth - 1,
+                "layernorm": depth - 1}
+        if weights:
+            r["vs_cpu_max_abs_err"] = (attn - run("cpu")[0]).abs().max().item()
+        res[arch] = r
+        if not (attn.shape[0] == heads and len(paths) == 2 * heads
+                and all(os.path.isfile(q) for q in paths) and torch.isfinite(attn).all()
+                and r["row_sum_max_err"] <= 1e-5 and r.get("vs_cpu_max_abs_err", 0) <= 1e-4
+                and launches == want):
+            fail(f"8l: {arch}: {r}, expected {heads} heads and launches {want}")
+    say("attention_maps", **res, nvidia_smi=smi[0] if smi else "unavailable")
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def narrow_model():
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
     from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
@@ -2394,10 +2603,11 @@ def launch_counters():
     return counts, reset_counts
 
 
-def expect(forwards, backwards):
-    """Launches of `forwards` full-width forwards and `backwards` MSDA
-    backwards (the segmentation paths run no K7)."""
-    return {**{k: v * forwards for k, v in PER_FORWARD.items()}, "msda_bwd": backwards,
+def expect(forwards, backwards, per=PER_FORWARD):
+    """Launches of `forwards` full-width forwards (`per`: ViT-L's, or
+    G_PER_FORWARD) and `backwards` MSDA backwards (the segmentation paths
+    run no K7)."""
+    return {**{k: v * forwards for k, v in per.items()}, "msda_bwd": backwards,
             "flash_attn": 0, "flash_attn_bwd": 0}
 
 
@@ -2452,13 +2662,20 @@ def main() -> None:
     # ---- 2b. K3 at tap_unet_fuse's extra walks (N = 3970 and 442)
     fuse_k3_err = check_k3(ff, FUSE_K3_SHAPES)
 
+    # ---- 2c. K3 at ViT-g/14's 24 heads
+    vitg_err = {"flash_fwd": check_k3(ff, G_FLASH_SHAPES)}
+
     # ---- 3. K1 (deformable attention forward) vs its plain version, per
     # element (`check_msda_fwd`)
     msda_err = check_msda_fwd(mc)
+    # 3b. at ViT-g/14's adapters: D = 192, bf16 and fp32
+    vitg_err["msda_fwd"] = check_msda_fwd(mc, G_MSDA_CASES, G_MSDA_POINTS)
 
     # ---- 4. K2 (deformable attention backward) vs the plain version's
     # autograd, per element (`check_msda_bwd`)
     bwd_err = check_msda_bwd(mc)
+    # 4a. at ViT-g/14's adapters: D = 192 (K2's two-pass sum), bf16 and fp32
+    vitg_err["msda_bwd"] = check_msda_bwd(mc, G_MSDA_CASES, G_MSDA_POINTS)
 
     # ---- 4b. K6, K4 and K5 vs their plain versions on the same inputs, on
     # the card; in bf16 the (n,) parameters are bf16 (as the frozen
@@ -2475,6 +2692,10 @@ def main() -> None:
     # rows, ≈ 1e-6·20 of the output's scale): 1e-4·max|out|. K5 is held per
     # element: `mlp_allowance`
     row_err = check_row_kernels(ln, fq, fm)
+    # ViT-g/14's C = 1536, 24 heads (no K5: SwiGLU), and vit_tiny's C = 192,
+    # 3 heads
+    vitg_err["rows"] = check_row_kernels(ln, fq, fm, G_ROW_SHAPES, G_HEADS, k5=False)
+    vitg_err["vit_tiny rows"] = check_row_kernels(ln, fq, fm, TINY_ROW_SHAPES, TINY_HEADS)
     torch.cuda.empty_cache()
 
     # ---- 4c. K7 (flash attention with segment ids) vs its plain version
@@ -2483,6 +2704,11 @@ def main() -> None:
 
     # ---- 4d. K7 at tap_setr_ete's geometry: one 1765-token segment, no ids
     ete_k7_err = check_k7(fa, [(ETE_CASE, ETE_SHAPE, None, 0.125)])
+
+    # ---- 4e. K7 at ViT-g/14's SSL step: 24 heads
+    vitg_err["flash_attn"] = check_k7(fa, [
+        (case, shape, packed_ids(shape[0], STUDENT_SEGMENTS) if case.endswith("student")
+         else None, 0.125) for case, shape in G_K7_SHAPES.items()])
 
     # ---- 5. narrow whole model: CPU plain paths vs CUDA kernels, fp32
     model = narrow_model()
@@ -2875,20 +3101,35 @@ def main() -> None:
     # ---- 8g. the SSL checkpoint and resume at full width (`ssl_resume_run`)
     ssl_resume_run(counts, reset_counts, expect_ssl, smi)
 
-    # ---- 8h. the other models and decoders at full width (`variant_runs`)
+    # ---- 8h. the other models and decoders at the paper's width, 12 ViT-L blocks
+    # (`variant_runs`)
     variant_runs(counts, reset_counts, smi)
 
     # ---- 8i. tap_setr_ete's train step, K7 against its plain version
     # (`ete_step_gate`)
     ete_step_gate(fa, counts, reset_counts)
 
+    # ---- 8j. ViT-g/14 through train_seg at full width (the config file
+    # selects it), then its train step gate at batch 2 (M2b)
+    vitg_run = variant_runs(counts, reset_counts, smi, runs=G_RUNS, flags=vitg_argv,
+                            want=vitg_expect, evaluated=G_RUNS[0][0], phase="8j",
+                            arch="vit_giant2", depth=None)
+    seg_step_gate(counts, reset_counts, expect(1, 7, G_PER_FORWARD), arch="vit_giant2",
+                  batch=G_GATE_BATCH, faults=("heads moved",))
+
+    # ---- 8k. ViT-g/14's SSL step (`vitg_ssl_run`)
+    vitg_ssl = vitg_ssl_run(counts, reset_counts, expect_ssl, smi)
+
+    # ---- 8l. the attention-map tool on the card (`attention_map_run`)
+    attention_map_run(counts, reset_counts, smi)
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
     say_times(name, smi, times, bounds, extra, dev, host)
     say("variant_geometries", k3_unet_fuse_max_abs_err=fuse_k3_err,
-        k7_setr_ete_max_abs_err=ete_k7_err, device=name,
-        nvidia_smi=smi[0] if smi else "unavailable")
+        k7_setr_ete_max_abs_err=ete_k7_err, vitg_and_vit_tiny_max_abs_err=vitg_err,
+        device=name, nvidia_smi=smi[0] if smi else "unavailable")
 
     def on_path(key, prefix):
         return (key.startswith(prefix) and f"B={TRAIN_BATCH}" in key
@@ -2938,6 +3179,32 @@ def main() -> None:
                      "plain_ms": avg[1], "bound_ms": sum(bounds[k][0] for k in keys) / len(keys),
                      "bound_by": bounds[keys[0]][1], "library_ms": avg[2],
                      "device_ms": sum(dev[k][0] for k in keys) / len(keys)})
+    # beside each row, its numbers at this slice's new shapes (batch 16, bf16;
+    # phase 9's "vitg ..." and "vit_tiny ..." keys) and the launches of
+    # ViT-g's train step (8j) and SSL step (8k)
+    vitg_step = vitg_run["vitg adapter"]["per_train_step"]
+    labels = {"flash_fwd": ["vitg"], "msda_fwd": ["vitg"], "msda_bwd": ["vitg"],
+              "fused_ln_qkv": ["vitg", "vit_tiny"], "fused_ln_mlp": ["vit_tiny"],
+              "layernorm": ["vitg", "vit_tiny"]}
+    k7_keys = {"flash_attn": ["vitg flash_attn student", "vitg flash_attn teacher"],
+               "flash_attn_bwd": ["vitg flash_attn_bwd student"]}
+    for row in rows:
+        kname = row["name"]
+        groups = ({"vitg": k7_keys[kname]} if kname in k7_keys else
+                  {lab: [k for k in times if k.startswith(f"{lab} ")
+                         and on_path(k[len(lab) + 1:], kname)] for lab in labels[kname]})
+        row["new_shapes"] = {}
+        for label, keys in groups.items():
+            lib = [times[k][2] for k in keys]
+            row["new_shapes"][label] = {
+                "ms": sum(times[k][0] for k in keys) / len(keys),
+                "plain_ms": sum(times[k][1] for k in keys) / len(keys),
+                "bound_ms": sum(bounds[k][0] for k in keys) / len(keys),
+                "bound_by": bounds[keys[0]][1],
+                "library_ms": None if None in lib else sum(lib) / len(lib),
+                "device_ms": sum(dev[k][0] for k in keys) / len(keys), "keys": keys}
+        row["launches_vitg_step"] = (vitg_ssl["launches"][kname] // 2
+                                     if kname.startswith("flash_attn") else vitg_step[kname])
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,8 +5,9 @@ written with `torch.save` plain, under `teacher` with `module.backbone.`
 prefixes (beside the SSL heads), and with FSDP's chunked block keys. The JAX
 package's `load_dinov2_backbone_params` and the port's
 `load_dinov2_backbone` must give the same parameters bit for bit, and the
-two segmentors on it the same logits; register tokens and SwiGLU keys
-raise, naming the roadmap item."""
+two segmentors on it the same logits; register tokens, SwiGLU FFNs and
+DINO-v1's blocks without LayerScale load strictly into a ViT built to
+match, with the JAX package's forward."""
 
 import numpy as np
 import pytest
@@ -16,10 +17,11 @@ import jax
 import jax.numpy as jnp
 
 from adaptersis_tpu.models.segmentor import AdapterSegmentor as JaxSegmentor
+from adaptersis_tpu.models.vit import DinoV1VisionTransformer as JaxV1
 from adaptersis_tpu.models.vit import DinoVisionTransformer as JaxViT
 from adaptersis_tpu.train.convert import load_dinov2_backbone_params
 from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
-from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
+from adaptersis_tpu_torch.models.vit import DinoV1VisionTransformer, DinoVisionTransformer
 from adaptersis_tpu_torch.train.convert import (
     flatten_chunked_block_keys, flax_to_state_dict, load_dinov2_backbone,
     load_torch_state_dict)
@@ -102,14 +104,39 @@ def test_segmentor_logits_on_the_pretrained_backbone(tmp_path):
     np.testing.assert_allclose(n(out["logits"]), logits, atol=1e-4 * scale, rtol=0)
 
 
-@pytest.mark.parametrize("extra", ["register_tokens", "blocks.0.mlp.w12.weight",
-                                   "blocks.1.mlp.w3.bias"])
-def test_unported_backbones_raise_naming_the_item(tmp_path, extra):
-    sd = dinov2_state_dict(VIT)
-    sd[extra] = torch.zeros(1, 4, 128)
-    torch.save(sd, tmp_path / "x.pth")
-    with pytest.raises(ValueError, match="M2b"):
-        load_dinov2_backbone(DinoVisionTransformer(**VIT), str(tmp_path / "x.pth"))
+# the other DINOv2 layouts: register tokens, SwiGLU FFNs (ViT-g's w12 / w3)
+# and DINO-v1's blocks without LayerScale
+VARIANTS = {"registers": dict(num_register_tokens=4), "swiglu": dict(ffn_layer="swiglufused"),
+            "v1": dict(init_values=None)}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_other_backbones_load_strictly(tmp_path, variant):
+    """A `.pth` of each layout loads strictly into a ViT built to match, and
+    its forward equals the JAX package's on the JAX converter's parameters
+    (the v1 backbone's own forward: the normed patch tokens)."""
+    kw = {**VIT, **VARIANTS[variant]}
+    v1 = variant == "v1"
+    sd = dinov2_state_dict(kw, seed=4)
+    if variant == "registers":
+        assert sd["register_tokens"].shape == (1, 4, 128)
+    torch.save({"teacher": {f"backbone.{k}": v for k, v in sd.items()}}, tmp_path / "v.pth")
+    vit = (DinoV1VisionTransformer if v1 else DinoVisionTransformer)(**kw)
+    load_dinov2_backbone(vit, str(tmp_path / "v.pth"))
+    for k, v in vit.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    x = np.random.default_rng(6).uniform(0, 1, (2, IMG, IMG, 3)).astype(np.float32)
+    jvit = (JaxV1 if v1 else JaxViT)(**kw)
+    want = jvit.apply({"params": load_dinov2_backbone_params(str(tmp_path / "v.pth"))},
+                      jnp.asarray(x))
+    with torch.no_grad():
+        got = vit(torch.from_numpy(x))
+    if v1:
+        got, want = {"patch": got}, {"patch": want}
+    assert set(got) == set(want)
+    for k, e in want.items():
+        # fp32 on both sides (test_torch_vit's tolerance)
+        np.testing.assert_allclose(n(got[k]), np.asarray(e), atol=2e-5, rtol=0, err_msg=k)
 
 
 def test_a_missing_or_misshapen_key_raises(tmp_path):
