@@ -8,11 +8,14 @@ qkv_impl and mlp_impl "xla"), which adds the iBOT mask-token substitution
 (`embed(..., masks=)`, `forward_with_masks`) and the packed multicrop
 forward (`forward_packed_crops`).
 
-Every backbone of the JAX package's `ARCHS` but the windowed ones: DINOv2's
-ViT-S/B/L and ViT-g/14 (SwiGLU FFN), vit_tiny, and DINO-v1's
-(`DinoV1VisionTransformer`, no LayerScale). `num_register_tokens` adds
-register tokens after the cls token, after the positional embedding;
-`get_last_selfattention` is the DINO attention-map hook."""
+Every backbone of the JAX package's `ARCHS`: DINOv2's ViT-S/B/L and
+ViT-g/14 (SwiGLU FFN), vit_tiny, DINO-v1's (`DinoV1VisionTransformer`, no
+LayerScale), and the Mask2Former stack's windowed backbones (`window_attn`:
+windowed attention in every block but the last of each quarter, whose
+attention stays global; the blocks then take the token grid `hw`).
+`num_register_tokens` adds register tokens after the cls token, after the
+positional embedding; `get_last_selfattention` is the DINO attention-map
+hook."""
 
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ class DinoVisionTransformer(nn.Module):
                  init_values: Optional[float] = 1e-5, gelu_approx: bool = False,
                  ffn_layer: str = "mlp", num_register_tokens: int = 0,
                  attn_impl: str = "flash_fwd", ln_impl: str = "pallas",
-                 qkv_impl: str = "pallas", mlp_impl: str = "pallas"):
+                 qkv_impl: str = "pallas", mlp_impl: str = "pallas",
+                 window_attn: Optional[Sequence[bool]] = None, window_size: int = 14):
         super().__init__()
         impls = dict(attn_impl=attn_impl, ln_impl=ln_impl, qkv_impl=qkv_impl, mlp_impl=mlp_impl)
         self.ln_impl = ln_impl
@@ -49,9 +53,11 @@ class DinoVisionTransformer(nn.Module):
         nn.init.trunc_normal_(self.pos_embed, std=0.02, a=-0.04, b=0.04)
         if num_register_tokens:
             self.register_tokens = nn.Parameter(torch.zeros(1, num_register_tokens, embed_dim))
+        wa = window_attn or [False] * depth
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, init_values, gelu_approx, ffn_layer, **impls)
-            for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, init_values, gelu_approx, ffn_layer, **impls,
+                  windowed=bool(wa[i]), window_size=window_size)
+            for i in range(depth))
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def interpolate_pos_encoding(self, hp: int, wp: int) -> torch.Tensor:
@@ -87,9 +93,12 @@ class DinoVisionTransformer(nn.Module):
         return tokens, (hp, wp)
 
     def run_blocks(self, x: torch.Tensor, start: int, stop: int,
-                   segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   segment_ids: Optional[torch.Tensor] = None,
+                   hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """blocks[start:stop]; `hw` is the patch-token grid, which windowed
+        blocks need."""
         for blk in self.blocks[start:stop]:
-            x = blk(x, segment_ids)
+            x = blk(x, segment_ids, hw=hw)
         return x
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -99,8 +108,8 @@ class DinoVisionTransformer(nn.Module):
                            ) -> Dict[str, torch.Tensor]:
         """The full forward: the normed cls, register and patch tokens, and
         the last block's output before the norm."""
-        tokens, _ = self.embed(x, with_pos_cls=True, masks=masks)
-        tokens = self.run_blocks(tokens, 0, self.depth)
+        tokens, hw = self.embed(x, with_pos_cls=True, masks=masks)
+        tokens = self.run_blocks(tokens, 0, self.depth, hw=hw)
         normed = self.final_norm(tokens)
         r = self.num_register_tokens
         return {"x_norm_clstoken": normed[:, 0], "x_norm_regtokens": normed[:, 1:1 + r],
@@ -133,12 +142,13 @@ class DinoVisionTransformer(nn.Module):
         return ({"x_norm_clstoken": xg[:, 0], "x_norm_patchtokens": xg[:, 1 + r:]},
                 {"x_norm_clstoken": xl[:, 0], "x_norm_patchtokens": xl[:, 1 + r:]})
 
-    def collect_block_outputs(self, x: torch.Tensor, taps: Sequence[int]) -> List[torch.Tensor]:
+    def collect_block_outputs(self, x: torch.Tensor, taps: Sequence[int],
+                              hw: Optional[Tuple[int, int]] = None) -> List[torch.Tensor]:
         """Run all blocks; return the un-normed outputs of the blocks in `taps`."""
         want = set(taps)
         out = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, hw=hw)
             if i in want:
                 out.append(x)
         return out
@@ -149,7 +159,7 @@ class DinoVisionTransformer(nn.Module):
         feature tap. The patch tokens, as (B, hp, wp, C) maps with `reshape`,
         and with `return_class_token` (patch tokens, cls token) pairs."""
         tokens, (hp, wp) = self.embed(x, with_pos_cls=True)
-        outs = self.collect_block_outputs(tokens, range(self.depth - n, self.depth))
+        outs = self.collect_block_outputs(tokens, range(self.depth - n, self.depth), (hp, wp))
         if norm:
             outs = [self.final_norm(o) for o in outs]
         patches = [o[:, 1 + self.num_register_tokens:] for o in outs]
@@ -162,8 +172,8 @@ class DinoVisionTransformer(nn.Module):
     def get_last_selfattention(self, x: torch.Tensor) -> torch.Tensor:
         """The last block's attention probabilities (B, heads, N, N), fp32:
         the DINO attention-visualisation hook."""
-        tokens, _ = self.embed(x, with_pos_cls=True)
-        tokens = self.run_blocks(tokens, 0, self.depth - 1)
+        tokens, hw = self.embed(x, with_pos_cls=True)
+        tokens = self.run_blocks(tokens, 0, self.depth - 1, hw=hw)
         return self.blocks[-1](tokens, return_attention=True)
 
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
@@ -182,13 +192,21 @@ class DinoV1VisionTransformer(DinoVisionTransformer):
     final-normed token sequences with the cls token kept."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        tokens, _ = self.embed(x, with_pos_cls=True)
-        return self.final_norm(self.run_blocks(tokens, 0, self.depth))[:, 1:]
+        tokens, hw = self.embed(x, with_pos_cls=True)
+        return self.final_norm(self.run_blocks(tokens, 0, self.depth, hw=hw))[:, 1:]
 
     def get_intermediate_layers(self, x: torch.Tensor, n: int = 1, **_) -> List[torch.Tensor]:
-        tokens, _ = self.embed(x, with_pos_cls=True)
-        outs = self.collect_block_outputs(tokens, range(self.depth - n, self.depth))
+        tokens, hw = self.embed(x, with_pos_cls=True)
+        outs = self.collect_block_outputs(tokens, range(self.depth - n, self.depth), hw)
         return [self.final_norm(o) for o in outs]
+
+
+def quarter_global_windows(depth: int) -> Tuple[bool, ...]:
+    """The windowed backbones' schedule (the JAX package's
+    `_quarter_global_windows`): windowed attention in every block but the
+    last of each quarter of the depth, which stays global."""
+    q = depth // 4
+    return tuple((i + 1) % q != 0 for i in range(depth))
 
 
 ARCHS = {
@@ -206,16 +224,16 @@ ARCHS = {
     "vit_base_v1": partial(DinoV1VisionTransformer, embed_dim=768, depth=12, num_heads=12,
                            init_values=None),
 }
-# the JAX package's windowed-attention backbones of the Mask2Former head
+# the Mask2Former stack's windowed-attention backbones
 WINDOWED = ("vit_small_windowed", "vit_base_windowed", "vit_large_windowed",
             "vit_giant2_windowed")
+for _name in WINDOWED:
+    _base = ARCHS[_name[:-len("_windowed")]]
+    ARCHS[_name] = partial(_base, window_attn=quarter_global_windows(_base.keywords["depth"]))
 
 
 def build_backbone(arch: str, img_size: int = 518, patch_size: int = 14,
                    **kw) -> DinoVisionTransformer:
-    if arch in WINDOWED:
-        raise ValueError(f"unknown arch {arch!r}: the windowed backbones are not ported yet "
-                         "(ROADMAP.md, M12: the Mask2Former head)")
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
     return ARCHS[arch](img_size=img_size, patch_size=patch_size, **kw)

@@ -19,6 +19,11 @@ the load is strict.
                                          spatial axes reversed (flax applies
                                          it unflipped, torch as the conv's
                                          gradient)
+  MultiHeadDotProductAttention's DenseGeneral `kernel` (C, H, Dh) of
+  query/key/value and (H, Dh, C) of `out`, `bias` (H, Dh)
+                                     →   Linear `weight` (H·Dh, C) and
+                                         (C, H·Dh), `bias` (H·Dh,) (the
+                                         DETR stack; no inverse)
   LayerNorm / BatchNorm `scale`      →   `weight`
   batch_stats `mean` / `var`         →   `running_mean` / `running_var`
   `blocks_N`                         →   `blocks.N`
@@ -62,7 +67,12 @@ def _module_path(path: tuple) -> list:
 
 def _param(path: tuple, a: np.ndarray):
     *mod, leaf = _module_path(path)
-    if leaf == "kernel":
+    if leaf == "kernel" and a.ndim == 3:            # flax attention's DenseGeneral
+        a = a.reshape(-1, a.shape[-1]).T if mod[-1] == "out" else a.reshape(a.shape[0], -1).T
+        leaf = "weight"
+    elif leaf == "bias" and a.ndim == 2:
+        a = a.reshape(-1)
+    elif leaf == "kernel":
         if a.ndim == 2:
             a = a.T
         elif a.ndim == 4 and mod and mod[-1] == TRANSPOSED:
@@ -156,6 +166,17 @@ def save_flax_variables(path, model: nn.Module) -> None:
     flat = {"/".join(k): a for k, a in _flatten(state_dict_to_flax(model)).items()}
     with open(path, "wb") as f:
         np.savez(f, **flat)
+
+
+def m2f_variables(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX `segment_m2f` model's params or batch_stats ({backbone,
+    adapter, head}: flax puts the shared backbone at the top) as the
+    port's `Mask2FormerSegmentor` holds them: the backbone inside the
+    adapter."""
+    out = {k: v for k, v in tree.items() if k != "backbone"}
+    if "backbone" in tree:
+        out["adapter"] = {**out.get("adapter", {}), "backbone": tree["backbone"]}
+    return out
 
 
 def load_ssl_state(arch: nn.Module, state: Mapping[str, Any]) -> None:

@@ -17,6 +17,8 @@ seconds since the start):
   2b. K3 the same way at tap_unet_fuse's extra walks of ViT-L/14 at 588 px,
      N = 3970 (the 1.5× frame) and 442 (the 0.5× frame), batch 2 and 8;
   2c. K3 the same way at ViT-g/14's 24 heads (`G_FLASH_SHAPES`);
+  2d. K3 the same way at the Mask2Former stack's walk, 1370 tokens
+     (`M2F_FLASH_SHAPES`, batch 2 and 4);
   3. K1 deformable-attention forward vs msda_plain at the CAViT and CACNN
      geometries of ViT-L/14 at 588 px, bf16 values, each element within a
      bound from its own terms (`msda_allowances`): batch 2 and 16 on
@@ -28,7 +30,12 @@ seconds since the start):
      bits, and a level's start offset moved by one token must break the
      bound; 3b. the same at ViT-g/14's adapters (`G_MSDA_CASES`: head width
      D = 192, bf16 and fp32 values, batch 2 and 16, uniform and model-like
-     points and a hot token);
+     points and a hot token); 3c. the same at the Mask2Former stack's
+     geometries (`m2f_msda_cases`, batch 2, bf16 and fp32, uniform and
+     model-like points and a hot token, faults and repeats): the pixel
+     decoder's D = 32 over levels 16², 31², 64² with Lq = S = 5313,
+     ViTAdapter's injector and extractor at 518 px (D = 128), and D = 48
+     (vit_small);
   4. K2 deformable-attention backward vs autograd of msda_plain in the same
      cases, with a seeded fp32 incoming gradient: dvalue (bf16, half an ulp
      plus the fp32 reordering of the element's own sum), dloc and daw per
@@ -36,7 +43,8 @@ seconds since the start):
      (whose bins several warps sum), must give bit-identical dvalue, dloc
      and daw, and two planted faults must break the dvalue
      bound (each token's first contribution dropped; every point's x0 and
-     x0+1 corner weights swapped); 4a. the same at `G_MSDA_CASES`;
+     x0+1 corner weights swapped); 4a. the same at `G_MSDA_CASES`; 4f.
+     the same at the Mask2Former cases of 3c;
   4b. K6 LayerNorm, K4 fused LN → qkv → head split and K5 fused LN → MLP →
      LayerScale → residual vs their plain versions, bf16 and fp32, C = 1024,
      H = 16, N = 1765 and 1764, batch 2 and 16, and 3 images of 1765 (the
@@ -48,7 +56,8 @@ seconds since the start):
      bf16 calls of each must give the same bits; then K6 and K4 the same
      way at ViT-g/14's C = 1536, H = 24 (`G_ROW_SHAPES`: its SwiGLU blocks
      run no K5) and K6, K4 and K5 at vit_tiny's C = 192, H = 3
-     (`TINY_ROW_SHAPES`);
+     (`TINY_ROW_SHAPES`), and at the Mask2Former walk's 1370 rows
+     (`M2F_ROW_SHAPES`);
   4c. K7 flash attention with segment ids vs its plain version, bf16 and
      fp32, each element against a bound from its own terms: the forward
      (output and logsumexp), dq, dk and dv through autograd with a seeded
@@ -146,6 +155,24 @@ seconds since the start):
      at the default crops, batch 8, 2 steps (`vitg_ssl_run`);
   8l. `visualize_attention` on the card (`attention_map_run`): a seeded
      ViT-S/14 `.pth` (against the CPU's plain path) and ViT-g/14's draw;
+  8m. `segment_m2f --arch vit_large --imsize 518 --batch_size_per_gpu 4
+     --synthetic` at its fp32 default, one epoch cut to 3 steps, its
+     validation and checkpoint, then the same command with `--epochs 2`
+     resumes; launches per step and validation forward (`M2F_FP32_STEP`),
+     img/s over 2 steps, peak memory; 8n. `segment_m2f` at its defaults
+     (vit_small, D = 48), one step; 8o. `bench_m2f` at its defaults
+     (ViT-L/14, 518 px, bf16, batch 4: `M2F_BENCH_STEP`) and on
+     vit_large_windowed for 3 steps (`M2F_WINDOWED_STEP`)
+     (`m2f_entry_runs`);
+  8p. the Mask2Former train step gate (`m2f_step_gate`, batch 2, bf16):
+     K1-K5 against their plain versions, the floor and the moved heads as
+     in 8e, per subtree (adapter, pixel decoder, decoder layers,
+     prediction heads), every side fed the plain side's Hungarian
+     assignments;
+  8q. the DETR stack's deformable decoder (6 layers, C 256 in 8 heads, 4
+     levels, 100 queries, batch 2, fp32, a refinement branch) on the card
+     with K1 and K2 against the same with the plain MSDA: outputs, points
+     and gradients, 6 K1 and 6 K2 launches (`detr_decoder_check`);
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -161,11 +188,16 @@ seconds since the start):
      trace (`kernel_split`); K3 at tap_unet_fuse's N = 3970 and 442 and K7
      forward and backward at tap_setr_ete's (16, 16, 1765, 64), each against
      SDPA; and at batch 16 the new shapes of phases 2c-4e ("vitg ..." and
-     "vit_tiny ..." keys). The kernels line gives the training path's
+     "vit_tiny ..." keys); at batch 4 the Mask2Former shapes ("m2f ..."
+     keys: K3 against SDPA, K6, K4, K5 at 1370 tokens in bf16 and fp32,
+     K1 and K2 at the pixel decoder's, the injector's and the extractor's
+     geometries, bf16 and fp32, and at D = 48). The kernels line gives the training path's
      (batch 16, uniform points) numbers and the launches of `bench`'s run
      for K1-K6, the SSL step's numbers and the launches of `bench_ssl`'s run
      for K7, and in each row `new_shapes` (ViT-g's and vit_tiny's numbers)
-     and `launches_vitg_step` (per step of 8j, or of 8k for K7).
+     and `launches_vitg_step` (per step of 8j, or of 8k for K7),
+     `m2f_shapes` (each "m2f ..." key) and `launches_m2f_step` (per step
+     of 8o's `bench_m2f` and 8m's `segment_m2f`).
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 
@@ -273,6 +305,49 @@ G_PER_FORWARD = {"flash_fwd": 80, "msda_fwd": 7, "fused_ln_qkv": 80, "fused_ln_m
 # per ViT-g SSL step: the teacher's and the student's 40 blocks forward, the
 # student's backward
 G_SSL_PER_STEP = {"flash_attn": 80, "flash_attn_bwd": 40}
+# the ViT-Adapter + Mask2Former stack (M12) at ViT-L/14, 518 px: the
+# backbone's 37² patch tokens and the cls token ride through the blocks
+# (1370 tokens); the CNN pyramid is 64², 31², 16² (5313 tokens); the pixel
+# decoder's deformable self-attention runs over those levels high stride
+# first at C 256 in 8 heads (D = 32), ViTAdapter's injectors (ViT tokens
+# query the pyramid) and extractors (the pyramid queries the ViT grid) at
+# E/8 = 128, and 48 under segment_m2f's default vit_small. Phases 2d, 3c
+# and 4f hold K3, K4, K6, K1 and K2 there at batch 2 in bf16 and fp32,
+# phase 9 times them at bench_m2f's batch 4 (keys "m2f ...")
+M2F_BATCH = 4
+M2F_TOKENS = 37 * 37 + 1
+M2F_PYRAMID, M2F_GRID = [(64, 64), (31, 31), (16, 16)], [(37, 37)]
+M2F_LEVELS = M2F_PYRAMID[::-1]
+M2F_MSDA_GEOMETRIES = (
+    ("m2f pixel_decoder", 5313, 5313, M2F_LEVELS, M2F_LEVELS, 32),
+    ("m2f injector", 5313, 1369, M2F_PYRAMID, M2F_GRID, 128),
+    ("m2f extractor", 1369, 5313, M2F_GRID, M2F_PYRAMID, 128),
+    ("m2f vit_small injector", 5313, 1369, M2F_PYRAMID, M2F_GRID, 48),
+    ("m2f vit_small extractor", 1369, 5313, M2F_GRID, M2F_PYRAMID, 48))
+
+
+def m2f_msda_cases(B, geometries=M2F_MSDA_GEOMETRIES,
+                   dtypes=(torch.bfloat16, torch.float32)) -> list:
+    return [(f"{case} B={B} {str(dt)[6:]}", (B, S, 8, D), Lq, shapes, 4, queries, dt)
+            for dt in dtypes for case, S, Lq, shapes, queries, D in geometries]
+
+
+# at batch 2 the M12 cases take model-like points and a hot token beside
+# the uniform ones, the planted faults and (uniform) five repeats
+M2F_MSDA_POINTS = ("model", "hot token")
+M2F_FLASH_SHAPES = [(B, 16, M2F_TOKENS, 64) for B in (FULL_BATCH, M2F_BATCH)]
+M2F_ROW_SHAPES = [(B, M2F_TOKENS, 1024) for B in (FULL_BATCH, M2F_BATCH)]
+# launches per m2f train step at ViT-L/14: 24 global blocks (K3, K4, and K5
+# with tanh GELU in bench_m2f, K6 before segment_m2f's exact-GELU MLPs);
+# 16 MSDA forwards (6 pixel-decoder layers, 4 injectors, 4 extractors, 2
+# extra extractors) and 12 backwards (the injectors sit before the frozen
+# blocks and take none); vit_large_windowed: 20 windowed blocks (K6 before
+# their attention, K5 after) and 4 global ones
+M2F_BENCH_STEP = {"flash_fwd": 24, "msda_fwd": 16, "msda_bwd": 12, "fused_ln_qkv": 24,
+                  "fused_ln_mlp": 24, "layernorm": 0, "flash_attn": 0, "flash_attn_bwd": 0}
+M2F_FP32_STEP = {**M2F_BENCH_STEP, "fused_ln_mlp": 0, "layernorm": 24}
+M2F_WINDOWED_STEP = {**M2F_BENCH_STEP, "flash_fwd": 4, "fused_ln_qkv": 4, "layernorm": 20}
+M2F_SMALL_STEP = {**M2F_FP32_STEP, "flash_fwd": 12, "fused_ln_qkv": 12, "layernorm": 12}
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -287,11 +362,11 @@ def say(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0, **kw}), flush=True)
 
 
-def flash_inputs(shape, seed):
+def flash_inputs(shape, seed, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
     # scores of std ≈ 2.25: peaked rows, so a mishandled key or tail shows
     q, k, v = (torch.randn(shape, generator=g) * s for s in (1.5, 1.5, 1.0))
-    return [x.to(torch.bfloat16).cuda() for x in (q, k, v)]
+    return [x.to(dtype).cuda() for x in (q, k, v)]
 
 
 def msda_inputs(vshape, Lq, shapes, P, seed, points="uniform", queries=None,
@@ -595,8 +670,10 @@ def msda_cases(cases, at_b2):
 
 def repeated(case: str, vshape, points: str) -> bool:
     """Where phases 3 and 4 call a kernel five more times: CAViT's geometry
-    at batch 16 on uniform points (and, for K2, every hot token)."""
-    return points == "uniform" and vshape[0] == TRAIN_BATCH and "cavit" in case
+    at batch 16 and every M12 case on uniform points (and, for K2, every
+    hot token)."""
+    return points == "uniform" and ((vshape[0] == TRAIN_BATCH and "cavit" in case)
+                                    or case.startswith("m2f "))
 
 
 def check_msda_fwd(mc, cases=MSDA_CASES, at_b2=MSDA_POINTS) -> float:
@@ -801,9 +878,10 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
         if host_too:
             host[key] = (host_us(kernel), None if library is None else host_us(library))
 
-    def flash_times(shapes, tag="", k7_body=False, host_too=False, seed=0):
+    def flash_times(shapes, tag="", k7_body=False, host_too=False, seed=0,
+                    dtype=torch.bfloat16):
         for shape in shapes:
-            q, k, v = flash_inputs(shape, seed=seed)
+            q, k, v = flash_inputs(shape, seed=seed, dtype=dtype)
             B, H, N, Dh = shape
             key = f"{tag}flash_fwd B={B} N={N}"
             timed(key, lambda: ff.flash_fwd(q, k, v, 0.125),
@@ -811,7 +889,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                   lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125),
                   host_too=host_too)
             bounds[key] = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * N * N * Dh,
-                                   "bf16")
+                                   "bf16" if dtype == torch.bfloat16 else "fp32")
             if k7_body:
                 # K7's forward body (no ids) on K3's inputs: whether one body
                 # could serve both
@@ -820,7 +898,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             del q, k, v
             torch.cuda.empty_cache()
 
-    def msda_times(cases, tag="", hot_too=True):
+    def msda_times(cases, tag="", hot_too=True, points_timed=("uniform", "model")):
         """K1 and K2 on uniform points (the kernels line's), on model-like
         ones and, at batch 16, with a hot token; beside the HBM bound, the
         corner rows each call moves through the L2 (in-level corners × D ×
@@ -829,7 +907,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
         into its four kernels (`kernel_split`)"""
         for i, (case, vshape, Lq, shapes, P, queries, dt) in enumerate(cases):
             hot = ["hot token"] if vshape[0] == TRAIN_BATCH and hot_too else []
-            for points in ("uniform", "model", *hot):
+            for points in (*points_timed, *hot):
                 value, loc, aw, grad = msda_inputs(vshape, Lq, shapes, P, 10 + i, points,
                                                    queries, dt)
                 D = vshape[3]
@@ -864,14 +942,16 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                 del leaves, out, value, loc, aw, grad
                 torch.cuda.empty_cache()
 
-    def row_times(shapes, heads, tag="", k5=True):
+    def row_times(shapes, heads, tag="", k5=True, dtype=torch.bfloat16):
         """K6, K4 and K5 at the walks' shapes, bf16 with bf16 parameters (the
-        frozen backbone's, read in place). Beside plain and library: the
-        unfused PyTorch sequence each replaced (under autocast, as the
-        training step ran it: LayerNorm to fp32, casts, F.linear, the q/k/v
-        relayout, GELU) and cuBLAS's GEMMs alone on the normalised input"""
+        frozen backbone's, read in place; or all fp32 with `dtype`). Beside
+        plain and library: the unfused PyTorch sequence each replaced (under
+        autocast, as the training step ran it: LayerNorm to fp32, casts,
+        F.linear, the q/k/v relayout, GELU) and cuBLAS's GEMMs alone on the
+        normalised input"""
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
         for shape in shapes:
-            x, p = row_inputs(shape, torch.bfloat16, seed=0, params_dtype=torch.bfloat16)
+            x, p = row_inputs(shape, dtype, seed=0, params_dtype=dtype)
             B, N, C = shape
             R = B * N
             lw, lb = p["ln_w"].to(x.dtype), p["ln_b"].to(x.dtype)
@@ -885,7 +965,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             bounds[key] = bound_ms(2 * xb + 2 * C * pe, 8 * R * C, "fp32")
 
             def unfused_qkv():
-                with torch.autocast("cuda", dtype=torch.bfloat16):
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=kind == "bf16"):
                     y = F.linear(F.layer_norm(x, (C,), lw, lb, 1e-6), p["w"], p["b"])
                 qkv = y.reshape(B, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
                 return [t.contiguous() for t in qkv]
@@ -899,7 +979,8 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                           "cublas_gemm": cuda_ms(lambda: F.linear(xn, p["w"], p["b"].to(x.dtype))),
                           "tflops_device": flops / dev[key][0] * 1e-9}
             # reads x, the LN parameters, w, b; writes q, k, v (3·x)
-            bounds[key] = bound_ms(4 * xb + p["w"].numel() * 2 + (2 + 3) * C * pe, flops, "bf16")
+            bounds[key] = bound_ms(4 * xb + p["w"].numel() * p["w"].element_size()
+                                   + (2 + 3) * C * pe, flops, kind)
             if not k5:
                 del x, p, xn
                 torch.cuda.empty_cache()
@@ -1002,6 +1083,21 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
         row_times(at_16(G_ROW_SHAPES), G_HEADS, "vitg ", k5=False)
         row_times(at_16(TINY_ROW_SHAPES), TINY_HEADS, "vit_tiny ")
         k7_times(G_K7_SHAPES, "vitg ")
+        # M12 at bench_m2f's batch 4: K3 at 1370 tokens against SDPA, K6, K4
+        # (and in bf16 K5) at 1370 rows, bf16 and fp32; K1 and K2 at the
+        # pixel decoder's geometry (uniform and model-like points), the
+        # injector's and extractor's (uniform), bf16 and fp32, and at
+        # vit_small's D = 48 in bf16
+        for dt, tag in ((torch.bfloat16, "m2f "), (torch.float32, "m2f fp32 ")):
+            flash_times([(M2F_BATCH, 16, M2F_TOKENS, 64)], tag, seed=2, dtype=dt)
+            row_times([(M2F_BATCH, M2F_TOKENS, 1024)], HEADS, tag, k5=dt == torch.bfloat16,
+                      dtype=dt)
+        geo = M2F_MSDA_GEOMETRIES
+        msda_times(m2f_msda_cases(M2F_BATCH, geo[:1]), "m2f ", hot_too=False)
+        msda_times(m2f_msda_cases(M2F_BATCH, geo[1:3]), "m2f ", hot_too=False,
+                   points_timed=("uniform",))
+        msda_times(m2f_msda_cases(M2F_BATCH, geo[3:], (torch.bfloat16,)), "m2f ",
+                   hot_too=False, points_timed=("uniform",))
     return times, bounds, extra, dev, host
 
 
@@ -2574,6 +2670,363 @@ def attention_map_run(counts, reset_counts, smi) -> dict:
     return res
 
 
+# phases 8m-8p: the ViT-Adapter + Mask2Former stack (M12) through its entry
+# points at ViT-L/14 width, 518 px
+M2F_STEPS = 3
+M2F_GATE_BATCH = 2
+M2F_SUBTREES = {"adapter": lambda n: n.startswith("adapter."),
+                "pixel decoder": lambda n: n.startswith("head.pixel_decoder."),
+                "decoder layers": lambda n: n.startswith("head.dec_"),
+                "prediction heads": lambda n: n.startswith("head.") and not n.startswith(
+                    ("head.dec_", "head.pixel_decoder."))}
+
+
+class FirstItems:
+    """The first `n` items of a dataset."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, min(n, len(dataset))
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return self.dataset[i]
+
+
+def per_forward(step: dict) -> dict:
+    """A validation forward's launches: a train step's without K2."""
+    return {**step, "msda_bwd": 0}
+
+
+def m2f_entry_runs(counts, reset_counts, smi) -> dict:
+    """Phases 8m-8o. 8m: `segment_m2f --arch vit_large --imsize 518
+    --batch_size_per_gpu 4 --synthetic` at its fp32 default (exact GELU),
+    one epoch cut to `M2F_STEPS` steps, its validation (2 forwards), its
+    checkpoint, then the same command with `--epochs 2` resumes at epoch 1;
+    launches per step and per validation forward as `M2F_FP32_STEP` says,
+    img/s over the steps after the first, peak memory. 8n: `segment_m2f` at
+    its defaults (vit_small: the adapters' D = 48), one step. 8o:
+    `bench_m2f` at its defaults (ViT-L/14, bf16, batch 4, 2 warm-up steps
+    and 3 windows of 5: `M2F_BENCH_STEP` a step), then `--arch
+    vit_large_windowed --steps 1 --repeats 1` (3 steps,
+    `M2F_WINDOWED_STEP`)."""
+    from adaptersis_tpu_torch import bench_m2f, segment_m2f
+
+    work = ROOT / "build" / "smoke_m2f"
+    shutil.rmtree(work, ignore_errors=True)
+    trainer_cls = segment_m2f.M2FTrainer
+    plain_step, plain_eval, plain_sets = trainer_cls.step, trainer_cls.eval_step, \
+        segment_m2f.datasets
+    per = {"train": [], "eval": []}
+    steps = [M2F_STEPS]
+
+    def counted(kind, fn):
+        def wrap(self, *a, **kw):
+            before = counts()
+            out = fn(self, *a, **kw)
+            after = counts()
+            per[kind].append({k: after[k] - before[k] for k in after})
+            return out
+        return wrap
+
+    def first_batches(args):
+        train, val = plain_sets(args)
+        return FirstItems(train, steps[0] * args.batch_size_per_gpu), val
+
+    report, failures = {}, []
+
+    def run(name, argv, want, n_steps, resumed_from=0):
+        per["train"].clear()
+        per["eval"].clear()
+        t0 = time.perf_counter()
+        reset_counts()
+        hist = segment_m2f.main(argv)
+        r = {"argv": argv, "seconds": time.perf_counter() - t0,
+             "epochs": [h["epoch"] for h in hist], "steps": len(per["train"]),
+             "validation_forwards": len(per["eval"]),
+             "train_losses": [h["train_losses"] for h in hist],
+             "logged": [{k: v for k, v in h.items() if k not in ("train_losses",)}
+                        for h in hist],
+             "per_train_step": per["train"][:1], "per_validation_forward": per["eval"][:1],
+             "nvidia_smi": smi[0] if smi else "unavailable"}
+        report[name] = r
+        say("m2f_training", name=name, **r)
+        if r["epochs"] != [resumed_from] or r["steps"] != n_steps \
+                or r["validation_forwards"] != 2:
+            failures.append(f"{name}: epochs {r['epochs']}, {r['steps']} steps, "
+                            f"{r['validation_forwards']} validation forwards")
+        finite = all(math.isfinite(v) for h in hist for v in h["train_losses"]) and all(
+            math.isfinite(h[k]) for h in hist for k in ("val_dice", "val_acc1", "train_loss"))
+        if not finite:
+            failures.append(f"{name}: losses or metrics not finite: {r['logged']}")
+        if any(d != want for d in per["train"]):
+            failures.append(f"{name}: launches per train step {per['train']}, expected {want}")
+        if any(d != per_forward(want) for d in per["eval"]):
+            failures.append(f"{name}: launches per validation forward {per['eval']}")
+        return hist
+
+    trainer_cls.step = counted("train", plain_step)
+    trainer_cls.eval_step = counted("eval", plain_eval)
+    segment_m2f.datasets = first_batches
+    try:
+        out = work / "vit_large"
+        argv = ["--arch", "vit_large", "--imsize", "518", "--batch_size_per_gpu",
+                str(M2F_BATCH), "--synthetic", "--num_workers", "4", "--output_dir", str(out)]
+        run("segment_m2f vit_large fp32", argv + ["--epochs", "1"], M2F_FP32_STEP, M2F_STEPS)
+        ckpt = torch.load(out / "m2f_checkpoint.pth", map_location="cpu", weights_only=True)
+        if ckpt["epoch"] != 1:
+            failures.append(f"8m: the checkpoint holds epoch {ckpt['epoch']}")
+        run("segment_m2f vit_large fp32 resumed", argv + ["--epochs", "2"], M2F_FP32_STEP,
+            M2F_STEPS, resumed_from=1)
+        lines = (out / "log.txt").read_text().splitlines()
+        if [json.loads(x)["epoch"] for x in lines] != [0, 1]:
+            failures.append(f"8m: log.txt holds {lines}")
+        del ckpt
+        torch.cuda.empty_cache()
+        steps[0] = 1
+        run("segment_m2f defaults", ["--synthetic", "--epochs", "1", "--num_workers", "4",
+                                     "--output_dir", str(work / "defaults")], M2F_SMALL_STEP, 1)
+    finally:
+        trainer_cls.step, trainer_cls.eval_step = plain_step, plain_eval
+        segment_m2f.datasets = plain_sets
+    torch.cuda.empty_cache()
+    for name, argv, want, n in (("bench_m2f", [], M2F_BENCH_STEP, 2 + 3 * 5),
+                                ("bench_m2f windowed", ["--arch", "vit_large_windowed",
+                                                        "--steps", "1", "--repeats", "1"],
+                                 M2F_WINDOWED_STEP, 3)):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = bench_m2f.main(argv)
+        got = counts()
+        report[name] = {"result": res, "launches": got, "seconds": time.perf_counter() - t0,
+                        "per_step": {k: v / n for k, v in got.items()}}
+        say("entry_point", module=bench_m2f.__name__, argv=argv, **report[name])
+        if not all(math.isfinite(res[k]) for k in ("value", "ms_step", "peak_mem_gib", "loss")):
+            failures.append(f"{name}: values not finite: {res}")
+        if got != {k: v * n for k, v in want.items()}:
+            failures.append(f"{name}: launches {got} in {n} steps, expected {want} per step")
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        fail("8m-8o: " + "; ".join(failures))
+    return report
+
+
+def m2f_step_gate(counts, reset_counts, seed=0, faults=("heads moved",)) -> dict:
+    """Phase 8p: `bench_m2f`'s train step (ViT-L/14, 518 px, bf16, tanh
+    GELU, 100 queries, 9 decoder layers) at batch 2 from one seeded model
+    (every LayerScale γ ~ N(0, 0.1²)) on one seeded batch and one set of
+    random points, on phase 8e's sides (`seg_gate_sides`): the plain
+    versions of K1-K6, the kernels, the floor (plain, K4's and K5's sums in
+    float64: two correct implementations), and the planted `faults`. The
+    loss within `SSL_GATE_LOSS_BOUND` of the plain side's, each subtree's
+    gradients (adapter, pixel decoder, decoder layers, prediction heads)
+    within max(`SSL_GATE_BOUND`, 2 × floor) in normalised L2 distance and
+    max relative error; each fault must break a bound. bf16 noise can flip
+    a near-tied Hungarian match, which moves the loss by a jump: every side
+    is fed the plain side's assignments, and the output says how many of
+    its own pairs of a present segment would have differed (a padded slot's
+    query is a tie by construction: its cost column is constant). The
+    plain side's device LAPJV is held against scipy on the same costs
+    (the total cost within 1e-5)."""
+    import argparse
+
+    from adaptersis_tpu_torch.models import m2f_loss
+    from adaptersis_tpu_torch.ops.hungarian import lapjv
+    from adaptersis_tpu_torch.segment_m2f import M2FTrainer, build_model
+
+    t0 = time.perf_counter()
+    dev, B, S = torch.device("cuda"), M2F_GATE_BATCH, 518
+    args = argparse.Namespace(arch="vit_large", patch_size=14, num_classes=2, num_queries=100,
+                              feat_channels=256, num_decoder_layers=9, seed=seed,
+                              pretrained_weights="")
+    model = build_model(args, gelu_approx=True)
+    rng = np.random.default_rng(40 + seed)
+    with torch.no_grad():
+        for n_, p_ in model.backbone.named_parameters():
+            if n_.endswith(".gamma"):
+                p_.copy_(torch.from_numpy(0.1 * rng.standard_normal(p_.shape, np.float32)))
+    model = model.to(dev)
+    x01 = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), np.uint8)).to(dev).float() / 255
+    masks = torch.from_numpy((rng.uniform(size=(B, S, S)) > 0.8).astype(np.int32)).to(dev)
+    draws = m2f_loss.loss_draws(torch.Generator(dev).manual_seed(seed),
+                                args.num_decoder_layers + 1, B, args.num_classes)
+    sides = {k: v for k, v in seg_gate_sides().items()
+             if k in ("kernel", "plain", "floor") or k in faults}
+    order = ["plain"] + [k for k in sides if k != "plain"]
+    matcher, kept = {}, m2f_loss.lapjv
+    losses, grads, launches, flipped = {}, {}, {}, {}
+
+    def fed(cost):
+        own = lapjv(cost)
+        if "plain" not in matcher:
+            matcher["plain"] = own
+            # the device LAPJV against scipy on these costs (near ties
+            # included): the same total cost
+            from scipy.optimize import linear_sum_assignment
+            c = cost.double().cpu().numpy()
+            pairs = own.cpu().numpy()
+            for n_ in range(c.shape[0]):
+                r_, k_ = linear_sum_assignment(c[n_])
+                gap = c[n_][pairs[n_, 0], pairs[n_, 1]].sum() - c[n_][r_, k_].sum()
+                matcher["scipy_gap"] = max(matcher.get("scipy_gap", 0.0),
+                                           abs(gap) / max(1.0, abs(c[n_][r_, k_].sum())))
+        present = ~(cost == 1e6).all(1)                                 # (N, G)
+        differ = (own != matcher["plain"]).any(1) & present
+        flipped[side] = flipped.get(side, 0) + int(differ.sum())
+        return matcher["plain"]
+
+    for side in order:
+        trainer = M2FTrainer(copy.deepcopy(model), 2, bf16=True)
+        saved = [getattr(mod, name) for mod, name, _ in sides[side]]
+        reset_counts()
+        try:
+            for mod, name, fn in sides[side]:
+                setattr(mod, name, fn)
+            m2f_loss.lapjv = fed
+            loss, _ = trainer.loss(x01, masks, draws)
+            loss.backward()
+        finally:
+            for (mod, name, _), fn in zip(sides[side], saved):
+                setattr(mod, name, fn)
+            m2f_loss.lapjv = kept
+        launches[side] = counts()
+        losses[side] = float(loss.detach())
+        named = [(n_, p_) for n_, p_ in trainer.model.named_parameters() if p_.requires_grad]
+        grads[side] = {sub: torch.cat([(p_.grad if p_.grad is not None
+                                        else torch.zeros_like(p_)).double().flatten()
+                                       for n_, p_ in named if f(n_)])
+                       for sub, f in M2F_SUBTREES.items()}
+        del trainer, loss, named
+        torch.cuda.empty_cache()
+    measures = ("l2_dist", "max_rel")
+    report, shares = {}, {f: {} for f in faults}
+    for sub, g in grads["plain"].items():
+        r = grad_distance(grads["kernel"][sub], g)
+        floor = grad_distance(grads["floor"][sub], g)
+        r["floor"] = {k: floor[k] for k in measures}
+        r["bound"] = {k: max(SSL_GATE_BOUND, 2 * floor[k]) for k in measures}
+        report[sub] = r
+        for f in faults:
+            d = grad_distance(grads[f][sub], g)
+            shares[f][sub] = max(d[k] / r["bound"][k] for k in measures)
+    loss_err = {side: abs(v - losses["plain"]) / max(abs(losses["plain"]), 1e-30)
+                for side, v in losses.items() if side != "plain"}
+    out = {"losses": losses, "loss_rel_err": loss_err, "subtrees": report,
+           "faults_share_of_bound": shares, "launches": launches,
+           "own_assignments_differing_from_plain": flipped,
+           "fed_the_plain_assignment": True,
+           "lapjv_vs_scipy_total_cost_rel_gap": matcher["scipy_gap"]}
+    say("m2f_step_gate", arch="vit_large", imsize=S, batch=B, seed=seed, dtype="bf16",
+        seconds=time.perf_counter() - t0, bound=SSL_GATE_BOUND,
+        loss_bound=SSL_GATE_LOSS_BOUND, **out)
+    for side, got in launches.items():
+        want = {k: 0 for k in got} if side in ("plain", "floor") else M2F_BENCH_STEP
+        if got != want:
+            fail(f"m2f step gate: launches {got} on {side}, expected {want}")
+    dead = [sub for sub, r in report.items() if not r["norm_plain"] > 0]
+    if dead:
+        fail(f"m2f step gate: zero gradient on the plain side in {dead}")
+    if not matcher["scipy_gap"] <= 1e-5:       # fp32 costs summed over G = 2 pairs
+        fail(f"m2f step gate: the device LAPJV misses scipy's optimum by "
+             f"{matcher['scipy_gap']} of the total cost")
+    if not all(math.isfinite(loss_err[s_]) and loss_err[s_] <= SSL_GATE_LOSS_BOUND
+               for s_ in ("kernel", "floor")):
+        fail(f"m2f step gate: losses differ {losses}")
+    for f, sh in shares.items():
+        if not max(sh.values()) > 1:
+            fail(f"m2f step gate: the bounds pass {f}: {sh}")
+    for sub, r in report.items():
+        if not all(r[k] <= r["bound"][k] for k in measures):
+            fail(f"m2f step gate: {sub} gradients differ: {r}")
+    del model, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 8q: the DETR stack's deformable decoder (M12's last module) on the
+# card: 6 layers at C 256 in 8 heads (K1 and K2 at D = 32 over 4 levels),
+# 100 queries on a 64², 31², 16², 8² pyramid, batch 2, fp32
+DETR_LEVELS = [(64, 64), (31, 31), (16, 16), (8, 8)]
+
+
+def detr_decoder_check(counts, reset_counts) -> dict:
+    """Phase 8q: `models/detr.py:DeformableDetrTransformerDecoder` with a
+    refinement branch, seeded (every parameter drawn by `seeded_init_`),
+    fp32 with TF32 off, on the card twice: with K1 and K2, and with the
+    plain MSDA patched into `ops.ms_deform_attn` (everything else the same
+    card ops, so both sides sample at the same fp32 locations; against the
+    CPU a point within rounding of a pixel edge takes the other side's
+    location gradient). Every layer's output and points within 1e-5 of
+    their scale, every parameter's gradient of a seeded linear loss within
+    1e-4 of its leaf's largest (at least 1e-3 of the largest of all: a
+    leaf whose gradient vanishes analytically, the self-attention's key
+    bias, holds rounding noise); 6 K1 and 6 K2 launches, none on the plain
+    side."""
+    from adaptersis_tpu_torch.models.detr import DeformableDetrTransformerDecoder
+    from adaptersis_tpu_torch.ops import ms_deform_attn, msda_cuda as mc
+    from adaptersis_tpu_torch.ops._build import plain
+    from adaptersis_tpu_torch.train.convert import seeded_init_
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    C, nq, B, L = 256, 100, 2, len(DETR_LEVELS)
+    S = sum(h * w for h, w in DETR_LEVELS)
+    dec = seeded_init_(DeformableDetrTransformerDecoder(C, 6, 8, 1024, 4, L), seed=5).to(dev)
+    # the refinement moves each point by a small delta per layer, as a
+    # trained branch does: with the seeded N(0, 1/C) weights the six-layer
+    # loop amplifies fp32 rounding ≈ 7× a layer (measured on the card), so
+    # the branch's weights are scaled by 0.1
+    reg = seeded_init_(torch.nn.Linear(C, 2), seed=6).to(dev)
+    with torch.no_grad():
+        reg.weight.mul_(0.1)
+    g = torch.Generator().manual_seed(7)
+    q, qpos = torch.randn(B, nq, C, generator=g), torch.randn(B, nq, C, generator=g)
+    mem = torch.randn(B, S, C, generator=g)
+    refs = (0.1 + 0.8 * torch.rand(B, nq, 1, 2, generator=g)).expand(B, nq, L, 2).contiguous()
+    w_out = torch.randn(6, B, nq, C, generator=g)
+    args = [t.to(dev) for t in (q, mem, refs)]
+    res, core = {}, ms_deform_attn.msda_fwd
+    for side in ("kernel", "plain"):
+        d = copy.deepcopy(dec)
+        reset_counts()
+        try:
+            if side == "plain":
+                ms_deform_attn.msda_fwd = plain(mc.msda_plain)
+            out, pts = d(*args, DETR_LEVELS, qpos.to(dev), reg_branch=reg)
+            (out * w_out.to(dev)).sum().backward()
+        finally:
+            ms_deform_attn.msda_fwd = core
+        res[side] = {"out": out.detach(), "pts": pts, "launches": counts(),
+                     "grads": {n_: p_.grad for n_, p_ in d.named_parameters()}}
+    ker, ref = res["kernel"], res["plain"]
+    err = {k: ((ker[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1.0)).item()
+           for k in ("out", "pts")}
+    top = max(gr.abs().max().item() for gr in ref["grads"].values())
+    rel = {n_: (ker["grads"][n_] - gr).abs().max().item() / max(gr.abs().max().item(),
+                                                                1e-3 * top)
+           for n_, gr in ref["grads"].items()}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    report = {"rel_err": err, "grad_worst": worst, "launches": ker["launches"],
+              "plain_launches": ref["launches"], "levels": DETR_LEVELS, "queries": nq,
+              "seconds": time.perf_counter() - t0}
+    say("detr_decoder_check", **report)
+    want = {k: 0 for k in ker["launches"]}
+    if ref["launches"] != want:
+        fail(f"detr decoder: launches on the plain side {ref['launches']}")
+    want.update(msda_fwd=6, msda_bwd=6)
+    if ker["launches"] != want:
+        fail(f"detr decoder: launches {ker['launches']}, expected {want}")
+    if not all(e <= 1e-5 for e in err.values()):
+        fail(f"detr decoder: K1/K2 outputs differ from the plain MSDA's: {err}")
+    if not worst[0][1] <= 1e-4:
+        fail(f"detr decoder: gradients differ, worst (name, share of scale): {worst}")
+    return report
+
+
 def narrow_model():
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
     from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
@@ -2665,17 +3118,26 @@ def main() -> None:
     # ---- 2c. K3 at ViT-g/14's 24 heads
     vitg_err = {"flash_fwd": check_k3(ff, G_FLASH_SHAPES)}
 
+    # ---- 2d. K3 at the m2f walk's 1370 tokens (M12)
+    m2f_err = {"flash_fwd": check_k3(ff, M2F_FLASH_SHAPES)}
+
     # ---- 3. K1 (deformable attention forward) vs its plain version, per
     # element (`check_msda_fwd`)
     msda_err = check_msda_fwd(mc)
     # 3b. at ViT-g/14's adapters: D = 192, bf16 and fp32
     vitg_err["msda_fwd"] = check_msda_fwd(mc, G_MSDA_CASES, G_MSDA_POINTS)
+    # 3c. at the m2f geometries (M12): the pixel decoder's D = 32 over 3
+    # levels with Lq = S = 5313, ViTAdapter's injector and extractor at 518
+    # px (D = 128, and 48 under vit_small), bf16 and fp32, batch 2
+    m2f_err["msda_fwd"] = check_msda_fwd(mc, m2f_msda_cases(FULL_BATCH), M2F_MSDA_POINTS)
 
     # ---- 4. K2 (deformable attention backward) vs the plain version's
     # autograd, per element (`check_msda_bwd`)
     bwd_err = check_msda_bwd(mc)
     # 4a. at ViT-g/14's adapters: D = 192 (K2's two-pass sum), bf16 and fp32
     vitg_err["msda_bwd"] = check_msda_bwd(mc, G_MSDA_CASES, G_MSDA_POINTS)
+    # 4f. at the m2f geometries (M12)
+    m2f_err["msda_bwd"] = check_msda_bwd(mc, m2f_msda_cases(FULL_BATCH), M2F_MSDA_POINTS)
 
     # ---- 4b. K6, K4 and K5 vs their plain versions on the same inputs, on
     # the card; in bf16 the (n,) parameters are bf16 (as the frozen
@@ -2696,6 +3158,8 @@ def main() -> None:
     # 3 heads
     vitg_err["rows"] = check_row_kernels(ln, fq, fm, G_ROW_SHAPES, G_HEADS, k5=False)
     vitg_err["vit_tiny rows"] = check_row_kernels(ln, fq, fm, TINY_ROW_SHAPES, TINY_HEADS)
+    # the m2f walk's 1370 rows (M12)
+    m2f_err["rows"] = check_row_kernels(ln, fq, fm, M2F_ROW_SHAPES, HEADS)
     torch.cuda.empty_cache()
 
     # ---- 4c. K7 (flash attention with segment ids) vs its plain version
@@ -3123,13 +3587,24 @@ def main() -> None:
     # ---- 8l. the attention-map tool on the card (`attention_map_run`)
     attention_map_run(counts, reset_counts, smi)
 
+    # ---- 8m-8o. segment_m2f and bench_m2f at ViT-L/14 width (`m2f_entry_runs`)
+    m2f_run = m2f_entry_runs(counts, reset_counts, smi)
+
+    # ---- 8p. the m2f train step, K1-K5 against their plain versions
+    # (`m2f_step_gate`)
+    m2f_step_gate(counts, reset_counts)
+
+    # ---- 8q. the DETR stack's deformable decoder, K1/K2 against the plain
+    # MSDA on the card (`detr_decoder_check`)
+    detr_decoder_check(counts, reset_counts)
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
     say_times(name, smi, times, bounds, extra, dev, host)
     say("variant_geometries", k3_unet_fuse_max_abs_err=fuse_k3_err,
         k7_setr_ete_max_abs_err=ete_k7_err, vitg_and_vit_tiny_max_abs_err=vitg_err,
-        device=name, nvidia_smi=smi[0] if smi else "unavailable")
+        m2f_max_abs_err=m2f_err, device=name, nvidia_smi=smi[0] if smi else "unavailable")
 
     def on_path(key, prefix):
         return (key.startswith(prefix) and f"B={TRAIN_BATCH}" in key
@@ -3205,6 +3680,17 @@ def main() -> None:
                 "device_ms": sum(dev[k][0] for k in keys) / len(keys), "keys": keys}
         row["launches_vitg_step"] = (vitg_ssl["launches"][kname] // 2
                                      if kname.startswith("flash_attn") else vitg_step[kname])
+        # M12: each timed key of phase 9 at the m2f shapes (batch 4) and the
+        # launches per step of bench_m2f (bf16) and segment_m2f (fp32)
+        row["m2f_shapes"] = {
+            k: {"ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": times[k][2], "device_ms": dev[k][0],
+                **{e: extra[k][e] for e in ("l2_tb_per_s", "tflops_device")
+                   if e in extra.get(k, {})}}
+            for k in times if k.startswith("m2f ") and kname in k.split()}
+        row["launches_m2f_step"] = {
+            "bench_m2f": m2f_run["bench_m2f"]["per_step"][kname],
+            "segment_m2f": m2f_run["segment_m2f vit_large fp32"]["per_train_step"][0][kname]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -241,10 +241,11 @@ def _flax_shapes(arch):
 
 
 @pytest.mark.parametrize("arch", ["vit_giant2", "vit_tiny", "vit_tiny_v1", "vit_small_v1",
-                                  "vit_base_v1"])
+                                  "vit_base_v1", "vit_small_windowed", "vit_large_windowed"])
 def test_factories_on_the_meta_device(arch):
-    """Names and shapes of every new factory equal the JAX factory's, and
-    the v1 backbones have no LayerScale."""
+    """Names and shapes of every new factory equal the JAX factory's, the
+    v1 backbones have no LayerScale, and the windowed ones window every
+    block but the last of each quarter."""
     with torch.device("meta"):      # shapes and names only, no weights
         vit = build_backbone(arch, img_size=518, patch_size=14)
     got = {k: tuple(v.shape) for k, v in vit.state_dict().items()}
@@ -252,6 +253,9 @@ def test_factories_on_the_meta_device(arch):
     assert got == want
     assert isinstance(vit, DinoV1VisionTransformer) == arch.endswith("_v1")
     assert ("blocks.0.ls1.gamma" in got) == (not arch.endswith("_v1"))
+    windowed = [blk.windowed for blk in vit.blocks]
+    assert windowed == ([(i + 1) % (len(windowed) // 4) != 0 for i in range(len(windowed))]
+                        if arch.endswith("_windowed") else [False] * len(windowed))
     if arch == "vit_giant2":
         assert len(vit.blocks) == 40 and vit.blocks[0].attn.num_heads == 24
         assert got["blocks.39.mlp.w12.weight"] == (8192, 1536)
@@ -259,11 +263,15 @@ def test_factories_on_the_meta_device(arch):
 
 
 def test_archs_cover_the_jax_package_but_the_windowed_ones():
-    assert set(ARCHS) == {a for a in JAX_ARCHS if not a.endswith("_windowed")}
+    """Since the Mask2Former slice the windowed ones are covered too."""
+    assert set(ARCHS) == set(JAX_ARCHS)
     assert set(WINDOWED) == {a for a in JAX_ARCHS if a.endswith("_windowed")}
     for arch in WINDOWED:
-        with pytest.raises(ValueError, match="M12"):
-            build_backbone(arch)
+        with torch.device("meta"):
+            vit = build_backbone(arch)
+        assert any(blk.windowed for blk in vit.blocks)
+    with pytest.raises(ValueError, match="unknown arch"):
+        build_backbone("vit_huge")
     with pytest.raises(ValueError, match="unknown ffn_layer"):
         Block(64, 2, ffn_layer="swiglu")
 

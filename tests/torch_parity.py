@@ -166,3 +166,37 @@ def dinov2_state_dict(vit: dict, seed: int = 0) -> dict:
             a = 0.1 * rng.standard_normal(shape)
         out[name] = torch.from_numpy(a.astype(np.float32))
     return out
+
+
+def m2f_layer_draws(key, batch: int, segments: int, num_points: int = 256) -> dict:
+    """The JAX package's random points of one `m2f_layer_loss(..., rng=key)`
+    as the port's draws: the matching's points from the key's first half,
+    the oversampled and the random points from the second's two halves."""
+    k1, k2 = jax.random.split(key)
+    ka, kb = jax.random.split(k2)
+    n_over, n_imp = int(num_points * 3.0), int(num_points * 0.75)
+    u = jax.random.uniform
+    return {"match": u(k1, (batch, num_points, 2)),
+            "over": u(ka, (batch * segments, n_over, 2)),
+            "rand": u(kb, (batch * segments, num_points - n_imp, 2))}
+
+
+def m2f_total_draws(key, layers: int, batch: int, segments: int, num_points: int = 256) -> dict:
+    """The draws of `m2f_total_loss(..., rng=key)` over `layers`
+    predictions, stacked as the port's `loss_draws` gives them, in the JAX
+    draws' float type (fp64 under x64)."""
+    per = []
+    for _ in range(layers):
+        key, k = jax.random.split(key)
+        per.append(m2f_layer_draws(k, batch, segments, num_points))
+    return {name: torch.from_numpy(np.stack([np.asarray(d[name]) for d in per]))
+            for name in per[0]}
+
+
+def with_backbone_norm(params: dict, dim: int) -> dict:
+    """flax `params` whose `backbone` subtree gains the final LayerNorm
+    (scale 1, bias 0) that the port's ViT holds and the JAX ViTAdapter
+    never reads, so that no flax leaf exists for it."""
+    bb = dict(params["backbone"])
+    bb["norm"] = {"scale": np.ones(dim, np.float32), "bias": np.zeros(dim, np.float32)}
+    return {**params, "backbone": bb}
