@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through a
-// tensor map, wgmma products with shared-memory descriptors, register
-// fences and setmaxnreg; on the host, the tensor-map encoders and the
-// per-card launch cache. Written against the PTX ISA directly, so the
+// tensor map, wgmma products with shared-memory descriptors (bf16, and tf32
+// with the split of an fp32 operand into two tf32 values), register fences
+// and setmaxnreg; on the host, the tensor-map encoders and the per-card
+// launch cache. Written against the PTX ISA directly, so the
 // kernels need no CUTLASS.
 
 #pragma once
@@ -257,6 +258,93 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// ---- tf32 wgmma: the fp32 paths' 3×TF32 products -------------------------
+//
+// A tf32 wgmma reads the top 19 bits of each fp32 operand (sign, exponent,
+// 10 mantissa bits) and ignores the low 13, so a raw fp32 operand would be
+// truncated to 11 significant bits: a product error of ≈ 2⁻¹¹. The fp32
+// paths split every operand x = hi + lo explicitly (`tf32_split`: hi =
+// cvt.rna(x), lo = cvt.rna(x − hi), each a tf32 value) and accumulate
+// lo·hi + hi·lo + hi·hi in fp32 (3×TF32): what is dropped, lo·lo and lo's own
+// rounding, is ≈ 2⁻²² of each product. The accumulation itself truncates
+// (rounds toward zero) at every step on the tensor cores, so the kernels
+// keep each chain of wgmmas short and sum the chains in fp32 registers
+// with round-to-nearest adds. For
+// 32-bit operands wgmma has no transpose bits: B must be K-major in shared
+// memory (rows along N, K contiguous); a k8 step is 32 bytes of such a row,
+// the same descriptor arithmetic as bf16's k16 (`sw128_desc` + 2 per step).
+// A comes from registers: the mma.sync tf32 A fragment of each warp's 16
+// rows, a[0] = (r, c), a[1] = (r + 8, c), a[2] = (r, c + 4), a[3] = (r + 8,
+// c + 4) with r = lane / 4, c = lane % 4.
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ≈ 2⁻²² of |x|; both as tf32 bit patterns.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma's operand reads), before the barrier that hands them over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64×128, fp32) = or += a (64×8 tf32, registers) · b (128×8 tf32, K-major,
+// shared)ᵀ; d's layout is wgmma_m64n128k16_ss's.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64×64, fp32) = or += a (64×8 tf32, registers) · b (64×8 tf32, K-major,
+// shared)ᵀ; d's layout is wgmma_m64n128k16_ss's with 8 column groups.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+
 // ---- named barriers ----------------------------------------------------
 
 // Barrier `id` (1..15; 0 is __syncthreads) completes when `threads` threads
@@ -335,6 +423,38 @@ inline bool mat_map(CUtensorMap* map, const void* ptr, int rows, int cols, int b
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major (rows, cols) float32 matrix, cols a multiple of 32, as boxes
+// of `box_rows` rows × 32 columns (128 bytes, one swizzle atom) at column
+// offsets that are multiples of 32; rows past the end read as zeros.
+inline bool mat_map_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const auto encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (B·H, N, 64) float32 tensor as boxes of `rows` × 32 (one half of the
+// head width, 128 bytes, swizzled in 128-byte atoms); rows past a head's N
+// read as zeros.
+inline bool head_map_f32(CUtensorMap* map, const void* ptr, int BH, int N, int rows) {
+  const auto encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {64 * 4, static_cast<cuuint64_t>(N) * 64 * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -1,5 +1,5 @@
-// Row LayerNorm (K6) and the row statistics the LayerNorm-prologue GEMMs
-// (K4, K5: ln_gemm.cu) read.
+// Row LayerNorm (K6), also the LayerNorm pass before the GEMMs of K4 and K5
+// (ln_gemm.cu).
 //
 // Replaces: adaptersis_tpu/ops/layernorm.py `_ln_kernel` (via `_ln_fwd_impl`),
 // the Pallas kernel behind ln_impl="pallas": y = (x − mean)·(rstd·w) + b
@@ -15,11 +15,6 @@
 // time count, so each lane issues all its loads before the first sum),
 // statistics from those registers and warp shuffles, then normalise and
 // store without reading the row again; nothing written but y.
-//
-// The statistics kernel is the same load and sums, writing (mean, rstd) as
-// two fp32 per row: K4 and K5 normalise their A tiles with them while
-// loading. Both sum in the same order as before the row was held in
-// registers, so the statistics are bit-equal to the two-pass version's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,18 +57,6 @@ layernorm_kernel(const T* __restrict__ x, const void* __restrict__ w,
   }
 }
 
-template <typename T, int NV>
-__global__ void __launch_bounds__(kWarps * 32)
-row_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int R, int C, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= R) return;
-  float v[NV][asis::Vec<T>::n];
-  asis::load_row<T, NV>(x + static_cast<size_t>(row) * C, C, lane, v);
-  const float2 st = asis::row_stats<T, NV>(v, C, eps, lane);
-  if (lane == 0) stats[row] = st;
-}
-
 // Calls launch(std::integral_constant<int, NV>) with the smallest built NV
 // that holds `vectors` per lane.
 template <typename F>
@@ -102,16 +85,6 @@ int launch_layernorm(const void* x, const void* w, const void* b, bool pbf, void
   });
 }
 
-template <typename T>
-int launch_row_stats(const void* x, void* stats, int R, int C, float eps, cudaStream_t s) {
-  const dim3 grid((R + kWarps - 1) / kWarps);
-  return with_vectors(vectors_per_lane<T>(C), [&](auto nv) {
-    row_stats_kernel<T, decltype(nv)::value><<<grid, kWarps * 32, 0, s>>>(
-        static_cast<const T*>(x), static_cast<float2*>(stats), R, C, eps);
-    return static_cast<int>(cudaGetLastError());
-  });
-}
-
 bool bad_shape(int R, int C, int vec) { return R <= 0 || C <= 0 || C % vec != 0; }
 
 }  // namespace
@@ -129,15 +102,6 @@ int asis_layernorm(const void* x, const void* w, const void* b, void* y, int R, 
   const bool pbf = params_bf16 != 0;
   return is_bf16 ? launch_layernorm<__nv_bfloat16>(x, w, b, pbf, y, R, C, eps, s)
                  : launch_layernorm<float>(x, w, b, pbf, y, R, C, eps, s);
-}
-
-// x: contiguous (R, C) as above; stats: (R, 2) float32, (mean, rstd) per row.
-int asis_row_stats(const void* x, void* stats, int R, int C, float eps, int is_bf16,
-                   void* stream) {
-  if (bad_shape(R, C, 8)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_row_stats<__nv_bfloat16>(x, stats, R, C, eps, s)
-                 : launch_row_stats<float>(x, stats, R, C, eps, s);
 }
 
 }  // extern "C"

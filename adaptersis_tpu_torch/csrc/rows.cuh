@@ -1,7 +1,7 @@
-// Row helpers shared by the LayerNorm kernels (layernorm.cu) and the
-// LayerNorm-prologue GEMMs (ln_gemm.cu): 16-byte vector loads and stores of
-// bf16 or fp32 rows as fp32 registers, and the per-row statistics of the
-// TPU kernels (fp32 sums, fast variance E[x²] − E[x]²).
+// Row helpers shared by the LayerNorm kernel (layernorm.cu) and the GEMMs'
+// epilogues (ln_gemm.cu): 16-byte vector loads and stores of bf16 or fp32
+// rows as fp32 registers, parameters read as stored, and the per-row
+// statistics of the TPU kernels (fp32 sums, fast variance E[x²] − E[x]²).
 
 #pragma once
 

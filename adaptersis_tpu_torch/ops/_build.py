@@ -94,7 +94,8 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.asis_flash_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, p]
+    lib.asis_flash_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i,
+                                   ctypes.POINTER(i), p]
     lib.asis_flash_fwd.restype = i
     lib.asis_flash_attn_fwd.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, i, p]
     lib.asis_flash_attn_fwd.restype = i
@@ -110,9 +111,7 @@ def library() -> ctypes.CDLL:
     lib.asis_msda_bwd_workspace.restype = ctypes.c_size_t
     lib.asis_layernorm.argtypes = [p, p, p, p, i, i, ctypes.c_float, i, i, p]
     lib.asis_layernorm.restype = i
-    lib.asis_row_stats.argtypes = [p, p, i, i, ctypes.c_float, i, p]
-    lib.asis_row_stats.restype = i
-    lib.asis_ln_gemm.argtypes = [i, p, p, p, p, p, p, i, i, i, p, p, p, p, p, i, i, i, i, i, p]
+    lib.asis_ln_gemm.argtypes = [i, p, p, p, i, i, i, p, p, p, p, p, i, i, i, i, i, p, p]
     lib.asis_ln_gemm.restype = i
     lib.asis_error_string.argtypes = [i]
     lib.asis_error_string.restype = ctypes.c_char_p
@@ -199,6 +198,14 @@ def params(name: str, x: torch.Tensor,
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: the parameters must be 16-byte aligned")
     return ts, int(ts[0].dtype == torch.bfloat16)
+
+
+def gemm_workspace(x: torch.Tensor, n: int):
+    """The fp32 GEMMs' scratch for the tf32 halves of an n-element weight
+    (`csrc/ln_gemm.cu`: 2·n fp32 on x's card), or None in bf16."""
+    if x.dtype == torch.bfloat16:
+        return None
+    return torch.empty(2 * n, dtype=torch.float32, device=x.device)
 
 
 def mat(t: torch.Tensor, shape, name: str, x: torch.Tensor) -> torch.Tensor:

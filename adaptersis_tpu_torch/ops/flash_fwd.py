@@ -1,7 +1,10 @@
 """Forward-only attention for the frozen ViT walks: softmax(q·kᵀ·scale)·v.
 
-`flash_fwd` launches the hand-written CUDA kernel (`csrc/flash_fwd.cu`) on a
-CUDA tensor and runs `flash_fwd_plain` on a CPU tensor. Every key is real:
+`flash_fwd` launches the hand-written CUDA kernels (`csrc/flash_fwd.cu`) on
+a CUDA tensor and runs `flash_fwd_plain` on a CPU tensor. A head width of 64
+(every walk of the port) runs on the tensor cores, bf16 in one pass and
+fp32 in three TF32 passes that keep fp32 accuracy (`ops/tf32.py`); Dh 16
+and 32 run on the CUDA cores. Every key is real:
 the port runs each walk at its true length (1765 tokens with cls, 1764
 without), so there is no padding and no validity mask.
 
@@ -12,12 +15,21 @@ rather than cut the gradient silently.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
-# Kernel launches since the last reset; chip_smoke.py reads it.
+# The kernels `asis_flash_fwd` launches, in the order of its FlashKernel
+# codes: "wgmma" (bf16, Dh 64), "tf32x3" (fp32, Dh 64), "cuda_cores" (Dh 16,
+# 32).
+KERNELS = ("wgmma", "tf32x3", "cuda_cores")
+
+# Kernel launches since the last reset, in all and by the kernel the
+# launcher reports; chip_smoke.py reads and zeroes them.
 launches = 0
+path_launches = dict.fromkeys(KERNELS, 0)
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,7 +55,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_fwd: head width must be 16, 32 or 64, got {Dh}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flash_fwd: dtype must be bf16 or fp32, got {q.dtype}")
-    if not scale > 0:  # the bf16 kernel takes the row max of the unscaled scores
+    if not scale > 0:  # the Dh 64 kernels take the row max of the unscaled scores
         raise ValueError(f"flash_fwd: scale must be positive, got {scale}")
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -55,10 +67,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_fwd: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _build.library()
+    kernel = ctypes.c_int(-1)
     err = _build.launch(q, lib.asis_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), B * H, N, Dh, float(scale),
-                        int(q.dtype == torch.bfloat16))
+                        int(q.dtype == torch.bfloat16), ctypes.byref(kernel))
     _build.check(lib, err, "flash_fwd")
     global launches
     launches += 1
+    path_launches[KERNELS[kernel.value]] += 1
     return out

@@ -2,11 +2,11 @@
 frozen ViT block's MLP half.
 
 `fused_ln_mlp` launches the hand-written CUDA kernels on a CUDA tensor
-(`csrc/layernorm.cu`'s LayerNorm in bf16, or its row statistics in fp32,
-then two GEMMs of `csrc/ln_gemm.cu`: fc1 with a bias + tanh-GELU epilogue,
-and in fp32 the LayerNorm prologue, fc2 with a bias + LayerScale + residual
-epilogue) and runs `fused_ln_mlp_plain` on a CPU tensor. Both compute the
-JAX package's `_kernel` of `ops/fused_mlp.py`:
+(`csrc/layernorm.cu`'s LayerNorm, then two GEMMs of `csrc/ln_gemm.cu`: fc1
+with a bias + tanh-GELU epilogue, fc2 with a bias + LayerScale + residual
+epilogue; bf16 in one pass on the tensor cores, fp32 in three TF32 passes
+that keep fp32 accuracy, `ops/tf32.py`) and runs `fused_ln_mlp_plain` on a
+CPU tensor. Both compute the JAX package's `_kernel` of `ops/fused_mlp.py`:
 xn = LN(x) rounded to x's dtype; h = gelu_tanh(xn·W1ᵀ + b1) in fp32,
 rounded once; y = h·W2ᵀ + b2 in fp32; out = (x + γ·y) in fp32, rounded to
 x's dtype. The TPU kernel kept the hidden in VMEM; here it makes one round
@@ -23,11 +23,11 @@ import math
 import torch
 
 from . import _build
-from ._build import check_rows, launch, mat, params, plain
-from .layernorm import ln_input, ln_rows
+from ._build import check_rows, gemm_workspace, launch, mat, params, plain
+from .layernorm import ln_pass, ln_rows
 
-# Kernel launches since the last reset (one per call: the LayerNorm pass or
-# the statistics, fc1, fc2); chip_smoke.py reads it.
+# Kernel launches since the last reset (one per call: the LayerNorm pass,
+# fc1, fc2); chip_smoke.py reads it.
 launches = 0
 
 GELU, RESID = 1, 2  # asis_ln_gemm's epilogues
@@ -71,17 +71,17 @@ def fused_ln_mlp(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w1: to
                                         ("b1", b1, Hd), ("b2", b2, C), ("gamma", gamma, C))
     hidden = x.new_empty((R, Hd))
     out = torch.empty_like(x)
-    bf16 = int(x.dtype == torch.bfloat16)
+    bf16 = x.dtype == torch.bfloat16
+    ws = gemm_workspace(x, Hd * C)  # fc1's, then fc2's (stream order)
+    wsp = None if ws is None else ws.data_ptr()
     lib = _build.library()
-    a, stats = ln_input(x2, lw, lb, pbf, eps)
-    err = launch(x, lib.asis_ln_gemm, GELU, a.data_ptr(),
-                 None if stats is None else stats.data_ptr(), lw.data_ptr(), lb.data_ptr(),
-                 w1d.data_ptr(), b1d.data_ptr(), R, Hd, C, hidden.data_ptr(), None, None, None,
-                 None, 0, 0, 0, bf16, pbf)
+    a = ln_pass(x2, lw, lb, pbf, eps)
+    err = launch(x, lib.asis_ln_gemm, GELU, a.data_ptr(), w1d.data_ptr(), b1d.data_ptr(), R, Hd,
+                 C, hidden.data_ptr(), None, None, None, None, 0, 0, 0, int(bf16), pbf, wsp)
     _build.check(lib, err, "fused_ln_mlp fc1")
-    err = launch(x, lib.asis_ln_gemm, RESID, hidden.data_ptr(), None, None, None,
-                 w2d.data_ptr(), b2d.data_ptr(), R, C, Hd, out.data_ptr(), None, None,
-                 x2.data_ptr(), g.data_ptr(), 0, 0, 0, bf16, pbf)
+    err = launch(x, lib.asis_ln_gemm, RESID, hidden.data_ptr(), w2d.data_ptr(), b2d.data_ptr(),
+                 R, C, Hd, out.data_ptr(), None, None, x2.data_ptr(), g.data_ptr(), 0, 0, 0,
+                 int(bf16), pbf, wsp)
     _build.check(lib, err, "fused_ln_mlp fc2")
     global launches
     launches += 1

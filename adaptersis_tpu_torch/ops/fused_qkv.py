@@ -2,8 +2,9 @@
 block's attention half.
 
 `fused_ln_qkv` launches the hand-written CUDA kernels (`csrc/layernorm.cu`
-for xn in bf16, or the row statistics in fp32, then `csrc/ln_gemm.cu`) on
-a CUDA tensor and runs `fused_ln_qkv_plain` on a CPU tensor. Both compute
+for xn, then `csrc/ln_gemm.cu`'s GEMM: bf16 in one pass on the tensor
+cores, fp32 in three TF32 passes that keep fp32 accuracy, `ops/tf32.py`)
+on a CUDA tensor and runs `fused_ln_qkv_plain` on a CPU tensor. Both compute
 the JAX package's `_kernel` of `ops/fused_qkv.py`: xn = LN(x) in fp32
 rounded to x's dtype, y = xn·Wᵀ accumulated in fp32, plus the fp32 bias,
 rounded once to x's dtype (not twice, as its `reference_ln_qkv` does), and
@@ -20,8 +21,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from ._build import check_rows, launch, mat, params, plain
-from .layernorm import ln_input, ln_rows
+from ._build import check_rows, gemm_workspace, launch, mat, params, plain
+from .layernorm import ln_pass, ln_rows
 
 # Kernel launches since the last reset; chip_smoke.py reads it.
 launches = 0
@@ -60,12 +61,13 @@ def fused_ln_qkv(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, w: tor
     (lw, lb, bias), pbf = params("fused_ln_qkv", x, ("ln_w", ln_w, C), ("ln_b", ln_b, C),
                                  ("b", b, 3 * C))
     q, k, v = (x.new_empty((B, num_heads, N, Dh)) for _ in range(3))
+    bf16 = x.dtype == torch.bfloat16
+    ws = gemm_workspace(x, 3 * C * C)
     lib = _build.library()
-    a, stats = ln_input(x.view(B * N, C), lw, lb, pbf, eps)
-    err = launch(x, lib.asis_ln_gemm, QKV, a.data_ptr(),
-                 None if stats is None else stats.data_ptr(), lw.data_ptr(), lb.data_ptr(),
-                 wd.data_ptr(), bias.data_ptr(), B * N, 3 * C, C, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), None, None, N, num_heads, Dh, int(x.dtype == torch.bfloat16), pbf)
+    a = ln_pass(x.view(B * N, C), lw, lb, pbf, eps)
+    err = launch(x, lib.asis_ln_gemm, QKV, a.data_ptr(), wd.data_ptr(), bias.data_ptr(), B * N,
+                 3 * C, C, q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, N, num_heads,
+                 Dh, int(bf16), pbf, None if ws is None else ws.data_ptr())
     _build.check(lib, err, "fused_ln_qkv")
     global launches
     launches += 1

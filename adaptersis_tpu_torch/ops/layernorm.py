@@ -1,4 +1,4 @@
-"""Row LayerNorm (K6) and its row-statistics pass.
+"""Row LayerNorm (K6), also the LayerNorm pass before K4's and K5's GEMMs.
 
 `layernorm` launches the hand-written CUDA kernel (`csrc/layernorm.cu`) on a
 CUDA tensor and runs `layernorm_plain` on a CPU tensor. Both compute the JAX
@@ -9,9 +9,7 @@ var = E[x²] − E[x]² (flax's, not torch's two-pass form), then
 Forward only, like the JAX kernel on the frozen walks: a call that would need
 a gradient raises on either device rather than cut the gradient silently.
 K4 and K5 (`ops/fused_qkv.py`, `ops/fused_mlp.py`) take their GEMM's input
-from `ln_input`: in bf16 the LayerNorm kernel's xn, in fp32 x with the
-statistics of `row_stats`, the same first pass alone, which their fp32 GEMM
-normalises its A tiles with.
+from the same kernel (`ln_pass`), in both dtypes.
 """
 
 from __future__ import annotations
@@ -40,22 +38,11 @@ def layernorm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return ln_rows(x, w, b, eps).to(x.dtype)
 
 
-def row_stats(x2: torch.Tensor, eps: float) -> torch.Tensor:
-    """(R, 2) fp32 (mean, rstd) of the rows of a checked (R, C) CUDA tensor."""
-    R, C = x2.shape
-    stats = torch.empty((R, 2), dtype=torch.float32, device=x2.device)
-    lib = _build.library()
-    err = launch(x2, lib.asis_row_stats, x2.data_ptr(), stats.data_ptr(), R, C, float(eps),
-                 int(x2.dtype == torch.bfloat16))
-    _build.check(lib, err, "row_stats")
-    return stats
-
-
 def ln_pass(x2: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, pbf: int,
             eps: float) -> torch.Tensor:
     """The LayerNorm kernel on a checked (R, C) CUDA tensor with parameters
-    from `params`: K4's and K5's bf16 normalised input. Not counted as a
-    launch of K6: it is part of theirs."""
+    from `params`: K4's and K5's normalised input. Not counted as a launch
+    of K6: it is part of theirs."""
     R, C = x2.shape
     out = torch.empty_like(x2)
     lib = _build.library()
@@ -63,16 +50,6 @@ def ln_pass(x2: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, pbf: int,
                  out.data_ptr(), R, C, float(eps), int(x2.dtype == torch.bfloat16), pbf)
     _build.check(lib, err, "layernorm")
     return out
-
-
-def ln_input(x2: torch.Tensor, wd: torch.Tensor, bd: torch.Tensor, pbf: int, eps: float):
-    """The A operand and row statistics of K4's and fc1's GEMM: in bf16 xn
-    from `ln_pass` and no statistics (its GEMM has no prologue), in fp32 x
-    and the row statistics its prologue reads. Returns (A, statistics or
-    None)."""
-    if x2.dtype == torch.bfloat16:
-        return ln_pass(x2, wd, bd, pbf, eps), None
-    return x2, row_stats(x2, eps)
 
 
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -11,9 +11,11 @@ seconds since the start):
   2. K3 forward-only attention vs flash_fwd_plain, bf16 and fp32, H=16
      Dh=64, N = 1765 and 1764 (the clean and the adapter walk), at batch 2
      (the serving path's) and 16 (the training path's), each element
-     within a bound from its own terms (`k3_allowance`); in bf16 five
-     repeated calls must give the same bits and two planted faults (a
-     dropped tail key, a stale K/V ring stage) must break the bound;
+     within a bound from its own terms (`k3_allowance`); five repeated
+     calls must give the same bits and planted faults must break the
+     bound (bf16: a dropped tail key, a stale K/V ring stage; fp32: one
+     TF32 pass for each product, `ops/tf32.py`, where the kernel runs
+     three);
   2b. K3 the same way at tap_unet_fuse's extra walks of ViT-L/14 at 588 px,
      N = 3970 (the 1.5× frame) and 442 (the 0.5× frame), batch 2 and 8;
   2c. K3 the same way at ViT-g/14's 24 heads (`G_FLASH_SHAPES`);
@@ -50,10 +52,12 @@ seconds since the start):
      H = 16, N = 1765 and 1764, batch 2 and 16, and 3 images of 1765 (the
      GEMMs' 128-row tiles straddle image boundaries, the last is ragged),
      rows with non-zero means and unequal scales, parameters stored in bf16
-     and in fp32; K5 per element; planted faults must break the bounds (K4:
-     q, k, v moved by one head, one k-step of x not normalised; K5: b2
-     dropped, an fc2 k-slice lost, in fp32 the exact GELU) and five more
-     bf16 calls of each must give the same bits; then K6 and K4 the same
+     and in fp32; K5 per element, K4 in fp32 also per element
+     (`qkv_allowance`); planted faults must break the bounds (K4: q, k, v
+     moved by one head, one k-step of x not normalised; K5: b2 dropped, an
+     fc2 k-slice lost, in fp32 the exact GELU; in fp32 at every shape, K4
+     and K5 with one TF32 pass for each product) and five more calls of
+     each must give the same bits; then K6 and K4 the same
      way at ViT-g/14's C = 1536, H = 24 (`G_ROW_SHAPES`: its SwiGLU blocks
      run no K5) and K6, K4 and K5 at vit_tiny's C = 192, H = 3
      (`TINY_ROW_SHAPES`), and at the Mask2Former walk's 1370 rows
@@ -81,7 +85,9 @@ seconds since the start):
      (16, 24, 257, 64));
   5. a narrow whole model (fp32, TF32 off), seeded: CPU (plain paths) vs
      CUDA (kernels), eval logits and metrics, and the launches per forward
-     (10 K3, 7 K1, 10 K4, 10 K5, 4 K6);
+     (10 K3, 7 K1, 10 K4, 10 K5, 4 K6), every K3 launch on the 3×TF32
+     kernel as its launcher reports (`path_counts`; so in phases 6, 8m, 8r
+     and 8s; K4's and K5's launcher has one kernel per dtype);
   6. the narrow model's training step, CPU vs CUDA: the augmentation (and
      CLAHE at 588 px), then on one augmented batch (made on the CPU) per
      step the loss, every trainable's gradient
@@ -173,6 +179,19 @@ seconds since the start):
      levels, 100 queries, batch 2, fp32, a refinement branch) on the card
      with K1 and K2 against the same with the plain MSDA: outputs, points
      and gradients, 6 K1 and 6 K2 launches (`detr_decoder_check`);
+  8r. M9's fp32 half: the ViT-L train step at train_seg's default
+     precision (588 px, fp32, exact GELU, batch 2, every LayerScale from
+     N(0, 0.1²), TF32 off), seeds 0 and 1, on the sides of 8e with the
+     floor summing K3 and K4 in float64 and the moved heads as the fault:
+     the loss within 2e-3, each subtree within 8e-2 in normalised L2 and
+     1e-1 in max relative error (the JAX gate's fp32/bs2 bounds) or twice
+     the floor (`seg_step_gate` with fp32);
+  8s. `train_seg --arch vit_large --patch_size 14 --imsize 588
+     --batch_size_per_gpu 12 --lr 0.01 --synthetic` at train.py's own
+     example precision (no --bf16, no --gelu_approx), one epoch cut to 3
+     steps and a validation, then `--evaluate` (`variant_runs` with
+     `FP32_RUNS`): launches per step `PER_FORWARD_FP32` (48 K3 and 48 K4 on
+     3×TF32, 52 K6, 7 K1, 7 K2, no K5), img/s, peak memory;
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -191,20 +210,26 @@ seconds since the start):
      "vit_tiny ..." keys); at batch 4 the Mask2Former shapes ("m2f ..."
      keys: K3 against SDPA, K6, K4, K5 at 1370 tokens in bf16 and fp32,
      K1 and K2 at the pixel decoder's, the injector's and the extractor's
-     geometries, bf16 and fp32, and at D = 48). The kernels line gives the training path's
+     geometries, bf16 and fp32, and at D = 48); at batch 16 the fp32 step's
+     K3 at 1765 / 1764 tokens against SDPA and K6 and K4 at 28240 rows
+     against the unfused sequence and cuBLAS's fp32 GEMM ("fp32 ..." keys),
+     each fp32 row's bound that of 3×TF32 on the tensor cores, which its
+     kernel runs, with the CUDA cores' fp32 bound beside it
+     (`bound_fp32_cuda_cores`). The kernels line gives the training path's
      (batch 16, uniform points) numbers and the launches of `bench`'s run
      for K1-K6, the SSL step's numbers and the launches of `bench_ssl`'s run
      for K7, and in each row `new_shapes` (ViT-g's and vit_tiny's numbers)
      and `launches_vitg_step` (per step of 8j, or of 8k for K7),
      `m2f_shapes` (each "m2f ..." key) and `launches_m2f_step` (per step
-     of 8o's `bench_m2f` and 8m's `segment_m2f`).
+     of 8o's `bench_m2f` and 8m's `segment_m2f`), `fp32_shapes` (each
+     "fp32 ..." key) and `launches_fp32_step` (per step of 8s).
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 
     python3 chip_smoke.py --times
 
 runs the build and phase 9 alone, with no checks, and prints sha256
-prefixes of K6's and the row statistics' outputs on seeded rows: to compare
+prefixes of K6's and K3's outputs on seeded inputs: to compare
 two trees' kernels on one card (copy this script into the other tree's root
 and run both in one call).
 
@@ -213,7 +238,14 @@ and run both in one call).
 runs the build, phase 8e with `SEG_GATE_PROBES` (the floor measured with
 MSDA's location gradient stopped, and with the CNN encoder in fp32) and
 `seg_gate_ablation` (the step with one kernel at a time, and with MSDA's
-sums in float64, against the plain step), the same way on any tree.
+sums in float64, against the plain step), the same way on any tree whose
+K3 wrapper counts launches by kernel (`path_counts`).
+
+    python3 chip_smoke.py --fp32-steps
+
+runs the build and the fp32 commands of phases 8s and 8m uncut
+(`fp32_steps_only`: img/s, peak memory, launches), on any tree of the port:
+copy it into another tree's root to time both trees' fp32 steps in one call.
 """
 
 from __future__ import annotations
@@ -263,6 +295,10 @@ SSL_PER_STEP = {"flash_attn": 24, "flash_attn_bwd": 12}
 # per forward at full width: attention, MSDA forward, K4, K5, K6
 PER_FORWARD = {"flash_fwd": 48, "msda_fwd": 7, "fused_ln_qkv": 48, "fused_ln_mlp": 48,
                "layernorm": 4}
+# ... at train.py's own example precision (fp32, exact GELU): each of the 48
+# block applications takes K6 before its plain MLP in place of K5, beside
+# the 4 tap norms
+PER_FORWARD_FP32 = {**PER_FORWARD, "fused_ln_mlp": 0, "layernorm": 48 + 4}
 T0 = time.perf_counter()
 # (name, value shape (B, S, M, D), Lq, level shapes, P, the queries' grids) at
 # ViT-L/14 @ 588 px: CAViT's 42² ViT-token queries sample the 73², 36², 18²
@@ -348,9 +384,11 @@ M2F_BENCH_STEP = {"flash_fwd": 24, "msda_fwd": 16, "msda_bwd": 12, "fused_ln_qkv
 M2F_FP32_STEP = {**M2F_BENCH_STEP, "fused_ln_mlp": 0, "layernorm": 24}
 M2F_WINDOWED_STEP = {**M2F_BENCH_STEP, "flash_fwd": 4, "fused_ln_qkv": 4, "layernorm": 20}
 M2F_SMALL_STEP = {**M2F_FP32_STEP, "flash_fwd": 12, "fused_ln_qkv": 12, "layernorm": 12}
-# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W)
+# the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W); fp32
+# is the CUDA cores' rate, "tf32x3" the rate of fp32 products at fp32
+# accuracy as three TF32 products each on the tensor cores (495 TFLOP/s / 3)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32x3": 495e12 / 3}
 
 
 def fail(msg: str) -> None:
@@ -487,6 +525,20 @@ def qkv_from_xn(xn, w, b, heads, dtype):
     y = (xn @ w.to(dtype).to(xn.dtype).t() + b.to(xn.dtype)).to(dtype)
     y = y.reshape(B, N, 3, heads, C // heads).permute(2, 0, 3, 1, 4)
     return [t.contiguous() for t in y]
+
+
+def qkv_allowance(xn, w, heads, refs):
+    """Per-element bound on |K4 − plain| in fp32 (phase 4b, beside
+    `row_check`'s 1e-4·max|plain|): ulp(|ref|) + 2⁻¹⁷·Σ_k |xn_k|·|w_jk|, i.e.
+    128 fp32 units of the dot product's absolute sum, for the kernel's sums
+    in another order and 3×TF32's dropped terms (≈ 2⁻²² of each product),
+    and the fast variance's cancellation carried into xn. One TF32 pass
+    (`ops/tf32.py`, 2⁻¹² of each product) reads ≈ 10 of it. Returns one
+    bound per output of `refs` (q, k, v)."""
+    B, N, C = xn.shape
+    asum = (xn.abs() @ w.float().abs().t()).reshape(B, N, 3, heads, C // heads)
+    return [ulp(r, torch.float32) + 2.0 ** -17 * a
+            for r, a in zip(refs, asum.permute(2, 0, 3, 1, 4))]
 
 
 def row_check(report, row_err, kname, pairs, extra, shape, dtype) -> float:
@@ -888,8 +940,13 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                   lambda: ff.flash_fwd_plain(q, k, v, 0.125),
                   lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125),
                   host_too=host_too)
-            bounds[key] = bound_ms(4 * q.numel() * q.element_size(), 4 * B * H * N * N * Dh,
-                                   "bf16" if dtype == torch.bfloat16 else "fp32")
+            # fp32 at Dh 64 runs 3×TF32 on the tensor cores: its bound is
+            # that work's, with the CUDA cores' fp32 bound beside it
+            kind = "bf16" if dtype == torch.bfloat16 else "tf32x3" if Dh == 64 else "fp32"
+            nbytes, flops = 4 * q.numel() * q.element_size(), 4 * B * H * N * N * Dh
+            bounds[key] = bound_ms(nbytes, flops, kind)
+            if kind == "tf32x3":
+                extra[key] = {"bound_fp32_cuda_cores": bound_ms(nbytes, flops, "fp32")}
             if k7_body:
                 # K7's forward body (no ids) on K3's inputs: whether one body
                 # could serve both
@@ -950,6 +1007,8 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
         F.linear, the q/k/v relayout, GELU) and cuBLAS's GEMMs alone on the
         normalised input"""
         kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        # the GEMMs' fp32 products run 3×TF32 on the tensor cores
+        gemm = "bf16" if kind == "bf16" else "tf32x3"
         for shape in shapes:
             x, p = row_inputs(shape, dtype, seed=0, params_dtype=dtype)
             B, N, C = shape
@@ -979,8 +1038,10 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                           "cublas_gemm": cuda_ms(lambda: F.linear(xn, p["w"], p["b"].to(x.dtype))),
                           "tflops_device": flops / dev[key][0] * 1e-9}
             # reads x, the LN parameters, w, b; writes q, k, v (3·x)
-            bounds[key] = bound_ms(4 * xb + p["w"].numel() * p["w"].element_size()
-                                   + (2 + 3) * C * pe, flops, kind)
+            qkv_bytes = 4 * xb + p["w"].numel() * p["w"].element_size() + (2 + 3) * C * pe
+            bounds[key] = bound_ms(qkv_bytes, flops, gemm)
+            if kind == "fp32":
+                extra[key]["bound_fp32_cuda_cores"] = bound_ms(qkv_bytes, flops, "fp32")
             if not k5:
                 del x, p, xn
                 torch.cuda.empty_cache()
@@ -1003,7 +1064,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
                                                           F.linear(h, p["w2"]))),
                           "tflops_device": flops / dev[key][0] * 1e-9}
             # reads x, the LN parameters, w1, b1, w2, b2, γ; writes out
-            bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * 2 + 8 * C * pe, flops, "bf16")
+            bounds[key] = bound_ms(2 * xb + 2 * p["w1"].numel() * pe + 8 * C * pe, flops, gemm)
             del x, p, xn, h
             torch.cuda.empty_cache()
 
@@ -1092,6 +1153,11 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
             flash_times([(M2F_BATCH, 16, M2F_TOKENS, 64)], tag, seed=2, dtype=dt)
             row_times([(M2F_BATCH, M2F_TOKENS, 1024)], HEADS, tag, k5=dt == torch.bfloat16,
                       dtype=dt)
+        # the fp32 step of train_seg (phase 8s) at batch 16: K3 at (16, 16,
+        # 1765 / 1764, 64) against SDPA in fp32, K6 and K4 at 28240 rows
+        # against the unfused sequence and cuBLAS's fp32 GEMM (TF32 off)
+        flash_times(at_16(FLASH_SHAPES), "fp32 ", dtype=torch.float32)
+        row_times(at_16(ROW_SHAPES), HEADS, "fp32 ", k5=False, dtype=torch.float32)
         geo = M2F_MSDA_GEOMETRIES
         msda_times(m2f_msda_cases(M2F_BATCH, geo[:1]), "m2f ", hot_too=False)
         msda_times(m2f_msda_cases(M2F_BATCH, geo[1:3]), "m2f ", hot_too=False,
@@ -1112,9 +1178,8 @@ def say_times(name, smi, times, bounds, extra, dev, host):
 
 
 def row_hashes(ln) -> dict:
-    """sha256 prefixes of K6's output and of the row statistics on seeded
-    rows (bf16 and fp32, C = 1024 and 384): equal hashes from two builds
-    show bit-equal outputs."""
+    """sha256 prefixes of K6's output on seeded rows (bf16 and fp32, C = 1024
+    and 384): equal hashes from two builds show bit-equal outputs."""
     import hashlib
     out = {}
     with torch.no_grad():
@@ -1122,11 +1187,9 @@ def row_hashes(ln) -> dict:
             for C in (1024, 384):
                 x, p = row_inputs((2, 1765, C), dtype, seed=60 + C, params_dtype=dtype)
                 y = ln.layernorm(x, p["ln_w"], p["ln_b"])
-                st = ln.row_stats(x.view(-1, C), 1e-6)
                 torch.cuda.synchronize()
-                out[f"{str(dtype)[6:]} C={C}"] = [
-                    hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-                    .hexdigest()[:16] for t in (y, st)]
+                out[f"{str(dtype)[6:]} C={C}"] = hashlib.sha256(
+                    y.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
     return out
 
 
@@ -1472,11 +1535,14 @@ def check_k3(ff, shapes=FLASH_SHAPES) -> float:
     """Phase 2: K3 against its plain version (fp32 on the same values) at
     the walks' shapes (H = 16, Dh = 64, N = 1765 and 1764, batch 2 and 16;
     phase 2b: `FUSE_K3_SHAPES`), bf16 and fp32, each element within
-    `k3_allowance`. In bf16 also: five
-    more calls give the same bits (a race in the K/V ring would change them
-    from run to run), and two planted faults must break the bound: the last
-    key's v row zeroed (a dropped tail) and keys 128-255 given the v of
-    keys 0-127 (a stale ring stage). Returns the largest bf16 error."""
+    `k3_allowance`. Both dtypes also: five more calls give the same bits (a
+    race in the K/V ring would change them from run to run), and planted
+    faults must break the bound: in bf16 the last key's v row zeroed (a
+    dropped tail) and keys 128-255 given the v of keys 0-127 (a stale ring
+    stage); in fp32 the plain version with one TF32 pass for each product
+    (`ops/tf32.py`: what the tensor cores give without the split, against
+    the kernel's three). Returns the largest bf16 error."""
+    from adaptersis_tpu_torch.ops import tf32
     flash_err = 0.0
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
@@ -1493,26 +1559,31 @@ def check_k3(ff, shapes=FLASH_SHAPES) -> float:
                           "worst_share_of_bound": (d / allow).max().item(),
                           "bound_max": allow.max().item(), "bound_min": allow.min().item()}
                 del d
+                report["repeats_bit_identical"] = all(
+                    torch.equal(ff.flash_fwd(q, k, v, 0.125), out) for _ in range(5))
                 if dtype == torch.bfloat16:
-                    report["repeats_bit_identical"] = all(
-                        torch.equal(ff.flash_fwd(q, k, v, 0.125), out) for _ in range(5))
                     tail, stale = v.clone(), v.clone()
                     tail[:, :, -1] = 0
                     stale[:, :, 128:256] = v[:, :, :128]
-                    report["planted_faults_worst_share"] = {
-                        n: ((ff.flash_fwd(q, k, w, 0.125).float() - ref).abs() / allow).max().item()
-                        for n, w in (("dropped_tail", tail), ("stale_stage", stale))}
-                    del tail, stale
+                    wrong = {"dropped_tail": lambda: ff.flash_fwd(q, k, tail, 0.125),
+                             "stale_stage": lambda: ff.flash_fwd(q, k, stale, 0.125)}
+                else:  # one batch element at a time, as `k3_allowance`
+                    wrong = {"one tf32 pass": lambda: torch.cat([
+                        tf32.flash_fwd_tf32(q[b:b + 1], k[b:b + 1], v[b:b + 1], 0.125, 1)
+                        for b in range(q.shape[0])])}
+                report["planted_faults_worst_share"] = {
+                    n: ((f().float() - ref).abs() / allow).max().item() for n, f in wrong.items()}
+                del wrong
                 say("flash_fwd_check", dtype=str(dtype), shape=list(shape), **report)
                 if not report["worst_share_of_bound"] <= 1.0:
                     fail(f"flash_fwd kernel disagrees with plain at {shape} {dtype}: an error is "
                          f"{report['worst_share_of_bound']} of its per-element bound")
+                if not report["repeats_bit_identical"]:
+                    fail(f"flash_fwd: repeated calls differ at {shape} {dtype}")
+                for n, w in report["planted_faults_worst_share"].items():
+                    if not w > 1.0:
+                        fail(f"flash_fwd: the bound passes a planted fault ({n}, {shape}): {w}")
                 if dtype == torch.bfloat16:
-                    if not report["repeats_bit_identical"]:
-                        fail(f"flash_fwd: repeated calls differ at {shape}")
-                    for n, w in report["planted_faults_worst_share"].items():
-                        if not w > 1.0:
-                            fail(f"flash_fwd: the bound passes a planted fault ({n}, {shape}): {w}")
                     flash_err = max(flash_err, report["max_abs_err"])
                 del q, k, v, out, ref, allow
                 torch.cuda.empty_cache()
@@ -1521,8 +1592,10 @@ def check_k3(ff, shapes=FLASH_SHAPES) -> float:
 
 def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
     """Phase 4b's K5 case: every element within `mlp_allowance`; with
-    `planted` also the planted faults and (bf16) five repeats. Records into
-    `report` and `row_err`."""
+    `planted` also the planted faults and five repeats; in fp32 always the
+    plain version with one TF32 pass for each product (`ops/tf32.py`).
+    Records into `report` and `row_err`."""
+    from adaptersis_tpu_torch.ops import tf32
     dtype, C = x.dtype, x.shape[-1]
     bf = dtype == torch.bfloat16
     mlp_args = (p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"], p["gamma"])
@@ -1541,6 +1614,7 @@ def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
     if not worst <= 1.0:
         fail(f"fused_ln_mlp kernel disagrees with plain at {shape} {dtype}: "
              f"an error is {worst} of its per-element bound")
+    wrong = {} if bf else {"one tf32 pass": tf32.fused_ln_mlp_tf32(x, *mlp_args, passes=1)}
     if planted:
         # the bound fails a wrong K5: the kernel given b2 = 0 or an fc2
         # weight with a 64-wide slice of K zeroed (as if its K loop skipped
@@ -1548,10 +1622,11 @@ def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
         # place of tanh's
         w2_cut = p["w2"].clone()
         w2_cut[:, C:C + 64] = 0
-        wrong = {"b2 dropped": fm.fused_ln_mlp(x, *mlp_args[:5],
-                                               torch.zeros_like(p["b2"]), p["gamma"]),
-                 "fc2 K slice lost": fm.fused_ln_mlp(x, *mlp_args[:4], w2_cut,
-                                                     p["b2"], p["gamma"])}
+        wrong["b2 dropped"] = fm.fused_ln_mlp(x, *mlp_args[:5], torch.zeros_like(p["b2"]),
+                                              p["gamma"])
+        wrong["fc2 K slice lost"] = fm.fused_ln_mlp(x, *mlp_args[:4], w2_cut, p["b2"],
+                                                    p["gamma"])
+        del w2_cut
         if not bf:
             tanh_gelu = fm.gelu_tanh
             fm.gelu_tanh = torch.nn.functional.gelu
@@ -1559,15 +1634,15 @@ def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
                 wrong["exact GELU"] = fm.fused_ln_mlp_plain(x, *mlp_args)
             finally:
                 fm.gelu_tanh = tanh_gelu
+        report["fused_ln_mlp"]["repeats_equal"] = same_bits(
+            "fused_ln_mlp", [out], lambda: [fm.fused_ln_mlp(x, *mlp_args)])
+    if wrong:
         caught = {k: ((o.float() - ref.float()).abs() / allow).max().item()
                   for k, o in wrong.items()}
         report["fused_ln_mlp"]["wrong_kernels_worst_share"] = caught
         if not all(v > 1.0 for v in caught.values()):
             fail(f"fused_ln_mlp: the bound passes a wrong kernel at {dtype}: {caught}")
-        if bf:
-            report["fused_ln_mlp"]["repeats_equal"] = same_bits(
-                "fused_ln_mlp", [out], lambda: [fm.fused_ln_mlp(x, *mlp_args)])
-        del wrong, w2_cut
+    del wrong
     if bf:
         row_err["fused_ln_mlp"] = max(row_err["fused_ln_mlp"], diff.max().item())
 
@@ -1575,9 +1650,11 @@ def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
 def check_row_kernels(ln, fq, fm, shapes=ROW_SHAPES + [STRADDLE_ROWS], heads=HEADS,
                       k5=True) -> dict:
     """Phase 4b (see main): K6, K4 and (with `k5`) K5 against their plain
-    versions, per shape in bf16 and fp32, K4 with `heads` heads; the first
-    shape also plants faults and (bf16) repeats each call five times.
-    Returns the largest bf16 errors."""
+    versions, per shape in bf16 and fp32, K4 with `heads` heads (in fp32
+    also per element, `qkv_allowance`); the first shape also plants faults
+    and repeats each call five times; every fp32 shape plants one TF32 pass
+    in K4 and K5. Returns the largest bf16 errors."""
+    from adaptersis_tpu_torch.ops import tf32
     row_err = {"layernorm": 0.0, "fused_ln_qkv": 0.0, "fused_ln_mlp": 0.0}
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
@@ -1597,24 +1674,44 @@ def check_row_kernels(ln, fq, fm, shapes=ROW_SHAPES + [STRADDLE_ROWS], heads=HEA
                 bound = row_check(report, row_err, "fused_ln_qkv", list(zip(out, ref)),
                                   2.0 ** -5 * xn.abs().max().item()
                                   * p["w"].float().abs().max().item(), shape, dtype)
+                allow = None if bf else qkv_allowance(xn, p["w"], heads, ref)
+
+                def shares(outs) -> dict:
+                    """The largest error of `outs` against plain over the
+                    bound: global (`row_check`) and, in fp32, per element."""
+                    got = {"global": max((o.float() - r.float()).abs().max().item()
+                                         for o, r in zip(outs, ref)) / bound}
+                    if allow is not None:
+                        got["per_element"] = max(((o - r).abs() / a).max().item()
+                                                 for o, r, a in zip(outs, ref, allow))
+                    return got
+
+                if not bf:
+                    report["fused_ln_qkv"]["worst_share_per_element"] = shares(out)["per_element"]
+                    if not report["fused_ln_qkv"]["worst_share_per_element"] <= 1.0:
+                        fail(f"fused_ln_qkv kernel disagrees with plain at {shape} {dtype}: "
+                             f"{report['fused_ln_qkv']}")
+                # the bounds fail a wrong K4: in fp32 the plain version with
+                # one TF32 pass (`ops/tf32.py`); at the first shape also q, k
+                # and v each moved by one head, and one 64-wide k-step of x
+                # left unnormalised
+                wrong = {} if bf else {"one tf32 pass": tf32.fused_ln_qkv_tf32(
+                    *qkv_args[:5], heads, passes=1)}
                 if i == 0:
-                    # the bound fails a wrong K4: q, k and v each moved by one
-                    # head, and one 64-wide k-step of x left unnormalised
                     xs = xn.clone()
                     xs[..., C // 2:C // 2 + 64] = x[..., C // 2:C // 2 + 64].float()
-                    wrong = {"heads moved": [o.roll(1, dims=1) for o in out],
-                             "k-step not normalised": qkv_from_xn(xs, p["w"], p["b"], heads,
-                                                                  dtype)}
-                    caught = {k: max((o.float() - r.float()).abs().max().item()
-                                     for o, r in zip(os_, ref)) / bound
-                              for k, os_ in wrong.items()}
+                    wrong["heads moved"] = [o.roll(1, dims=1) for o in out]
+                    wrong["k-step not normalised"] = qkv_from_xn(xs, p["w"], p["b"], heads,
+                                                                 dtype)
+                    report["fused_ln_qkv"]["repeats_equal"] = same_bits(
+                        "fused_ln_qkv", out, lambda: fq.fused_ln_qkv(*qkv_args))
+                    del xs
+                if wrong:
+                    caught = {k: shares(o) for k, o in wrong.items()}
                     report["fused_ln_qkv"]["wrong_kernels_share"] = caught
-                    if not all(v > 1.0 for v in caught.values()):
-                        fail(f"fused_ln_qkv: the bound passes a wrong kernel at {dtype}: {caught}")
-                    if bf:
-                        report["fused_ln_qkv"]["repeats_equal"] = same_bits(
-                            "fused_ln_qkv", out, lambda: fq.fused_ln_qkv(*qkv_args))
-                    del xs, wrong
+                    if not all(max(v.values()) > 1.0 for v in caught.values()):
+                        fail(f"fused_ln_qkv: the bounds pass a wrong kernel at {dtype}: {caught}")
+                del wrong, allow
                 if k5:
                     check_k5(fm, ln, x, p, report, row_err, shape, planted=i == 0)
                 say("row_kernels_check", dtype=str(dtype), params=str(pdt), shape=list(shape),
@@ -1737,11 +1834,12 @@ SEG_SUBTREES = ("cross_vit", "cross_cnn", "encoder", "decoder", "level_embed")
 SEG_GATE_PROBES = ("location gradient stopped", "encoder fp32")
 
 
-def seg_gate_inputs(seed=0, arch="vit_large", batch=SEG_GATE_BATCH):
-    """`bench`'s model (ViT-L/14 at 588 px, tanh GELU, 4 taps; or `arch`'s)
-    from `seed` with every LayerScale γ of the frozen backbone drawn from
-    N(0, 0.1²), so that each block moves its tokens; one augmented batch
-    (with CLAHE) of `batch` seeded uint8 frames and masks."""
+def seg_gate_inputs(seed=0, arch="vit_large", batch=SEG_GATE_BATCH, gelu_approx=True):
+    """`bench`'s model (ViT-L/14 at 588 px, tanh GELU, 4 taps; or `arch`'s;
+    with `gelu_approx` False `train_seg`'s default, exact GELU) from `seed`
+    with every LayerScale γ of the frozen backbone drawn from N(0, 0.1²), so
+    that each block moves its tokens; one augmented batch (with CLAHE) of
+    `batch` seeded uint8 frames and masks."""
     from adaptersis_tpu_torch.data.augment import (
         apply_train_augment, draw_train_augment, draws_to)
     from adaptersis_tpu_torch.models.segmentor import AdapterSegmentor
@@ -1749,7 +1847,7 @@ def seg_gate_inputs(seed=0, arch="vit_large", batch=SEG_GATE_BATCH):
     from adaptersis_tpu_torch.train.convert import seeded_init_
 
     dev, B, size = torch.device("cuda"), batch, 588
-    backbone = build_backbone(arch, img_size=518, patch_size=14, gelu_approx=True)
+    backbone = build_backbone(arch, img_size=518, patch_size=14, gelu_approx=gelu_approx)
     model = seeded_init_(AdapterSegmentor(backbone, num_classes=2, n_last_blocks=4), seed=seed)
     rng = np.random.default_rng(22 + seed)
     with torch.no_grad():
@@ -1786,19 +1884,20 @@ def plain_patches(kernels) -> list:
 
 
 def seg_gate_step(model, x01, y, patches, regime, counts, reset_counts,
-                  subtrees=SEG_SUBTREES, **trainer_kw):
-    """One bf16 `Trainer` step (`trainer_kw`: its loss and softmax) of a
-    copy of `model` with `patches`
+                  subtrees=SEG_SUBTREES, bf16=True, paths=None, **trainer_kw):
+    """One `Trainer` step (bf16, or fp32 with `bf16` False; `trainer_kw`:
+    its loss and softmax) of a copy of `model` with `patches`
     ((module, name, function) triples) in place for the step only. The
     regime: "full", the step as it trains; "encoder fp32", the same step
     with the CNN encoder (`model.encoder`, which runs none of K1-K6) run in
     fp32 outside autocast; "location gradient stopped", every MSDA call's
     sampling locations detached before the sampling core (no location
     gradient; values and attention weights keep theirs). Returns the loss,
-    each subtree's flat fp64 gradient and the launches."""
+    each subtree's flat fp64 gradient and the launches; `paths`, if given,
+    takes the step's launches by kernel (`path_counts`)."""
     from adaptersis_tpu_torch.ops import ms_deform_attn
     from adaptersis_tpu_torch.train.trainer import Trainer
-    trainer = Trainer(copy.deepcopy(model), bf16=True, **trainer_kw)
+    trainer = Trainer(copy.deepcopy(model), bf16=bf16, **trainer_kw)
     if regime == "encoder fp32":
         encoder = trainer.model.encoder
         bf16_forward = encoder.forward
@@ -1818,6 +1917,8 @@ def seg_gate_step(model, x01, y, patches, regime, counts, reset_counts,
             fwd = ms_deform_attn.msda_fwd
             ms_deform_attn.msda_fwd = lambda v, loc, aw, shapes: fwd(v, loc.detach(), aw, shapes)
         loss = float(trainer.step(x01, y, epoch=0))
+        if paths is not None:
+            paths.update(path_counts())
     finally:
         for (mod, name, _), fn in zip(patches, kept):
             setattr(mod, name, fn)
@@ -1863,6 +1964,14 @@ def mlp_fp64(x, ln_w, ln_b, w1, b1, w2, b2, gamma, eps=1e-6):
         return (x.double() + gamma.double() * (h @ w2.to(dt).double().t() + b2.double())).to(dt)
 
 
+def flash_fp64(q, k, v, scale):
+    """flash_fwd_plain with float64 sums, rounded to q's dtype (an equally
+    valid K3)."""
+    from adaptersis_tpu_torch.ops.flash_fwd import flash_fwd_plain
+    with torch.autocast(q.device.type, enabled=False):
+        return flash_fwd_plain(q.double(), k.double(), v.double(), scale).to(q.dtype)
+
+
 def msda_fp64(value, loc, aw, shapes):
     """msda_plain with float64 sums, rounded to its fp32 output (an equally
     valid K1/K2: the same corners and weights)."""
@@ -1871,25 +1980,38 @@ def msda_fp64(value, loc, aw, shapes):
         return msda_plain(value.double(), loc.double(), aw.double(), shapes).float()
 
 
-def seg_gate_sides() -> dict:
+def seg_gate_sides(fp32=False) -> dict:
     """Phase 8e's sides, as patches: the kernels; the plain versions of
     K1-K6; the floor (those plain versions, but K4's and K5's sums in
-    float64: an equally valid implementation); and two planted faults on
-    the kernel side, q, k and v moved by one head (K4) and K5 without b2."""
+    float64, or in fp32 (phase 8r, no K5) K3's and K4's: an equally valid
+    implementation); and two planted faults on the kernel side, q, k and v
+    moved by one head (K4) and K5 without b2."""
     from adaptersis_tpu_torch.models import layers
     qkv, mlp = layers.fused_ln_qkv, layers.fused_ln_mlp
     every = tuple(seg_gate_plain_versions())
+    in_fp64 = {"K3": (layers, "flash_fwd", flash_fp64), "K4": (layers, "fused_ln_qkv", qkv_fp64),
+               "K5": (layers, "fused_ln_mlp", mlp_fp64)}
+    floor = ("K3", "K4") if fp32 else ("K4", "K5")
     return {"kernel": [], "plain": plain_patches(every),
-            "floor": plain_patches(k for k in every if k not in ("K4", "K5"))
-            + [(layers, "fused_ln_qkv", qkv_fp64), (layers, "fused_ln_mlp", mlp_fp64)],
+            "floor": plain_patches(k for k in every if k not in floor)
+            + [in_fp64[k] for k in floor],
             "heads moved": [(layers, "fused_ln_qkv",
                              lambda *a: [t.roll(1, dims=1) for t in qkv(*a)])],
             "b2 dropped": [(layers, "fused_ln_mlp", lambda x, lw, lb, w1, b1, w2, b2, *a: mlp(
                 x, lw, lb, w1, b1, w2, torch.zeros_like(b2), *a))]}
 
 
+# phase 8r (M9's fp32 half): the JAX gate's fp32/bs2 bounds
+# (VERIFY_STEP_ONCHIP.md:3-13): the loss, and each subtree's normalised L2
+# distance and max relative error
+FP32_GATE_BATCH = 2
+FP32_GATE_BOUND = {"l2_dist": 8e-2, "max_rel": 1e-1}
+FP32_GATE_LOSS_BOUND = 2e-3
+
+
 def seg_step_gate(counts, reset_counts, expected, seed=0, probes=(), arch="vit_large",
-                  batch=SEG_GATE_BATCH, faults=("heads moved", "b2 dropped")) -> dict:
+                  batch=SEG_GATE_BATCH, faults=("heads moved", "b2 dropped"),
+                  fp32=False) -> dict:
     """Phase 8e (M9, the ViT-L half): the deployed configuration's train
     step (`seg_gate_inputs`: `bench`'s model, bf16, batch 8) on the five
     `seg_gate_sides`, all from the same seeded weights on the same augmented
@@ -1906,25 +2028,33 @@ def seg_step_gate(counts, reset_counts, expected, seed=0, probes=(), arch="vit_l
     fails, and so do launches other than `expected` (one forward and its
     MSDA backwards) on the kernel and fault sides, or any on the plain and
     floor sides. Each of `probes` (`SEG_GATE_PROBES`) runs the kernel,
-    plain and floor sides once more in that regime, reported, not held."""
+    plain and floor sides once more in that regime, reported, not held.
+    With `fp32` (phase 8r, M9's fp32 half): `train_seg`'s default step,
+    fp32 with exact GELU (no K5), held to the JAX gate's fp32/bs2 bounds
+    (`FP32_GATE_BOUND`, `FP32_GATE_LOSS_BOUND`) or twice the floor, which
+    sums K3 and K4 in float64; the kernel side's K3 and K4 launches must
+    all run the 3×TF32 kernels."""
     t0 = time.perf_counter()
-    model, x01, y = seg_gate_inputs(seed, arch, batch)
-    sides = {k: v for k, v in seg_gate_sides().items()
+    model, x01, y = seg_gate_inputs(seed, arch, batch, gelu_approx=not fp32)
+    sides = {k: v for k, v in seg_gate_sides(fp32).items()
              if k in ("kernel", "plain", "floor") or k in faults}
     measures = ("l2_dist", "max_rel")
-    out, launches = {}, {}
+    bound = FP32_GATE_BOUND if fp32 else dict.fromkeys(measures, SSL_GATE_BOUND)
+    loss_bound = FP32_GATE_LOSS_BOUND if fp32 else SSL_GATE_LOSS_BOUND
+    out, launches, kernel_paths = {}, {}, {}
     for regime in ("full", *probes):
         losses, grads = {}, {}
         for side, patches in sides.items():
             if regime == "full" or side in ("kernel", "plain", "floor"):
                 losses[side], grads[side], launches[f"{regime}: {side}"] = seg_gate_step(
-                    model, x01, y, patches, regime, counts, reset_counts)
+                    model, x01, y, patches, regime, counts, reset_counts, bf16=not fp32,
+                    paths=kernel_paths if (regime, side) == ("full", "kernel") else None)
         report, shares = {}, {f: {} for f in faults if f in grads}
         for sub, g in grads["plain"].items():
             r = grad_distance(grads["kernel"][sub], g)
             floor = grad_distance(grads["floor"][sub], g)
             r["floor"] = {k: floor[k] for k in measures}
-            r["bound"] = {k: max(SSL_GATE_BOUND, 2 * floor[k]) for k in measures}
+            r["bound"] = {k: max(bound[k], 2 * floor[k]) for k in measures}
             report[sub] = r
             for side, f in shares.items():
                 d = grad_distance(grads[side][sub], g)
@@ -1933,20 +2063,22 @@ def seg_step_gate(counts, reset_counts, expected, seed=0, probes=(), arch="vit_l
             side: abs(v - losses["plain"]) / max(abs(losses["plain"]), 1e-30)
             for side, v in losses.items() if side != "plain"}, "subtrees": report,
             "faults_share_of_bound": shares}
-    say("seg_step_gate", arch=arch, batch=batch, seed=seed, dtype="bf16",
-        seconds=time.perf_counter() - t0,
-        bound=SSL_GATE_BOUND, loss_bound=SSL_GATE_LOSS_BOUND, launches=launches, **out)
+    say("seg_step_gate", arch=arch, batch=batch, seed=seed, dtype="fp32" if fp32 else "bf16",
+        seconds=time.perf_counter() - t0, bound=bound, loss_bound=loss_bound,
+        launches=launches, kernel_side_by_kernel=kernel_paths, **out)
     none = {k: 0 for k in expected}
     for key, got in launches.items():
         want = none if key.endswith((": plain", ": floor")) else expected
         if got != want:
             fail(f"segmentation step gate: launches {got} on {key}, expected {want}")
+    if kernel_paths != paths_expected("tf32x3" if fp32 else "wgmma", launches["full: kernel"]):
+        fail(f"segmentation step gate: the kernel side's launches by kernel {kernel_paths}")
     r = out["full"]
     dead = [sub for sub, s in r["subtrees"].items() if not s["norm_plain"] > 0]
     if dead:
         fail(f"segmentation step gate: zero gradient on the plain side in {dead}")
     if not all(math.isfinite(r["loss_rel_err"][side])
-               and r["loss_rel_err"][side] <= SSL_GATE_LOSS_BOUND for side in ("kernel", "floor")):
+               and r["loss_rel_err"][side] <= loss_bound for side in ("kernel", "floor")):
         fail(f"segmentation step gate: losses differ {r['losses']}")
     for fault, shares in r["faults_share_of_bound"].items():
         if not max(shares.values()) > 1:
@@ -2302,8 +2434,8 @@ def ssl_resume_run(counts, reset_counts, expect_ssl, smi) -> dict:
 
 
 # phase 8h: `train_seg`'s other models and decoders at the paper's width,
-# ViT-L/14 cut to 12 of its 24 blocks, to keep the whole script within
-# 600 s, half its 1200 s limit, after ViT-g's phases
+# ViT-L/14 cut to 12 of its 24 blocks, to keep the whole script well inside
+# its 1200 s limit
 VARIANT_STEPS, VARIANT_DEPTH = 3, 12
 # (name, entry point, its extra flags, --model)
 VARIANTS = [("adapter mla", "train_mla", [], "adapter"),
@@ -2346,7 +2478,7 @@ def variant_argv() -> list:
 
 def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                  want=variant_expect, evaluated=VARIANT_EVALUATED, phase="8h",
-                 arch="vit_large", depth=VARIANT_DEPTH) -> dict:
+                 arch="vit_large", depth=VARIANT_DEPTH, batch=VARIANT_BATCH) -> dict:
     """Phase 8h: `train_seg` (for the MLA decoder `train_mla`) on every
     other `--model` and `--decoder` at the paper's width: ViT-L/14 at 588
     px cut to `VARIANT_DEPTH` blocks, bf16, tanh GELU, synthetic frames,
@@ -2358,7 +2490,10 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
     `--evaluate` on `VARIANT_EVALUATED`'s checkpoint (its trained backbone
     restored from it) must give the last validation's acc1. `depth` (if
     not None) cuts `arch`'s blocks for these runs. Phase 8j runs the same on
-    ViT-g/14 at its full depth (`runs`, `flags`, `want`, `evaluated`)."""
+    ViT-g/14 at its full depth (`runs`, `flags`, `want`, `evaluated`), phase
+    8s on ViT-L/14 in fp32 at `batch` 12. Every K3, K4 and K5 launch of a
+    run must take the tensor-core kernel of the run's dtype (`path_counts`:
+    "tf32x3" in fp32, "wgmma" with --bf16)."""
     from functools import partial
 
     from adaptersis_tpu_torch import train_mla, train_seg
@@ -2396,8 +2531,9 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
     if depth is not None:
         vit.ARCHS[arch] = partial(full_depth, depth=depth)
     train_seg.build_model = build_recorded
-    train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=VARIANT_STEPS * VARIANT_BATCH,
-                                                             **kw)
+    train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=VARIANT_STEPS * batch, **kw)
+    dtype = "bf16" if "--bf16" in flags() else "fp32"
+    path = "wgmma" if dtype == "bf16" else "tf32x3"
     Trainer.train_step = counted("train", plain_train)
     Trainer.eval_step = counted("eval", plain_eval)
     try:
@@ -2408,6 +2544,7 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
             reset_counts()
             hist = entries[entry].main(argv(name) + extra)
             seconds = time.perf_counter() - t0
+            by_kernel, launched = path_counts(), counts()
             m = seen.pop("model")
             start = seen.pop("start")
             unchanged, frozen_moved = [], []
@@ -2428,10 +2565,13 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                  "peak_mem_bytes": ep["peak_mem_bytes"], "trained_subtrees": trained,
                  "per_train_step": per["train"][0] if per["train"] else None,
                  "per_validation_forward": per["eval"][0] if per["eval"] else None,
-                 "unchanged_trainables": unchanged, "frozen_moved": frozen_moved}
+                 "unchanged_trainables": unchanged, "frozen_moved": frozen_moved,
+                 "by_kernel": by_kernel}
             report[name] = r
             say("variant_training", name=name, arch=arch, depth=depth, imsize=588,
-                dtype="bf16", batch=VARIANT_BATCH, **r)
+                dtype=dtype, batch=batch, **r)
+            if by_kernel != paths_expected(path, launched):
+                failures.append(f"{name}: launches by kernel {by_kernel}")
             want_t, want_e = want(model, True), want(model, False)
             if r["steps"] != VARIANT_STEPS or r["validation_forwards"] != 2:
                 failures.append(f"{name}: {r['steps']} steps, {r['validation_forwards']} "
@@ -2588,6 +2728,22 @@ def ete_step_gate(fa, counts, reset_counts) -> dict:
 G_CONFIG = ROOT / "configs" / "vitg14_pretrain.yaml"
 G_RUNS = [("vitg adapter", "train_seg", [], "adapter")]
 G_GATE_BATCH = 2
+
+
+# phase 8s: `train_seg` at train.py's own example precision (its docstring's
+# command: no --bf16, no --gelu_approx) on ViT-L/14 at 588 px, batch 12,
+# one epoch cut to VARIANT_STEPS steps (`variant_runs`)
+FP32_RUNS = [("train_seg fp32", "train_seg", ["--lr", "0.01"], "adapter")]
+FP32_TRAIN_BATCH = 12
+
+
+def fp32_argv() -> list:
+    return ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588",
+            "--batch_size_per_gpu", str(FP32_TRAIN_BATCH)]
+
+
+def fp32_expect(model: str, train: bool) -> dict:
+    return expect(1, 7 if train else 0, PER_FORWARD_FP32)
 
 
 def vitg_argv() -> list:
@@ -2766,6 +2922,9 @@ def m2f_entry_runs(counts, reset_counts, smi) -> dict:
             failures.append(f"{name}: launches per train step {per['train']}, expected {want}")
         if any(d != per_forward(want) for d in per["eval"]):
             failures.append(f"{name}: launches per validation forward {per['eval']}")
+        # segment_m2f's default is fp32: every K3 launch on 3×TF32
+        if path_counts() != paths_expected("tf32x3", counts()):
+            failures.append(f"{name}: launches by kernel {path_counts()}")
         return hist
 
     trainer_cls.step = counted("train", plain_step)
@@ -2808,6 +2967,8 @@ def m2f_entry_runs(counts, reset_counts, smi) -> dict:
             failures.append(f"{name}: values not finite: {res}")
         if got != {k: v * n for k, v in want.items()}:
             failures.append(f"{name}: launches {got} in {n} steps, expected {want} per step")
+        if path_counts() != paths_expected("wgmma", got):
+            failures.append(f"{name}: launches by kernel {path_counts()}")
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -3039,13 +3200,14 @@ def narrow_model():
 
 def launch_counters():
     """(counts, reset_counts): read and zero every kernel wrapper's launch
-    count."""
+    count (and K3's counts by kernel, `path_counts`)."""
     from adaptersis_tpu_torch.ops import flash_attn as fa, flash_fwd as ff, msda_cuda as mc
     from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
 
     def reset_counts():
         ff.launches = mc.launches = mc.bwd_launches = fq.launches = fm.launches = 0
         ln.launches = fa.launches = fa.bwd_launches = 0
+        ff.path_launches.update(dict.fromkeys(ff.path_launches, 0))
 
     def counts():
         return {"flash_fwd": ff.launches, "msda_fwd": mc.launches, "msda_bwd": mc.bwd_launches,
@@ -3054,6 +3216,23 @@ def launch_counters():
                 "flash_attn_bwd": fa.bwd_launches}
 
     return counts, reset_counts
+
+
+def path_counts() -> dict:
+    """K3's launches since the last reset by the kernel `asis_flash_fwd`
+    reported launching: "wgmma" (bf16), "tf32x3" (fp32, 3×TF32 on the
+    tensor cores), "cuda_cores" (Dh 16, 32). K4's and K5's launcher has one
+    kernel per dtype (fp32: the 3×TF32 `gemm_tf32_kernel`), so their
+    launches in a run of one dtype all took that dtype's kernel."""
+    from adaptersis_tpu_torch.ops import flash_fwd as ff
+    return dict(ff.path_launches)
+
+
+def paths_expected(path: str, launches: dict) -> dict:
+    """`path_counts` when every K3 launch in `launches` (`counts`) ran the
+    tensor-core kernel of one dtype, `path` ("tf32x3" in fp32, "wgmma" in
+    bf16): none on the CUDA cores."""
+    return {k: launches["flash_fwd"] if k == path else 0 for k in path_counts()}
 
 
 def expect(forwards, backwards, per=PER_FORWARD):
@@ -3192,7 +3371,7 @@ def main() -> None:
     bound = 1e-4 * scale        # fp32 on both; conv and GEMM orders differ
     metric_err = max(abs(float(gpu[k]) - float(cpu[k])) for k in ("loss", "dice"))
     say("small_slice", logits=list(cpu["logits"].shape), max_abs_err=err, bound=bound,
-        metric_err=metric_err, launches=small_launches)
+        metric_err=metric_err, launches=small_launches, by_kernel=path_counts())
     if not err <= bound:
         fail(f"small slice: CUDA logits differ from CPU by {err} > {bound}")
     if not metric_err <= 1e-4 * max(1.0, float(cpu["loss"])):
@@ -3201,6 +3380,9 @@ def main() -> None:
                     "fused_ln_mlp": 10, "layernorm": 4, "flash_attn": 0, "flash_attn_bwd": 0}
     if small_launches != small_expect:
         fail(f"small slice: kernel launches {small_launches}, expected {small_expect}")
+    # fp32 at Dh 64: every K3, K4 and K5 launch on the 3×TF32 kernels
+    if path_counts() != paths_expected("tf32x3", small_launches):
+        fail(f"small slice: launches by kernel {path_counts()}")
     del model, cpu, gpu
 
     # ---- 6. narrow training step: CPU plain paths vs CUDA kernels, fp32
@@ -3299,6 +3481,7 @@ def main() -> None:
         if not stats_err <= 1e-5:       # fp32 batch statistics, other reduction orders
             fail(f"narrow train step {epoch}: BatchNorm statistics differ by {stats_err}")
     train_small_launches = counts()
+    train_small_paths = path_counts()
     param_err = max((p.detach().cpu() - named["cpu"][n].detach()).abs().max().item()
                     / (1.0 + named["cpu"][n].detach().abs().max().item())
                     for n, p in named["cuda"].items())
@@ -3306,13 +3489,15 @@ def main() -> None:
         steps_report=step_report,
         grad_max_rel_err=grad_rel, grads_compared=n_grads, grad_worst=grad_errs[:3],
         param_err_after_2_steps=param_err,
-        launches=train_small_launches)
+        launches=train_small_launches, by_kernel=train_small_paths)
     if not param_err <= 1e-5:           # two lr·momentum updates of the gradients above
         fail(f"narrow train step: parameters differ by {param_err} after 2 steps")
     if train_small_launches != {k: 2 * (7 if k == "msda_bwd" else v)
                                 for k, v in small_expect.items()}:
         fail(f"narrow train step: launches {train_small_launches}, expected {small_expect} "
              "and 7 MSDA backwards per step")
+    if train_small_paths != paths_expected("tf32x3", train_small_launches):
+        fail(f"narrow train step: launches by kernel {train_small_paths}")
     del base, trainers, named, bufs
 
     # ---- 6b. narrow SSL step: CPU plain paths vs CUDA kernels, fp32 (TF32
@@ -3565,7 +3750,7 @@ def main() -> None:
     # ---- 8g. the SSL checkpoint and resume at full width (`ssl_resume_run`)
     ssl_resume_run(counts, reset_counts, expect_ssl, smi)
 
-    # ---- 8h. the other models and decoders at the paper's width, 12 ViT-L blocks
+    # ---- 8h. the other models and decoders at the paper's width, 6 ViT-L blocks
     # (`variant_runs`)
     variant_runs(counts, reset_counts, smi)
 
@@ -3597,6 +3782,19 @@ def main() -> None:
     # ---- 8q. the DETR stack's deformable decoder, K1/K2 against the plain
     # MSDA on the card (`detr_decoder_check`)
     detr_decoder_check(counts, reset_counts)
+
+    # ---- 8r. the ViT-L train step in fp32 (train_seg's default precision),
+    # K1-K4 and K6 against their plain versions, on two seeds (M9's fp32
+    # half: `seg_step_gate` with fp32)
+    for seed in (0, 1):
+        seg_step_gate(counts, reset_counts, expect(1, 7, PER_FORWARD_FP32), seed=seed,
+                      batch=FP32_GATE_BATCH, faults=("heads moved",), fp32=True)
+
+    # ---- 8s. train_seg at train.py's own example precision, ViT-L/14 at
+    # 588 px, batch 12 (`variant_runs` with FP32_RUNS)
+    fp32_run = variant_runs(counts, reset_counts, smi, runs=FP32_RUNS, flags=fp32_argv,
+                            want=fp32_expect, evaluated=FP32_RUNS[0][0], phase="8s",
+                            depth=None, batch=FP32_TRAIN_BATCH)
 
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
@@ -3685,12 +3883,23 @@ def main() -> None:
         row["m2f_shapes"] = {
             k: {"ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "library_ms": times[k][2], "device_ms": dev[k][0],
-                **{e: extra[k][e] for e in ("l2_tb_per_s", "tflops_device")
+                **{e: extra[k][e] for e in ("l2_tb_per_s", "tflops_device",
+                                         "bound_fp32_cuda_cores")
                    if e in extra.get(k, {})}}
             for k in times if k.startswith("m2f ") and kname in k.split()}
         row["launches_m2f_step"] = {
             "bench_m2f": m2f_run["bench_m2f"]["per_step"][kname],
             "segment_m2f": m2f_run["segment_m2f vit_large fp32"]["per_train_step"][0][kname]}
+        # the fp32 kernels at train_seg's batch 16 ("fp32 ..." keys), each
+        # bound that of 3×TF32 with the CUDA cores' fp32 bound beside it,
+        # and the launches per step of 8s (train_seg in fp32, batch 12)
+        row["fp32_shapes"] = {
+            k: {"ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": times[k][2], "device_ms": dev[k][0],
+                **{e: extra[k][e] for e in ("bound_fp32_cuda_cores", "cublas_gemm", "unfused",
+                                            "tflops_device") if e in extra.get(k, {})}}
+            for k in times if k.startswith("fp32 ") and kname in k.split()}
+        row["launches_fp32_step"] = fp32_run["train_seg fp32"]["per_train_step"][kname]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3724,7 +3933,8 @@ def times_only() -> None:
 def gate_only() -> None:
     """`--gate`: the build, phase 8e (seed 0 with `SEG_GATE_PROBES`, then
     seed 1) and `seg_gate_ablation`: to measure the gate's floor, or to run
-    the gate on another tree's kernels (copy this script into its root)."""
+    the gate on another tree's kernels (copy this script into its root; it
+    reads K3's counts by kernel, `path_counts`)."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     sys.path.insert(0, str(ROOT))
@@ -3744,12 +3954,70 @@ def gate_only() -> None:
     seg_gate_ablation(*counters)
 
 
+# `--fp32-steps`: 8s's and 8m's commands whole (train_seg's synthetic epoch
+# is 8 steps, segment_m2f's 4, run for FP32_STEP_EPOCHS epochs)
+FP32_STEP_EPOCHS = 3
+
+
+def fp32_steps_only() -> None:
+    """`--fp32-steps`: the build, then the user's fp32 steps as phases 8s and
+    8m run them, uncut: `train_seg --arch vit_large --patch_size 14 --imsize
+    588 --batch_size_per_gpu 12 --lr 0.01 --synthetic` (exact GELU, one
+    epoch) and `segment_m2f --arch vit_large --imsize 518
+    --batch_size_per_gpu 4 --synthetic` (`FP32_STEP_EPOCHS` epochs), each
+    epoch's img/s over its steps after the first, peak memory and the
+    launches, failing only on a loss that is not finite: to compare two
+    trees' fp32 steps in one call (copy this script into the other tree's
+    root). It reads no counter but the wrappers' totals, and keeps
+    PyTorch's precision defaults, as the user's command runs (matmuls in
+    fp32, cuDNN's convolutions allowed TF32; 8s turns cuDNN's TF32 off)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch import segment_m2f, train_seg
+    from adaptersis_tpu_torch.ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.library()
+    say("device", name=torch.cuda.get_device_name(0), root=str(ROOT),
+        nvidia_smi=smi[0] if smi else "unavailable", build_s=time.perf_counter() - t0)
+    counts = launch_counters()[0]
+    work = ROOT / "build" / "fp32_steps"
+    shutil.rmtree(work, ignore_errors=True)
+    runs = (("train_seg fp32", train_seg,
+             [*fp32_argv(), "--lr", "0.01", "--synthetic", "--epochs", "1", "--seed", "0"]),
+            ("segment_m2f vit_large fp32", segment_m2f,
+             ["--arch", "vit_large", "--imsize", "518", "--batch_size_per_gpu", str(M2F_BATCH),
+              "--synthetic", "--epochs", str(FP32_STEP_EPOCHS)]))
+    for name, entry, argv in runs:
+        torch.cuda.reset_peak_memory_stats()
+        before, t = counts(), time.perf_counter()
+        hist = entry.main([*argv, "--num_workers", "4",
+                           "--output_dir", str(work / name.split()[0])])
+        after = counts()
+        say("fp32_step", name=name, argv=argv, seconds=time.perf_counter() - t,
+            img_per_s=[h["train_img_per_s"] for h in hist],
+            peak_mem_bytes=[h["peak_mem_bytes"] for h in hist],
+            launches={k: after[k] - before[k] for k in after},
+            nvidia_smi=smi[0] if smi else "unavailable")
+        if not all(math.isfinite(v) for h in hist for v in h["train_losses"]):
+            fail(f"{name}: losses not finite")
+        del hist
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--times"]:
         times_only()
     elif sys.argv[1:] == ["--gate"]:
         gate_only()
+    elif sys.argv[1:] == ["--fp32-steps"]:
+        fp32_steps_only()
     elif sys.argv[1:]:
-        fail(f"usage: python3 chip_smoke.py [--times | --gate], got {sys.argv[1:]}")
+        fail(f"usage: python3 chip_smoke.py [--times | --gate | --fp32-steps], "
+             f"got {sys.argv[1:]}")
     else:
         main()
