@@ -11,12 +11,16 @@ frozen walks run the kernels K3 (attention), K4 (LN → qkv), K5 (LN → MLP)
 and K6 (the final LayerNorm); the adapters K1 and K2 (deformable attention).
 Weights and augmentation draws come from seed 0, as in the JAX bench. 2
 warm-up steps, then `--repeats` windows of `--steps` steps, each ending in a
-synchronise on the loss; the median window is reported.
+synchronise on the loss; the median window is reported. Under `torchrun
+--nproc_per_node W` every rank steps on `--batch` images, its rows of a
+global batch of W·`--batch` drawn from the same seeds, with the gradients
+all-reduced (the JAX bench's `BATCH * n_chips`).
 
 Prints one JSON line: metric, value (img/s), unit, spread (the slowest and
 fastest window), mfu (analytic FLOPs of the step, `utils/flops.py`, over the
 card's dense bf16 peak; null off the card), peak_mem_gib (null off the
-card), the device's name, the batch and the last loss.
+card), the device's name, the batch per rank, the world size, the global
+img/s (`value` is per GPU) and the last loss; rank 0 alone prints.
 """
 
 from __future__ import annotations
@@ -30,10 +34,12 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from .data.augment import draw_train_augment, draws_to
+from .data.augment import draw_train_augment, draws_to, rank_rows
 from .models.segmentor import AdapterSegmentor
 from .models.vit import build_backbone
 from .train.convert import seeded_init_
+from .parallel.dist import get_rank, get_world_size, init_distributed, print_on_main_only
+from .parallel.mesh import get_mesh
 from .train.trainer import Trainer
 from .utils.flops import train_step_flops
 
@@ -55,11 +61,13 @@ def get_args_parser(prog: str) -> argparse.ArgumentParser:
 
 
 def setup(args) -> torch.device:
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    """This rank's device, the process group joined under torchrun."""
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         sys.exit("error: no CUDA device is available (use --device cpu for the plain path)")
     if args.imsize % PATCH:
         sys.exit(f"error: --imsize {args.imsize} must be divisible by the patch size {PATCH}")
+    device = init_distributed("env://", args.device)
+    print_on_main_only()
     return device
 
 
@@ -100,15 +108,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     B, S = args.batch, args.imsize
     model = build_model(args)
     E, depth = model.backbone.embed_dim, model.backbone.depth
-    trainer = Trainer(model.to(device), bf16=True)
+    W, mine = get_world_size(), slice(get_rank(), None, get_world_size())
+    trainer = Trainer(model.to(device), bf16=True, mesh=get_mesh(1, device.type))
     rng = np.random.default_rng(0)
-    imgs = torch.from_numpy(rng.integers(0, 256, (B, S, S, 3), np.uint8)).to(device)
-    masks = torch.from_numpy((rng.uniform(size=(B, S, S)) > 0.8).astype(np.int32)).to(device)
+    imgs = torch.from_numpy(rng.integers(0, 256, (B * W, S, S, 3), np.uint8)[mine]).to(device)
+    masks = torch.from_numpy(
+        (rng.uniform(size=(B * W, S, S)) > 0.8).astype(np.int32)[mine]).to(device)
     gen = torch.Generator().manual_seed(0)
     losses = []
 
     def step() -> torch.Tensor:
-        draws = draws_to(draw_train_augment(gen, B, S, use_clahe=True), device)
+        draws = draws_to(rank_rows(draw_train_augment(gen, B * W, S, use_clahe=True)), device)
         losses.append(trainer.train_step(imgs, masks, draws, epoch=0))
         return losses[-1]
 
@@ -124,7 +134,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     result = {"metric": "vitl14_588_adapter_train_images_per_sec_per_gpu", "value": value,
               "unit": "img/s/gpu", "spread": [min(rates), max(rates)], "mfu": mfu,
               "peak_mem_gib": peak_mem, "device": device_name(device), "batch": B,
-              "loss": float(losses[-1])}
+              "world_size": W, "global_img_per_s": value * W, "loss": float(losses[-1])}
     print(json.dumps(result), flush=True)
     return result
 

@@ -14,12 +14,16 @@ fp32 parameters and heads. Weights from seed 0; one batch of random frames
 1) and its masks (seed 7), all made once and kept on the device. 2 warm-up
 steps, then `--repeats` windows of `--steps` steps, each ending in a
 synchronise on the loss; the median window is reported. img/s counts
-source images, each giving 2 global and 8 local crops.
+source images, each giving 2 global and 8 local crops. Under `torchrun
+--nproc_per_node W` every rank steps on `--batch` images, its rows of a
+global batch of W·`--batch` (images, draws and masks from the same seeds),
+the student and teacher under FSDP2 on a (W, 1) mesh.
 
 Prints one JSON line: metric, value (img/s), unit, ms_step, batch, spread
 (the slowest and fastest window), mfu (`utils/flops.py:ssl_step_flops` over
 the card's dense bf16 peak; null off the card), peak_mem_gib (null off the
-card), the device's name and the last loss. `--profile` then traces 3 more
+card), the device's name, the world size, the global img/s (`value` is per
+GPU) and the last loss; rank 0 alone prints. `--profile` then traces 3 more
 steps with torch.profiler and prints the device's activities by name and
 the idle share.
 """
@@ -35,11 +39,13 @@ import numpy as np
 import torch
 
 from .bench import device_name, peak_bf16_flops, setup, timed_windows
-from .data.augment import draws_to
+from .data.augment import draws_to, rank_rows
 from .models.layers import TRAINED
 from .models.vit import build_backbone
 from .ssl.augment import apply_multicrop, draw_multicrop
-from .ssl.masking import MaskingGenerator, collate_masks_with_indices
+from .parallel.dist import get_rank, get_world_size
+from .parallel.mesh import get_mesh
+from .ssl.masking import MaskingGenerator, collate_masks_with_indices, rank_masks
 from .ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to, schedule_values
 from .train.schedules import cosine_scheduler
 from .train_seg import profile_table
@@ -75,7 +81,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                               ln_impl=ln_impl, qkv_impl=qkv_impl, mlp_impl=mlp_impl)
     cfg = SSLConfig(dino_out_dim=args.out_dim, ibot_out_dim=args.out_dim,
                     n_local_crops=args.n_local)
-    arch = SSLMetaArch(backbone, cfg, bf16=True).to(device)
+    W, rank = get_world_size(), get_rank()
+    arch = SSLMetaArch(backbone, cfg, bf16=True).to(device).shard(get_mesh(1, device.type))
     schedules = {   # the shapes of pretrain's; the values do not change the work
         "lr": cosine_scheduler(1e-3, 1e-6, 1, 1000),
         "wd": cosine_scheduler(0.04, 0.4, 1, 1000),
@@ -83,15 +90,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "teacher_temp": np.full(1000, 0.07),
         "last_layer_lr": cosine_scheduler(1e-3, 1e-6, 1, 1000),
     }
-    imgs = np.random.default_rng(0).integers(0, 256, (B, G + 32, G + 32, 3), np.uint8)
-    imgs = torch.from_numpy(imgs).to(device)
-    draws = draws_to(draw_multicrop(torch.Generator().manual_seed(1), B, args.n_local), device)
-    g, l = apply_multicrop(imgs, draws, G, args.local_size)
+    imgs = np.random.default_rng(0).integers(0, 256, (B * W, G + 32, G + 32, 3), np.uint8)
+    imgs = torch.from_numpy(imgs[rank::W]).to(device)
+    draws = draw_multicrop(torch.Generator().manual_seed(1), B * W, args.n_local)
+    g, l = apply_multicrop(imgs, draws_to(rank_rows(draws), device), G, args.local_size)
     grid = G // PATCH
-    info = collate_masks_with_indices(g.shape[0], grid * grid,
-                                      MaskingGenerator((grid, grid),
-                                                       num_masking_patches=grid * grid // 2),
-                                      seed=7)
+    info = rank_masks(collate_masks_with_indices(2 * B * W, grid * grid,
+                                                 MaskingGenerator((grid, grid),
+                                                                  num_masking_patches=grid * grid
+                                                                  // 2),
+                                                 seed=7), grid * grid, rank, W)
     masks = masks_to(info, device)
     losses, it = [], [0]
 
@@ -114,7 +122,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     result = {"metric": f"{args.arch}_dino_ibot_multicrop_train_images_per_sec_per_gpu",
               "value": value, "unit": "img/s/gpu", "ms_step": 1000.0 * B / value, "batch": B,
               "spread": [min(rates), max(rates)], "mfu": mfu, "peak_mem_gib": peak_mem,
-              "device": device_name(device), "loss": float(losses[-1])}
+              "device": device_name(device), "world_size": W, "global_img_per_s": value * W,
+              "loss": float(losses[-1])}
     print(json.dumps(result), flush=True)
     if args.profile:
         acts = [torch.profiler.ProfilerActivity.CPU]

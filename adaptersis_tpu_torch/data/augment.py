@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..parallel.dist import get_rank, get_world_size
 from .clahe import clahe_rgb
 
 Draws = Dict[str, torch.Tensor]
@@ -54,6 +55,14 @@ def draw_train_augment(generator: torch.Generator, B: int, S: int,
     draws.update(bc=bernoulli(0.8), alpha=1.0 + uniform(-0.2, 0.2), beta=uniform(-0.2, 0.2),
                  gamma_on=bernoulli(0.8), gamma=uniform(0.8, 1.2))
     return draws
+
+
+def rank_rows(draws: Draws) -> Draws:
+    """This rank's rows of per-image draws made for the global batch: rows
+    rank, rank + W, …, the rows of the images the sampler gives it (all of
+    them in a single process)."""
+    W = get_world_size()
+    return draws if W == 1 else {k: v[get_rank()::W] for k, v in draws.items()}
 
 
 def draws_to(draws: Draws, device: torch.device) -> Draws:

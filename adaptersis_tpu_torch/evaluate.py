@@ -31,11 +31,15 @@ import torch
 from .data import native
 from .data.datasets import DATASETS
 from .data.loader import DataLoader
+from .data.samplers import EpochSampler
 from .data.synthetic import SyntheticSeg
 from .models.layers import TRAINED
 from .models.segmentor import AdapterSegmentor
 from .models.tap_segmentor import TapSegmentor
 from .models.vit import build_backbone
+from .parallel.dist import (all_reduce_sum, get_rank, get_world_size, init_distributed,
+                            print_on_main_only)
+from .parallel.mesh import broadcast_module
 from .train.convert import load_dinov2_backbone, load_flax_variables, seeded_init_
 from .train.trainer import cast_for_inference, eval_step
 
@@ -91,6 +95,9 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", type=str)
     p.add_argument("--flax_variables", default="", type=str,
                    help=".npz of flax variables (keys 'params/...', 'batch_stats/...')")
+    p.add_argument("--dist_url", default="env://", type=str,
+                   help="the rendezvous of several ranks, as train_seg's")
+    p.add_argument("--local-rank", "--local_rank", default=0, type=int, dest="local_rank")
     return p
 
 
@@ -141,17 +148,58 @@ def build_model(args) -> torch.nn.Module:
 
 
 def validation_set(args, root: str = ""):
-    """The validation set `args` name: synthetic frames, or the validation
-    split of `--dataset` under `root` (default `--data_path`), resized to
-    `--imsize`."""
+    """The validation set `args` name: synthetic frames (`--val_images`,
+    default 2 global batches), or the validation split of `--dataset` under
+    `root` (default `--data_path`), resized to `--imsize`."""
     if args.synthetic or args.dataset == "synthetic":
-        return SyntheticSeg(n=getattr(args, "val_images", 0) or 2 * args.batch_size_per_gpu,
-                            imsize=args.imsize, num_classes=args.num_classes, seed=args.seed + 1)
+        n = getattr(args, "val_images", 0) or 2 * args.batch_size_per_gpu * get_world_size()
+        return SyntheticSeg(n=n, imsize=args.imsize, num_classes=args.num_classes,
+                            seed=args.seed + 1)
     ds = DATASETS[args.dataset](root or args.data_path, split="validation", imsize=args.imsize)
     if not len(ds):
         sys.exit(f"error: no validation images of --dataset {args.dataset} under "
                  f"{root or args.data_path}")
     return ds
+
+
+def val_loader(ds, batch_size: int, num_workers: int, pin: bool) -> DataLoader:
+    """This rank's share of a validation set, in order: rows rank, rank + W,
+    …, the set padded to a multiple of W with its first rows (which
+    `sharded_metrics` leaves out of the metrics)."""
+    sampler = EpochSampler(len(ds), shuffle=False, rank=get_rank(), world_size=get_world_size(),
+                           drop_last=False)
+    return DataLoader(ds, sampler=sampler, batch_size=batch_size, num_workers=num_workers,
+                      drop_last=False, pin_memory=pin)
+
+
+def to_device(t, device: torch.device) -> torch.Tensor:
+    """A batch array (or pinned tensor) on `device`, copied without a wait."""
+    t = torch.from_numpy(t) if isinstance(t, np.ndarray) else t
+    return t.to(device, non_blocking=True)
+
+
+def sharded_metrics(step, loader: DataLoader, device: torch.device) -> dict:
+    """Σ over the loader's rows of `step(imgs, masks, valid)`'s per-image
+    means (its preds and logits left out) ÷ the count of real rows, over
+    every rank. A row is real when its place in the padded order, rank + i·W
+    for the rank's i-th row, lies inside the set."""
+    rank, W, size = get_rank(), get_world_size(), len(loader.dataset)
+    sums, n_images, seen = {}, 0, 0
+    for imgs, masks, _ in loader:
+        n = imgs.shape[0]
+        valid = rank + (seen + np.arange(n)) * W < size
+        seen += n
+        n_valid = int(valid.sum())
+        out = step(to_device(imgs, device), to_device(masks, device),
+                   to_device(valid, device))
+        n_images += n_valid
+        for k, v in out.items():
+            if k not in ("preds", "logits"):
+                sums[k] = sums.get(k, 0.0) + float(v) * n_valid
+    keys = sorted(sums)
+    total = all_reduce_sum(torch.tensor([n_images] + [sums[k] for k in keys],
+                                        dtype=torch.float64, device=device)).tolist()
+    return {k: v / total[0] for k, v in zip(keys, total[1:])}
 
 
 def data_decoder(args) -> str:
@@ -167,26 +215,24 @@ def data_decoder(args) -> str:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = get_args_parser().parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         sys.exit("error: no CUDA device is available (use --device cpu for the plain path)")
     if args.imsize % args.patch_size:
         sys.exit(f"error: --imsize {args.imsize} must be divisible by --patch_size "
                  f"{args.patch_size}")
+    device = init_distributed(args.dist_url, args.device, args.local_rank)
+    print_on_main_only()
     decoder = data_decoder(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = cast_for_inference(build_model(args), dtype).to(device).eval()
+    model = broadcast_module(cast_for_inference(build_model(args), dtype).to(device).eval())
     ds = validation_set(args)
-    loader = DataLoader(ds, batch_size=args.batch_size_per_gpu, num_workers=args.num_workers,
-                        drop_last=False)
+    loader = val_loader(ds, args.batch_size_per_gpu, args.num_workers, False)
+    finite, times, sizes = True, [], []
 
-    sums = {}
-    n_images, finite, times, sizes = 0, True, [], []
-    for imgs, masks, _ in loader:
-        imgs = torch.from_numpy(imgs).to(device)
-        masks = torch.from_numpy(masks).to(device)
+    def step(imgs, masks, valid):
+        nonlocal finite
         t0 = time.perf_counter()
-        out = eval_step(model, imgs, masks, input_norm=input_norm(args.model))
+        out = eval_step(model, imgs, masks, valid, input_norm=input_norm(args.model))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
@@ -195,20 +241,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
             raise RuntimeError(f"logits of shape {tuple(out['logits'].shape)} for a batch "
                                f"of {n} images of {args.imsize} px")
         finite &= bool(torch.isfinite(out["logits"]).all())
-        n_images += n
         sizes.append(n)
-        for k, v in out.items():
-            if k not in ("preds", "logits"):
-                sums[k] = sums.get(k, 0.0) + float(v) * n
-    stats = {k: v / n_images for k, v in sums.items()}
+        return out
+
+    stats = sharded_metrics(step, loader, device)
     # the first batch carries one-time costs (kernel build, cuDNN autotune)
     steady, steady_n = (times[1:], sizes[1:]) if len(times) > 1 else (times, sizes)
-    stats.update(images=n_images, batches=len(times), logits_finite=finite,
-                 img_per_s=sum(steady_n) / sum(steady), decoder=decoder,
+    W = get_world_size()
+    stats.update(images=len(ds), batches=len(times), logits_finite=finite,
+                 img_per_s=W * sum(steady_n) / sum(steady), world_size=W, decoder=decoder,
                  device=(torch.cuda.get_device_name(device) if device.type == "cuda"
                          else "cpu"))
     print(json.dumps(stats))
-    print(f"Accuracy of the network on the {n_images} test images: "
+    print(f"Accuracy of the network on the {len(ds)} test images: "
           f"{stats['acc1'] * 100:.1f}%")
     return stats
 

@@ -7,8 +7,60 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+
+def _stats_group():
+    """The process group a training-mode BatchNorm reduces over: the world,
+    when there are several ranks; None otherwise."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalisation over the global batch of every
+    rank: the per-channel count, Σx and Σx² all-reduced in fp32, the mean
+    and flax's variance E[x²] − E[x]² from them; the backward all-reduces
+    Σdy and Σdy·x̂, so dx is the global batch's. The parameter gradients are
+    this rank's share (the trainer averages them over the ranks, as every
+    rank's loss is its own rows' mean)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        C = x.shape[1]
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                           xf.new_full((1,), float(xf.numel() // C))])
+        dist.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean = stats[:C] / n
+        var = (stats[C:2 * C] / n - mean * mean).clamp(min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        shape = [1, C] + [1] * (x.dim() - 2)
+        xhat = (xf - mean.reshape(shape)) * rstd.reshape(shape)
+        y = xhat * weight.to(xf.dtype).reshape(shape) + bias.to(xf.dtype).reshape(shape)
+        ctx.save_for_backward(xhat, weight, rstd, n)
+        ctx.group, ctx.dims, ctx.shape = group, dims, shape
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, rstd, n = ctx.saved_tensors
+        C, shape = xhat.shape[1], ctx.shape
+        dyf = dy.to(xhat.dtype)
+        local = torch.cat([dyf.sum(ctx.dims), (dyf * xhat).sum(ctx.dims)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        sum_dy, sum_dy_xhat = sums[:C].reshape(shape), sums[C:].reshape(shape)
+        scale = (weight.to(xhat.dtype) * rstd).reshape(shape) / n
+        dx = scale * (n * dyf - sum_dy - xhat * sum_dy_xhat)
+        return (dx.to(dy.dtype), local[C:].to(weight.dtype), local[:C].to(weight.dtype),
+                None, None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -16,7 +68,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     momentum 0.9):
     normalise with the batch mean and the biased batch variance, and update
     the running stats as 0.9·old + 0.1·batch with the BIASED variance, where
-    torch's own update puts the unbiased one into running_var. Parameter and
+    torch's own update puts the unbiased one into running_var. With several
+    ranks the batch is the global one (`_GlobalBatchNorm`), as the JAX
+    package's statistics are global under its mesh; `nn.SyncBatchNorm`
+    refuses CPU tensors and writes the unbiased variance. Parameter and
     buffer names are torch's, so the weight bridge is unchanged."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
@@ -25,6 +80,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = _stats_group()
+        if group is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
+            with torch.no_grad():
+                self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+            return y
         n = x.numel() // x.shape[1]
         # torch's op updates copies (autograd keeps them, so the buffers may
         # change after it): mean 0.9·old + 0.1·batch, var 0.9·old + 0.1·unbiased

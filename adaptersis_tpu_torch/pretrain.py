@@ -25,9 +25,17 @@ the sampler advanced by iteration × batch, step for step.
 `ASN_PREEMPT_AT=n` stops the run after iteration n without saving (a
 preemption, for tests). Without `--output_dir` nothing is saved.
 
+Under `torchrun --nproc_per_node W` (or `srun`, one task per GPU) the run
+is data-parallel over W ranks (`SSLMetaArch.shard`): each rank takes
+`--batch_size_per_gpu` images a step from its slice of the sampler, and its
+own rows of the crops' draws and of the masks made for the global batch;
+the lr scales with the global batch. `--fsdp n` shards the student, the
+teacher and Adam's moments over groups of n ranks (n must divide W). Rank 0
+alone prints and saves; checkpoints hold whole tensors, so a run resumes at
+any world size.
+
 The JAX `pretrain.py` always trains on synthetic frames, whatever
-`--data_path` says; the port exits on `--data_path` instead, and on
-`--fsdp` above 1 (ROADMAP.md, M10).
+`--data_path` says; the port exits on `--data_path` instead.
 """
 
 from __future__ import annotations
@@ -43,14 +51,16 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .data.augment import draws_to
+from .data.augment import draws_to, rank_rows
 from .data.loader import DataLoader
 from .data.samplers import ShardedInfiniteSampler
 from .data.synthetic import SyntheticSeg
 from .models.layers import TRAINED
 from .models.vit import build_backbone
 from .ssl.augment import apply_multicrop, draw_multicrop
-from .ssl.masking import MaskingGenerator, collate_masks_with_indices
+from .parallel.dist import get_rank, get_world_size, init_distributed, print_on_main_only
+from .parallel.mesh import get_mesh
+from .ssl.masking import MaskingGenerator, collate_masks_with_indices, rank_masks
 from .ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to, schedule_values
 from .train.checkpoint import PeriodicCheckpointer, restore_checkpoint
 from .train.schedules import cosine_scheduler
@@ -60,7 +70,7 @@ def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "adaptersis-torch-pretrain",
         epilog="The run trains on synthetic frames, as the JAX pretrain.py does whatever its "
-               "--data_path says; more than one device is not ported yet.")
+               "--data_path says.")
     p.add_argument("--arch", default="vit_small")
     p.add_argument("--patch_size", default=14, type=int)
     p.add_argument("--global_crops_size", default=224, type=int)
@@ -90,7 +100,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic frames (what the run trains on in any case)")
     p.add_argument("--fsdp", default=1, type=int,
-                   help="parameter sharding over this many devices: only 1 is ported")
+                   help="shard the student, the teacher and Adam's moments over groups of this "
+                        "many ranks (FSDP2); it must divide the world size")
     p.add_argument("--official_epoch_length", default=1250, type=int,
                    help="iterations per epoch (schedules are iteration-keyed)")
     p.add_argument("--scaling_rule", default="sqrt_wrt_1024", choices=["sqrt_wrt_1024", "none"],
@@ -98,18 +109,22 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_epoch", default=0, type=int,
                    help="override official_epoch_length (smoke tests)")
     p.add_argument("--device", default="cuda", type=str)
+    p.add_argument("--dist_url", default="env://", type=str,
+                   help="the rendezvous of several ranks, as train_seg's")
+    p.add_argument("--local-rank", "--local_rank", default=0, type=int, dest="local_rank")
     p.add_argument("--bf16", action="store_true",
                    help="backbones under bf16 autocast (fp32 parameters and heads)")
     return p
 
 
 def setup(args) -> torch.device:
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    """This rank's device, the process group joined when there are several."""
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         sys.exit("error: no CUDA device is available (use --device cpu for the plain path)")
-    if args.fsdp != 1:
-        sys.exit(f"error: --fsdp {args.fsdp}: sharding over several devices is not ported yet "
-                 "(ROADMAP.md, M10: data parallelism)")
+    device = init_distributed(args.dist_url, args.device, args.local_rank)
+    if args.fsdp < 1 or get_world_size() % args.fsdp:
+        sys.exit(f"error: --fsdp {args.fsdp} does not divide the world size {get_world_size()}")
+    print_on_main_only()
     if args.data_path:
         sys.exit("error: --data_path: image folders are not ported; the JAX pretrain.py "
                  "trains on synthetic frames whatever it says, so use --synthetic")
@@ -155,12 +170,14 @@ def run(args) -> Tuple[SSLMetaArch, List[dict]]:
     """Train as the flags say; returns the trained meta-architecture and the
     per-epoch stats."""
     device = setup(args)
-    global_batch = args.batch_size_per_gpu
+    rank, W = get_rank(), get_world_size()
+    B = args.batch_size_per_gpu
+    global_batch = B * W
     if args.scaling_rule == "sqrt_wrt_1024":
         base_lr = args.lr
         args.lr = base_lr * math.sqrt(global_batch / 1024.0)
         print(f"sqrt scaling learning rate; base: {base_lr}, new: {args.lr}", flush=True)
-    arch = build_arch(args).to(device)
+    arch = build_arch(args).to(device).shard(get_mesh(args.fsdp, device.type))
 
     ds = SyntheticSeg(n=max(global_batch * 4, 64), imsize=args.global_crops_size + 32,
                       seed=args.seed)
@@ -182,8 +199,9 @@ def run(args) -> Tuple[SSLMetaArch, List[dict]]:
             it = int(state["iteration"])
             print(f"resumed from {last} at iteration {it}", flush=True)
     # every draw is keyed by the iteration, so a resumed run repeats them
-    sampler = ShardedInfiniteSampler(len(ds), seed=args.seed, advance=it * global_batch)
-    batches = iter(DataLoader(ds, sampler=sampler, batch_size=global_batch, num_workers=4))
+    sampler = ShardedInfiniteSampler(len(ds), seed=args.seed, rank=rank, world_size=W,
+                                     advance=it * B)
+    batches = iter(DataLoader(ds, sampler=sampler, batch_size=B, num_workers=4))
     gen = torch.Generator()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -193,11 +211,12 @@ def run(args) -> Tuple[SSLMetaArch, List[dict]]:
     while it < total:
         imgs = torch.from_numpy(next(batches)[0]).to(device)
         gen.manual_seed(args.seed * 1_000_003 + it)
-        g, l = apply_multicrop(imgs, draws_to(draw_multicrop(gen, global_batch,
-                                                             args.local_crops_number), device),
-                               args.global_crops_size, args.local_crops_size)
-        masks = collate_masks_with_indices(g.shape[0], n_tokens, mask_gen,
-                                           seed=args.seed * 100000 + it)
+        draws = rank_rows(draw_multicrop(gen, global_batch, args.local_crops_number))
+        g, l = apply_multicrop(imgs, draws_to(draws, device), args.global_crops_size,
+                               args.local_crops_size)
+        masks = rank_masks(collate_masks_with_indices(2 * global_batch, n_tokens, mask_gen,
+                                                      seed=args.seed * 100000 + it),
+                           n_tokens, rank, W)
         metrics = arch.train_step(g, l, masks_to(masks, device),
                                   **schedule_values(schedules, min(it, total - 1)))
         values = {k: float(v) for k, v in metrics.items()}     # waits for the step

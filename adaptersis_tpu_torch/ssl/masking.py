@@ -111,6 +111,13 @@ def collate_masks_with_indices(batch_size: int, n_tokens: int,
     masks = collate_masks(batch_size, n_tokens, mask_generator,
                           mask_ratio_range, mask_probability, seed)
     ub = mask_upperbound(batch_size, n_tokens, mask_ratio_range, mask_probability)
+    return mask_info(masks, ub)
+
+
+def mask_info(masks: np.ndarray, ub: int) -> MaskInfo:
+    """The gathered-token plumbing of (B, n_tokens) bool masks, padded to
+    `ub` rows."""
+    n_tokens = masks.shape[1]
     idx = np.nonzero(masks.reshape(-1))[0].astype(np.int32)
     n_masked = idx.shape[0]
     assert n_masked <= ub, (n_masked, ub)
@@ -120,3 +127,21 @@ def collate_masks_with_indices(batch_size: int, n_tokens: int,
     indices[:n_masked] = idx
     weights[:n_masked] = (1.0 / per_sample)[idx // n_tokens]
     return MaskInfo(masks=masks, indices=indices, weights=weights, n_masked=np.int32(n_masked))
+
+
+def rank_masks(info: MaskInfo, n_tokens: int, rank: int, world_size: int,
+               mask_ratio_range: Tuple[float, float] = (0.1, 0.5),
+               mask_probability: float = 0.5) -> MaskInfo:
+    """A rank's share of the masks made for the global batch's 2B global
+    crops ([crop 0 of the B images; crop 1 of them]): the rows of its
+    images rank, rank + W, … in both halves, re-gathered and padded to the
+    largest count any 2B/W of the rows can hold. One process: `info`."""
+    if world_size == 1:
+        return info
+    B = info.masks.shape[0] // 2
+    mine = np.arange(rank, B, world_size)
+    masks = info.masks[np.concatenate([mine, B + mine])]
+    n_masked_max = int(2 * B * mask_probability)
+    probs = np.linspace(*mask_ratio_range, n_masked_max + 1)
+    largest = sorted((int(n_tokens * probs[i + 1]) for i in range(n_masked_max)), reverse=True)
+    return mask_info(masks, sum(largest[:masks.shape[0]]))

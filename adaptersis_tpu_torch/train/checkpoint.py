@@ -11,6 +11,12 @@ good checkpoint in place. A restore maps every tensor onto the given device.
     name of the caller's own);
   * it writes a `last_checkpoint` tag naming the newest save;
   * at `max_iter − 1` it also saves `model_final`.
+
+With several ranks the state is gathered whole by every rank before a save
+(`Trainer.state_dict`, `SSLMetaArch.checkpoint_state`), rank 0 alone writes
+it, between barriers, in the single-process layout; every rank restores
+the whole file and cuts its own shards (`parallel/mesh.py:shard_like`), so
+a checkpoint resumes at any world size.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+
+from ..parallel.dist import barrier, is_main_process
 
 SUFFIX = ".pth"
 
@@ -44,6 +52,15 @@ def save_checkpoint(output_dir, state: Dict[str, Any], name: str = "checkpoint")
     path = checkpoint_path(output_dir, name)
     _atomic_write(path, lambda tmp: torch.save(state, tmp))
     return path
+
+
+def save_on_main(output_dir, state: Dict[str, Any], name: str = "checkpoint") -> None:
+    """Rank 0 writes `state` (`save_checkpoint`); every rank waits at a
+    barrier before and after, so none reads a half-written file."""
+    barrier()
+    if is_main_process():
+        save_checkpoint(output_dir, state, name=name)
+    barrier()
 
 
 def restore_checkpoint(output_dir, name: str = "checkpoint",
@@ -80,6 +97,14 @@ class PeriodicCheckpointer:
         _atomic_write(self.tag_path, lambda tmp: tmp.write_text(name))
 
     def step(self, iteration: int, state: Dict[str, Any]) -> None:
+        """Save what `iteration` calls for; with several ranks every rank
+        calls it and rank 0 writes, between barriers."""
+        barrier()
+        if is_main_process():
+            self._step(iteration, state)
+        barrier()
+
+    def _step(self, iteration: int, state: Dict[str, Any]) -> None:
         if (iteration + 1) % self.period == 0:
             name = f"model_{iteration:07d}"
             self.save(name, state)

@@ -11,6 +11,18 @@ and softmax in fp32. The kernels' dtype contracts hold under it: the frozen
 walks' kernels (LayerNorm, fused LN → qkv, attention, fused LN → MLP) take
 and return the walk's bf16 tokens, and the MSDA value is bf16 with fp32
 locations and weights (`ops/ms_deform_attn.py`).
+
+Data parallelism (W ranks, `parallel/`): every rank starts from rank 0's
+model, runs its own rows of the global batch and, after the backward,
+all-reduces the trainables' gradients (Σ, then ÷ W, one flat buffer per
+dtype in parameter order), so every rank takes the same SGD step; the
+BatchNorms' statistics are the global batch's (`models/encoders.py`). When
+the mesh's "fsdp" axis has more than one rank the backbone goes through
+FSDP2 over it: a frozen one is only all-gathered, a trained one
+(`tap_setr_ete`) has its gradients reduced by FSDP2, the flat all-reduce
+covering the rest. Plain `DistributedDataParallel` is not used:
+`encoder.fc1` and the skipped last CACNN round never reach the loss, and
+the zero gradients they take here must be averaged like the rest.
 """
 
 from __future__ import annotations
@@ -23,6 +35,9 @@ from torch import nn
 
 from ..data.augment import Draws, apply_input_norm, apply_train_augment, val_preprocess
 from ..losses import ch_iou, dc_loss, get_loss, isi_iou, pixel_accuracy, weighted_ce_pair
+from ..parallel.dist import all_reduce_mean, average_gradients
+from ..parallel.mesh import (FROZEN_METHODS, TRAINED_METHODS, broadcast_module, fsdp_shard,
+                             full_tree, is_sharded, shard_like)
 from .schedules import cosine_annealing
 
 # the reference recipe's SGD
@@ -59,11 +74,12 @@ class Trainer:
     reference's double softmax (validation feeds raw logits to DC: one
     softmax); of the raw logits without it, as the eval-script models
     train. `epoch` (the next to train) and `best_acc` travel with the state
-    (`state_dict`)."""
+    (`state_dict`). `mesh` (`parallel/mesh.py:get_mesh`, None for one
+    process) spreads the step over the job's ranks."""
 
     def __init__(self, model: nn.Module, lr: float = 0.01, epochs: int = 100,
                  bf16: bool = False, loss: str = "dc", softmax: bool = True,
-                 input_norm: str = "none"):
+                 input_norm: str = "none", mesh=None):
         self.model = model
         self.bf16 = bf16
         self.softmax = softmax
@@ -77,6 +93,10 @@ class Trainer:
             model.backbone.requires_grad_(False)
             if bf16:
                 _precast(model.backbone, model.backbone, torch.bfloat16)
+        broadcast_module(model)
+        if mesh is not None and mesh["fsdp"].size() > 1:
+            fsdp_shard(model.backbone, mesh,
+                       TRAINED_METHODS if self.train_backbone else FROZEN_METHODS)
         self.params = [p for name, p in model.named_parameters() if self._saved(name)]
         self.optimizer = torch.optim.SGD(self.params, lr=lr, momentum=MOMENTUM,
                                          weight_decay=WEIGHT_DECAY)
@@ -115,8 +135,10 @@ class Trainer:
             # reads no c1) still takes weight decay and momentum, as in optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        # FSDP2 has averaged a sharded trainable's gradient already
+        average_gradients([p for p in self.params if not is_sharded(p)])
         self.optimizer.step()
-        return loss.detach()
+        return all_reduce_mean(loss.detach())
 
     def eval_step(self, images_u8: torch.Tensor, masks: torch.Tensor,
                   valid: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -127,18 +149,29 @@ class Trainer:
         """Everything a resumed run reads: the trainables and the BatchNorm
         statistics (the model's state less a frozen backbone, which comes
         from the pretrained weights or the seed again), the SGD momentum
-        buffers, `epoch` and `best_acc`."""
-        return {"model": {k: v for k, v in self.model.state_dict().items() if self._saved(k)},
-                "optimizer": self.optimizer.state_dict(),
-                "epoch": self.epoch, "best_acc": self.best_acc}
+        buffers, `epoch` and `best_acc`. Sharded tensors come out whole (a
+        collective: every rank calls it), so the file does not depend on
+        the world size."""
+        return full_tree({"model": {k: v for k, v in self.model.state_dict().items()
+                                    if self._saved(k)},
+                          "optimizer": self.optimizer.state_dict(),
+                          "epoch": self.epoch, "best_acc": self.best_acc})
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        missing, unexpected = self.model.load_state_dict(state["model"], strict=False)
+        """`state_dict`'s whole tensors, each cut as its live counterpart
+        is sharded."""
+        live = self.model.state_dict()
+        model = {k: shard_like(v, live[k]) if k in live else v for k, v in state["model"].items()}
+        optim = dict(state["optimizer"])
+        optim["state"] = {i: {k: shard_like(v, self.params[int(i)]) if torch.is_tensor(v)
+                              and v.dim() else v for k, v in st.items()}
+                          for i, st in optim["state"].items()}
+        missing, unexpected = self.model.load_state_dict(model, strict=False)
         missing = [k for k in missing if self._saved(k)]
         if missing or unexpected:
             raise KeyError(f"checkpoint does not match the model: missing {missing}, "
                            f"unexpected {unexpected}")
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.load_state_dict(optim)
         self.epoch = int(state["epoch"])
         self.best_acc = float(state["best_acc"])
 

@@ -33,8 +33,19 @@ run after n epochs, once their checkpoint is saved (a preemption, for tests).
 Per model, as the JAX trainer: the eval-script models train on their raw
 logits, with their script's loss where `--loss` is left at "dc" (CE + DC;
 the mask transformer's weighted CE + argmax dice) and the mask transformer
-on ImageNet-normalised inputs. The port trains on one card: `--fsdp` above
-1 (ROADMAP.md, M10) exits.
+on ImageNet-normalised inputs.
+
+Under `torchrun --nproc_per_node W` (or `srun`, one task per GPU; see
+`parallel/dist.py`) the run is data-parallel over W ranks: each reads its
+share of every epoch's order (`--batch_size_per_gpu` images a step, so the
+global batch is W times that), augments its own rows of the draws made for
+the global batch, and all-reduces the gradients; the BatchNorm statistics
+are the global batch's. `--fsdp n` shards the frozen backbone over groups
+of n ranks (n must divide W). Validation shards the set over the ranks,
+pads it with rows left out of the metrics and all-reduces the sums, so the
+metrics are the single-process ones. Rank 0 alone prints, writes `log.txt`
+and saves; the checkpoint holds whole tensors, so a run resumes at any
+world size.
 """
 
 from __future__ import annotations
@@ -53,15 +64,18 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .data.augment import draw_train_augment, draws_to
+from .data.augment import draw_train_augment, draws_to, rank_rows
 from .data.datasets import DATASETS
 from .data.loader import DataLoader
 from .data.samplers import EpochSampler
 from .data.synthetic import SyntheticSeg
 from .evaluate import DECODERS, MODELS, build_model, data_decoder, input_norm, model_loss
-from .evaluate import validation_set
+from .evaluate import sharded_metrics, to_device as _to, val_loader, validation_set
 from .losses import get_loss
-from .train.checkpoint import restore_checkpoint, save_checkpoint
+from .parallel.dist import (barrier, get_rank, get_world_size, init_distributed,
+                            is_main_process, print_on_main_only)
+from .parallel.mesh import full_tree, get_mesh
+from .train.checkpoint import restore_checkpoint, save_on_main
 from .train.convert import save_flax_variables
 from .train.trainer import Trainer
 
@@ -88,10 +102,12 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", default=0.01, type=float)
     p.add_argument("--batch_size_per_gpu", default=16, type=int)
     p.add_argument("--dist_url", default="env://", type=str,
-                   help="the reference's flag, accepted and not acted on: the port trains on "
-                        "one card")
+                   help="the rendezvous of several ranks: env:// reads torchrun's or SLURM's "
+                        "variables; tcp://host:port takes --local_rank as the rank and "
+                        "WORLD_SIZE from the environment")
     p.add_argument("--local-rank", "--local_rank", default=0, type=int, dest="local_rank",
-                   help="the reference's flag, accepted and not acted on")
+                   help="this process's rank with a tcp:// --dist_url (torchrun sets "
+                        "LOCAL_RANK instead)")
     p.add_argument("--data_path", default="/path/to/imagenet/", type=str,
                    help="the dataset's root")
     p.add_argument("--num_workers", default=10, type=int,
@@ -124,7 +140,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--no_clahe", action="store_true")
     p.add_argument("--fsdp", default=1, type=int,
-                   help="sharding of the frozen backbone: only 1 is ported (ROADMAP.md, M10)")
+                   help="shard the frozen backbone over groups of this many ranks (FSDP2); "
+                        "it must divide the world size")
     p.add_argument("--parity_frozen_head", action="store_true",
                    help="reproduce the reference's accidental decoder-only training: the "
                         "decoder input is detached; the adapters and encoder still take "
@@ -186,12 +203,11 @@ def _arch_from_config(args) -> Tuple[str, int]:
     return student.get("arch", args.arch), student.get("patch_size", args.patch_size)
 
 
-def check_args(args) -> None:
-    """Exit on what the port does not do, naming ROADMAP.md's item, and on
-    an unknown loss."""
-    if args.fsdp != 1:
-        sys.exit(f"error: --fsdp {args.fsdp}: sharding over several devices is not ported "
-                 "yet (ROADMAP.md, M10: data parallelism)")
+def check_args(args, world_size: int = 1) -> None:
+    """Exit on an `--fsdp` that does not divide the world size and on an
+    unknown loss."""
+    if args.fsdp < 1 or world_size % args.fsdp:
+        sys.exit(f"error: --fsdp {args.fsdp} does not divide the world size {world_size}")
     get_loss(train_loss(args))
 
 
@@ -222,25 +238,6 @@ class InMemory:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _to(t, device: torch.device) -> torch.Tensor:
-    """A batch array (or pinned tensor) on `device`, copied without a wait."""
-    t = torch.from_numpy(t) if isinstance(t, np.ndarray) else t
-    return t.to(device, non_blocking=True)
-
-
-def validate(trainer: Trainer, loader: DataLoader, device: torch.device) -> dict:
-    """The eval step's metrics over the loader, each averaged over images."""
-    sums, n_images = {}, 0
-    for imgs, masks, _ in loader:
-        out = trainer.eval_step(_to(imgs, device), _to(masks, device))
-        n = imgs.shape[0]
-        n_images += n
-        for k, v in out.items():
-            if k not in ("preds", "logits"):
-                sums[k] = sums.get(k, 0.0) + float(v) * n
-    return {k: v / n_images for k, v in sums.items()}
 
 
 def profile_table(prof, device: torch.device, steps: int, seconds: float) -> str:
@@ -277,10 +274,12 @@ def _profiler(device: torch.device):
 def run(args) -> Tuple[Trainer, List[dict]]:
     """Train (or, with `--evaluate`, validate) as the flags say; returns the
     trainer and one stats dict per epoch run."""
-    check_args(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         sys.exit("error: no CUDA device is available (use --device cpu for the plain path)")
+    device = init_distributed(args.dist_url, args.device, args.local_rank)
+    rank, W = get_rank(), get_world_size()
+    check_args(args, W)
+    print_on_main_only()
     args.arch, args.patch_size = _arch_from_config(args)
     if args.imsize % args.patch_size:
         sys.exit(f"error: --imsize {args.imsize} must be divisible by --patch_size "
@@ -292,10 +291,11 @@ def run(args) -> Tuple[Trainer, List[dict]]:
 
     trainer = Trainer(build_model(args).to(device), lr=args.lr, epochs=args.epochs,
                       bf16=args.bf16, loss=train_loss(args), softmax=args.model == "adapter",
-                      input_norm=getattr(args, "input_norm", input_norm(args.model)))
+                      input_norm=getattr(args, "input_norm", input_norm(args.model)),
+                      mesh=get_mesh(args.fsdp, device.type))
     synthetic = args.synthetic or args.dataset == "synthetic"
     if synthetic:
-        ds_train = InMemory(SyntheticSeg(n=8 * B, imsize=args.imsize,
+        ds_train = InMemory(SyntheticSeg(n=8 * B * W, imsize=args.imsize,
                                          num_classes=args.num_classes, seed=args.seed),
                             args.num_workers)
         ds_val = InMemory(validation_set(args), args.num_workers)
@@ -303,15 +303,15 @@ def run(args) -> Tuple[Trainer, List[dict]]:
         ds_train = DATASETS[args.dataset](args.data_path, split="training", imsize=args.imsize)
         ds_val = validation_set(args)
     pin = device.type == "cuda"
-    sampler = EpochSampler(len(ds_train), shuffle=True, seed=args.seed)
+    sampler = EpochSampler(len(ds_train), shuffle=True, seed=args.seed, rank=rank,
+                           world_size=W)
     train_loader = DataLoader(ds_train, sampler=sampler, batch_size=B,
                               num_workers=args.num_workers, pin_memory=pin)
-    val_loader = DataLoader(ds_val, batch_size=B, num_workers=args.num_workers,
-                            drop_last=False, pin_memory=pin)
+    val = val_loader(ds_val, B, args.num_workers, pin)
     cross_loader = None
     if args.cross_test_path:
-        cross_loader = DataLoader(validation_set(args, root=args.cross_test_path), batch_size=B,
-                                  num_workers=args.num_workers, drop_last=False, pin_memory=pin)
+        cross_loader = val_loader(validation_set(args, root=args.cross_test_path), B,
+                                  args.num_workers, pin)
     if not len(train_loader) and not args.evaluate:
         sys.exit(f"error: {len(ds_train)} training images, fewer than a batch of {B}")
     print(f"Data loaded with {len(ds_train)} train and {len(ds_val)} val imgs "
@@ -324,7 +324,7 @@ def run(args) -> Tuple[Trainer, List[dict]]:
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
     if args.evaluate:
-        stats = validate(trainer, val_loader, device)
+        stats = sharded_metrics(trainer.eval_step, val, device)
         print(json.dumps({"epoch": trainer.epoch, **{f"test_{k}": v for k, v in stats.items()}}))
         print(f"Accuracy of the network on the {len(ds_val)} test images: "
               f"{stats['acc1'] * 100:.1f}%", flush=True)
@@ -354,8 +354,9 @@ def run(args) -> Tuple[Trainer, List[dict]]:
             imgs, masks, _ = next(batches)
             if step:
                 waited += time.perf_counter() - t0
-            draws = draws_to(draw_train_augment(generator, B, args.imsize,
-                                                use_clahe=not args.no_clahe), device)
+            draws = draws_to(rank_rows(draw_train_augment(generator, B * W, args.imsize,
+                                                          use_clahe=not args.no_clahe)),
+                             device)
             losses.append(trainer.train_step(_to(imgs, device), _to(masks, device), draws,
                                              epoch))
         _sync(device)
@@ -369,24 +370,25 @@ def run(args) -> Tuple[Trainer, List[dict]]:
         logged = {"train_loss": sum(step_losses) / len(step_losses),
                   "train_lr": trainer.lr_fn(epoch), "epoch": epoch, "device": dev_name}
         if epoch % args.val_freq == 0 or epoch == args.epochs - 1:
-            test = validate(trainer, val_loader, device)
+            test = sharded_metrics(trainer.eval_step, val, device)
             trainer.best_acc = max(trainer.best_acc, test["acc1"])
             logged.update({f"test_{k}": v for k, v in test.items()})
             if cross_loader is not None:
                 logged.update({f"cross_{k}": v for k, v in
-                               validate(trainer, cross_loader, device).items()})
-        with (out_dir / "log.txt").open("a") as f:
-            f.write(json.dumps(logged) + "\n")
+                               sharded_metrics(trainer.eval_step, cross_loader, device).items()})
+        if is_main_process():
+            with (out_dir / "log.txt").open("a") as f:
+                f.write(json.dumps(logged) + "\n")
         timed = len(losses) - 1
-        stats = {**logged,
-                 "train_img_per_s": timed * B / (t_end - t_start) if timed else None,
+        stats = {**logged, "world_size": W,
+                 "train_img_per_s": timed * B * W / (t_end - t_start) if timed else None,
                  "loader_wait_s": waited / timed if timed else None,
                  "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                     if device.type == "cuda" else None),
                  "decoder": decoder, "max_acc": trainer.best_acc}
         print(json.dumps(stats), flush=True)
         trainer.epoch = epoch + 1
-        save_checkpoint(out_dir, trainer.state_dict())
+        save_on_main(out_dir, trainer.state_dict())
         history.append({**stats, "train_losses": step_losses,
                         "train_losses_finite": all(map(math.isfinite, step_losses))})
         stop_after = int(os.environ.get("ASN_STOP_AFTER_EPOCHS", "0"))
@@ -395,7 +397,10 @@ def run(args) -> Tuple[Trainer, List[dict]]:
             print(f"preempted after {stop_after} epochs", flush=True)
             return trainer, history
     if trainer.epoch >= args.epochs and history:
-        save_flax_variables(out_dir / "variables.npz", trainer.model)
+        variables = full_tree(trainer.model.state_dict())
+        if is_main_process():
+            save_flax_variables(out_dir / "variables.npz", variables)
+        barrier()
         print(f"Training completed. Top-1 test accuracy: {trainer.best_acc * 100:.1f}",
               flush=True)
     return trainer, history

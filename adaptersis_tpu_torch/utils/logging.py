@@ -2,18 +2,23 @@
 `utils/logging.py` that `segment_m2f` uses. Meters keep a window of recent
 values (median, avg, max, value) and a running total (global_avg);
 `log_every` yields from an iterable and prints the meters with the
-iteration's time, the loader's wait and the card's peak memory. One
-process: nothing is synchronised across processes."""
+iteration's time, the loader's wait and the card's peak memory.
+`synchronize_between_processes` sums the meters' counts and totals over the
+ranks (float64), so `global_avg` is the job's; only rank 0 prints and
+writes `output_file`."""
 
 from __future__ import annotations
 
 import datetime
+import json
 import time
 from collections import defaultdict, deque
 from typing import Iterable, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.dist import all_reduce_sum, get_world_size, is_main_process
 
 
 class SmoothedValue:
@@ -27,6 +32,16 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self, device: Optional[torch.device] = None) -> None:
+        """All-reduce [count, total] in float64 (the window stays this
+        rank's); `device` is where the collective's tensor lives (a card
+        for NCCL)."""
+        if get_world_size() == 1:
+            return
+        t = all_reduce_sum(torch.tensor([self.count, self.total], dtype=torch.float64,
+                                        device=device))
+        self.count, self.total = int(t[0].item()), float(t[1].item())
 
     @property
     def median(self) -> float:
@@ -59,14 +74,29 @@ def device_memory_mb() -> float:
 
 
 class MetricLogger:
-    def __init__(self, delimiter: str = "  "):
+    def __init__(self, delimiter: str = "  ", output_file: Optional[str] = None):
         self.meters: defaultdict = defaultdict(SmoothedValue)
         self.delimiter = delimiter
+        self.output_file = output_file
 
     def update(self, n: int = 1, **kwargs) -> None:
         """`n` weights this update in each meter's global average."""
         for k, v in kwargs.items():
             self.meters[k].update(float(v), n=n)
+
+    def synchronize_between_processes(self, device: Optional[torch.device] = None) -> None:
+        for name in sorted(self.meters):    # the same order on every rank
+            self.meters[name].synchronize_between_processes(device)
+
+    def dump_in_output_file(self, iteration: int, iter_time: float, data_time: float) -> None:
+        """Append one JSON line of the meters' medians (rank 0 only)."""
+        if self.output_file is None or not is_main_process():
+            return
+        entry = dict(iteration=iteration, iter_time=iter_time, data_time=data_time,
+                     memory_mb=device_memory_mb())
+        entry.update({k: v.median for k, v in self.meters.items()})
+        with open(self.output_file, "a") as f:
+            f.write(json.dumps(entry) + "\n")
 
     def __getattr__(self, attr):
         meters = self.__dict__.get("meters", {})
@@ -93,13 +123,16 @@ class MetricLogger:
             yield obj
             iter_time.update(time.time() - end)
             if i % print_freq == 0 or i == n_iterations - 1:
+                self.dump_in_output_file(i, iter_time.avg, data_time.avg)
                 eta = iter_time.global_avg * (n_iterations - i) if n_iterations > 0 else 0
-                print(self.delimiter.join([
-                    header, f"[{i:{space}d}/{n_iterations}]",
-                    f"eta: {datetime.timedelta(seconds=int(eta))}", str(self),
-                    f"time: {iter_time}", f"data: {data_time}",
-                    f"max mem: {device_memory_mb():.0f}MB"]), flush=True)
+                if is_main_process():
+                    print(self.delimiter.join([
+                        header, f"[{i:{space}d}/{n_iterations}]",
+                        f"eta: {datetime.timedelta(seconds=int(eta))}", str(self),
+                        f"time: {iter_time}", f"data: {data_time}",
+                        f"max mem: {device_memory_mb():.0f}MB"]), flush=True)
             end = time.time()
         total = time.time() - start
-        print(f"{header} Total time: {datetime.timedelta(seconds=int(total))} "
-              f"({total / max(n_iterations, 1):.6f} s / it)", flush=True)
+        if is_main_process():
+            print(f"{header} Total time: {datetime.timedelta(seconds=int(total))} "
+                  f"({total / max(n_iterations, 1):.6f} s / it)", flush=True)

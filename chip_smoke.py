@@ -3198,6 +3198,435 @@ def narrow_model():
                                          decoder_features=(128, 32, 16, 16, 8)), seed=0)
 
 
+# phases 8t-8v (M10, M13): the port's data-parallel layer on the card. 8t
+# and 8v's first half run the entry points under `torchrun --standalone
+# --nproc_per_node 1` (NCCL at W = 1): the script itself is torchrun's
+# program (`--torchrun-child`), which runs the module's `main` as `-m`
+# would and prints its launches and the group's backend. 8u and 8v's second
+# half run two ranks on the one card over gloo (NCCL refuses two ranks on
+# one GPU): each rank (`--gloo-child`) calls init_process_group("gloo")
+# itself and then the port's library functions, on its rows of the global
+# batch, against one process at the global batch.
+DP_TRAIN_STEPS = 3                      # 8t: steps of each torchrun epoch
+DP_SEG_BATCH = 4                        # 8u: the global batch, 2 a rank
+DP_SSL_STEPS = 2                        # 8v: pretrain's steps
+GLOO_RANKS = 2
+
+
+def child_result(text: str, tag: str) -> dict:
+    """The JSON a child printed after `tag` (its last such line)."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(tag + " ")]
+    if not lines:
+        raise ValueError(f"no {tag} line in the child's output")
+    return json.loads(lines[-1][len(tag) + 1:])
+
+
+def torchrun(args: list, timeout: float = 300) -> dict:
+    """`torchrun --standalone --nproc_per_node 1` of this script as
+    `--torchrun-child` (see `torchrun_child`); returns what it reports:
+    one entry of `runs` per `RUNS_APART`-separated argv."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", str(ROOT / "chip_smoke.py"), "--torchrun-child", *map(str, args)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    if proc.returncode:
+        fail(f"torchrun {' '.join(map(str, args))} exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return {**child_result(proc.stdout, "TORCHRUN_CHILD"),
+            "seconds_with_startup": time.perf_counter() - t0}
+
+
+RUNS_APART = "::"
+
+
+def torchrun_child(steps: int, module: str, argv: list) -> None:
+    """Under torchrun: `module`'s main(argv), as `python -m module argv`
+    runs it, with `train_seg`'s synthetic epoch cut to `steps` global
+    batches when `steps` > 0; `argv` split at `RUNS_APART` runs main once
+    for each part in turn, in the same process and process group (a save,
+    then a resume from it, without a second start-up). Then one line of the
+    group's backend and world size and, per run, its launches and returned
+    history."""
+    import importlib
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch import train_seg
+    from adaptersis_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    counts, reset_counts = launch_counters()
+    if steps:
+        plain = train_seg.SyntheticSeg
+        batch = int(argv[argv.index("--batch_size_per_gpu") + 1])
+        train_seg.SyntheticSeg = lambda n, **kw: plain(
+            n=steps * batch * int(os.environ["WORLD_SIZE"]), **kw)
+    main = importlib.import_module(module).main
+    parts, runs = [[]], []
+    for a in argv:
+        parts.append([]) if a == RUNS_APART else parts[-1].append(a)
+    for part in parts:
+        reset_counts()
+        runs.append({"history": main(part), "launches": counts()})
+    out = {"module": module, "runs": runs,
+           "backend": dist.get_backend() if dist.is_initialized() else None,
+           "world_size": dist.get_world_size() if dist.is_initialized() else 1}
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    print("TORCHRUN_CHILD " + json.dumps(out), flush=True)
+
+
+def torchrun_train_seg(counts, reset_counts, smi, phase8_img_s) -> dict:
+    """Phase 8t: `train_seg` under torchrun at W = 1 over NCCL, ViT-L/14 at
+    588 px, bf16, batch 16, an epoch of `DP_TRAIN_STEPS` steps saved, then
+    (in the same launch) the same flags with --epochs 2, which must resume
+    from it and train the second epoch alone. Each run: the train steps'
+    and the validation's launches, finite losses and metrics; its img/s
+    beside phase 8's."""
+    work = ROOT / "build" / "smoke_torchrun"
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588",
+            "--batch_size_per_gpu", str(TRAIN_BATCH), "--bf16", "--gelu_approx", "--synthetic",
+            "--seed", "0", "--num_workers", "4", "--output_dir", str(work)]
+    launch = torchrun([DP_TRAIN_STEPS, "adaptersis_tpu_torch.train_seg", *argv, "--epochs",
+                       "1", RUNS_APART, *argv, "--epochs", "2"])
+    if launch["backend"] != "nccl" or launch["world_size"] != 1:
+        fail(f"8t: backend {launch['backend']} at world size {launch['world_size']}, "
+             "expected nccl, 1")
+    runs = {}
+    for epochs, r in zip((1, 2), launch["runs"]):
+        runs[f"epochs {epochs}"] = r
+        ep = r["history"][-1] if r["history"] else {}
+        val_forwards = 2                # 2 global batches of validation frames
+        want = expect(DP_TRAIN_STEPS + val_forwards, 7 * DP_TRAIN_STEPS)
+        say("torchrun_train_seg", run=f"--epochs {epochs}", backend=launch["backend"],
+            world_size=launch["world_size"], epochs_run=[h["epoch"] for h in r["history"]],
+            steps=len(ep.get("train_losses", [])), train_losses=ep.get("train_losses"),
+            test_acc1=ep.get("test_acc1"), launches=r["launches"], expected=want,
+            train_img_per_s=ep.get("train_img_per_s"), phase8_train_img_per_s=phase8_img_s,
+            launch_seconds_with_startup=launch["seconds_with_startup"],
+            nvidia_smi=smi[0] if smi else "unavailable")
+        if [h["epoch"] for h in r["history"]] != [epochs - 1]:
+            fail(f"8t: --epochs {epochs} ran epochs {[h['epoch'] for h in r['history']]} "
+                 "(the second run must resume after the first)")
+        if len(ep["train_losses"]) != DP_TRAIN_STEPS or not ep["train_losses_finite"] or \
+                not all(math.isfinite(ep[k]) for k in ("test_loss", "test_dice", "test_acc1")):
+            fail(f"8t: {ep}")
+        if r["launches"] != want:
+            fail(f"8t: launches {r['launches']}, expected {want}")
+    shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
+GLOO_WORK = ROOT / "build" / "smoke_gloo"
+
+
+def gloo_ranks(job: str, args: list) -> list:
+    """Start `GLOO_RANKS` processes of this script as `--gloo-child job`,
+    with torchrun's variables, their output in files under `GLOO_WORK`;
+    `gloo_reports` collects them."""
+    GLOO_WORK.mkdir(parents=True, exist_ok=True)
+    port = free_port()
+    procs = []
+    for rank in range(GLOO_RANKS):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(GLOO_RANKS),
+               "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+        with open(GLOO_WORK / f"{job}.rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-child", job,
+                 *map(str, args)], env=env, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT))
+    return procs
+
+
+def stop(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def gloo_reports(procs: list, job: str, timeout: float = 300) -> list:
+    """Each rank's report; fails if a rank fails or outlives `timeout`."""
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop(procs)
+    logs = [(GLOO_WORK / f"{job}.rank{r}.log").read_text() for r in range(len(procs))]
+    for p, log in zip(procs, logs):
+        if p.returncode:
+            fail(f"gloo rank of {job} exited {p.returncode}:\n{log[-4000:]}")
+    return [child_result(log, "GLOO_CHILD") for log in logs]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def gloo_refusal(err: Exception) -> bool:
+    """An error of a collective that gloo does not carry (on CUDA tensors)."""
+    msg = str(err).lower()
+    return "gloo" in msg or "not supported" in msg or "not implemented" in msg
+
+
+def gloo_child(job: str, args: list) -> None:
+    """One rank of `gloo_ranks`: init_process_group("gloo") on the card, then
+    `job` ("seg" or "ssl") through the port's library functions; prints its
+    report. A collective gloo refuses is reported as such."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    _build.library()
+    counts, reset_counts = launch_counters()
+    rank, W = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "world_size": W, "backend": dist.get_backend()}
+    if job == "seg":
+        model, x01, y = seg_gate_inputs(0, batch=DP_SEG_BATCH)
+        mine = torch.arange(rank, DP_SEG_BATCH, W, device=x01.device)
+        for fsdp in (1, 2):
+            try:
+                loss, grads, launched = dp_seg_step(model, x01[mine], y[mine], counts,
+                                                    reset_counts, fsdp)
+                out[f"fsdp {fsdp}"] = {"loss": loss, "launches": launched,
+                                       "grads": {k: v.cpu() for k, v in grads.items()}}
+            except RuntimeError as e:
+                if fsdp == 1 or not gloo_refusal(e):
+                    raise
+                out[f"fsdp {fsdp}"] = {"refused": f"{type(e).__name__}: {str(e)[:400]}"}
+        torch.save(out, Path(args[0]) / f"seg.rank{rank}.pt")
+        for fsdp in (1, 2):
+            out[f"fsdp {fsdp}"].pop("grads", None)
+    else:
+        for fsdp in (1, 2):
+            arch, g, l, masks = dp_ssl_inputs(rank, W, fsdp)
+            reset_counts()
+            try:
+                losses = {k: float(v)
+                          for k, v in arch.train_step(g, l, masks, **DP_SSL_STEP).items()}
+                out[f"fsdp {fsdp}"] = {
+                    "losses": losses, "launches": counts(),
+                    "centres": {c: getattr(arch, c).double().cpu().tolist()
+                                for c in ("dino_center", "ibot_center")}}
+            except RuntimeError as e:
+                if fsdp == 1 or not gloo_refusal(e):
+                    raise
+                out[f"fsdp {fsdp}"] = {"refused": f"{type(e).__name__}: {str(e)[:400]}"}
+            del arch
+    dist.barrier()
+    dist.destroy_process_group()
+    print("GLOO_CHILD " + json.dumps(out), flush=True)
+
+
+def dp_seg_step(model, x01, y, counts, reset_counts, fsdp):
+    """One bf16 `Trainer` step of a copy of `model` over the job's ranks
+    (the mesh of `fsdp`): the loss (the ranks' mean), each subtree's flat
+    fp64 gradient (all-reduced) and this rank's launches."""
+    from adaptersis_tpu_torch.parallel.mesh import get_mesh
+    from adaptersis_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(copy.deepcopy(model), bf16=True, mesh=get_mesh(fsdp, "cuda"))
+    reset_counts()
+    loss = float(trainer.step(x01, y, epoch=0))
+    grads = {sub: torch.cat([p.grad.double().flatten() for n, p in
+                             trainer.model.named_parameters() if n.split(".")[0] == sub])
+             for sub in SEG_SUBTREES}
+    return loss, grads, counts()
+
+
+def gloo_seg_check(counts, reset_counts) -> dict:
+    """Phase 8u: the adapter step at ViT-L/14 width (`seg_gate_inputs`, bf16,
+    seed 0) at two gloo ranks of 2 images each against one process at the 4
+    images, all with the kernels: the loss (relative, `SSL_GATE_LOSS_BOUND`)
+    and each subtree's gradient within max(`SSL_GATE_BOUND`, 2 × floor), as
+    phase 8e holds them; the floor is the one-process step on the same 4
+    images in the ranks' row order (0, 2, 1, 3), which moves only the
+    batch sums. Each rank launches one forward's kernels and 7 MSDA
+    backwards. Then the same at --fsdp 2 (the frozen backbone sharded
+    over both ranks), or the line naming the collective gloo refused."""
+    work = GLOO_WORK
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = gloo_ranks("seg", [work])          # they run while this process steps
+    try:
+        model, x01, y = seg_gate_inputs(0, batch=DP_SEG_BATCH)
+        ref_loss, ref, ref_launches = seg_gate_step(model, x01, y, [], "full", counts,
+                                                    reset_counts)
+        order = torch.tensor([0, 2, 1, 3], device=x01.device)
+        floor_loss, floor, _ = seg_gate_step(model, x01[order], y[order], [], "full", counts,
+                                             reset_counts)
+        del model
+    except BaseException:
+        stop(procs)
+        raise
+    ranks = gloo_reports(procs, "seg")
+    measures = ("l2_dist", "max_rel")
+    saved = [torch.load(work / f"seg.rank{r}.pt") for r in range(GLOO_RANKS)]
+    report, failures = {}, []
+    for fsdp in (1, 2):
+        got = saved[0][f"fsdp {fsdp}"]
+        if "refused" in got:
+            report[f"fsdp {fsdp}"] = {"gloo_refused": got["refused"]}
+            say("gloo_refused", phase="8u", fsdp=fsdp, collective_error=got["refused"])
+            continue
+        subs = {}
+        for sub, g in ref.items():
+            d = grad_distance(got["grads"][sub].to(g.device), g)
+            fl = grad_distance(floor[sub], g)
+            d["floor"] = {k: fl[k] for k in measures}
+            d["bound"] = {k: max(SSL_GATE_BOUND, 2 * fl[k]) for k in measures}
+            subs[sub] = d
+            if not all(d[k] <= d["bound"][k] for k in measures):
+                failures.append(f"fsdp {fsdp} {sub}: {d}")
+        loss_err = abs(got["loss"] - ref_loss) / max(abs(ref_loss), 1e-30)
+        if not loss_err <= SSL_GATE_LOSS_BOUND:
+            failures.append(f"fsdp {fsdp}: loss {got['loss']} against {ref_loss}")
+        for r in range(GLOO_RANKS):
+            if saved[r][f"fsdp {fsdp}"]["launches"] != expect(1, 7):
+                failures.append(f"fsdp {fsdp} rank {r}: launches "
+                                f"{saved[r][f'fsdp {fsdp}']['launches']}")
+        same = all(torch.equal(saved[1][f"fsdp {fsdp}"]["grads"][s], got["grads"][s])
+                   for s in got["grads"])
+        if not same:
+            failures.append(f"fsdp {fsdp}: the ranks' all-reduced gradients differ")
+        report[f"fsdp {fsdp}"] = {"loss": got["loss"], "loss_rel_err": loss_err,
+                                  "subtrees": subs, "launches_rank0": got["launches"]}
+    say("gloo_seg_step", arch="vit_large", imsize=588, dtype="bf16", ranks=GLOO_RANKS,
+        backend=ranks[0]["backend"], batch_per_rank=DP_SEG_BATCH // GLOO_RANKS,
+        reference_loss=ref_loss, floor_loss=floor_loss, reference_launches=ref_launches,
+        seconds=time.perf_counter() - t0, **report)
+    if ref_launches != expect(1, 7):
+        failures.append(f"reference launches {ref_launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if failures:
+        fail("8u: " + "; ".join(failures))
+    return report
+
+
+DP_SSL_STEP = dict(lr=1e-3, wd=0.04, momentum=0.992, teacher_temp=0.07, last_layer_lr=1e-3)
+
+
+def dp_ssl_inputs(rank: int, W: int, fsdp: int = 1):
+    """`bench_ssl`'s model (ViT-S/14, bf16, 65536 prototypes, 8 local crops,
+    seed 0; over W ranks on the mesh of `fsdp`), its global batch of
+    `SSL_BATCH` images, crops and masks, and a rank's share of them (the
+    rows of images rank, rank + W, ...; one process: all)."""
+    from adaptersis_tpu_torch.data.augment import draws_to, rank_rows
+    from adaptersis_tpu_torch.models import layers
+    from adaptersis_tpu_torch.models.vit import build_backbone
+    from adaptersis_tpu_torch.parallel.mesh import get_mesh
+    from adaptersis_tpu_torch.ssl.augment import apply_multicrop, draw_multicrop
+    from adaptersis_tpu_torch.ssl.masking import (MaskingGenerator, collate_masks_with_indices,
+                                                  rank_masks)
+    from adaptersis_tpu_torch.ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to
+
+    G, L, B, n_local, patch, dev = 224, 98, SSL_BATCH, 8, 14, torch.device("cuda")
+    attn_impl, ln_impl, qkv_impl, mlp_impl = layers.TRAINED
+    torch.manual_seed(0)
+    backbone = build_backbone("vit_small", img_size=G, patch_size=patch, attn_impl=attn_impl,
+                              ln_impl=ln_impl, qkv_impl=qkv_impl, mlp_impl=mlp_impl)
+    cfg = SSLConfig(dino_out_dim=65536, ibot_out_dim=65536, n_local_crops=n_local)
+    arch = SSLMetaArch(backbone, cfg, bf16=True).to(dev).shard(get_mesh(fsdp, "cuda"))
+    imgs = np.random.default_rng(0).integers(0, 256, (B, G + 32, G + 32, 3), np.uint8)
+    imgs = torch.from_numpy(imgs[rank::W]).to(dev)
+    draws = rank_rows(draw_multicrop(torch.Generator().manual_seed(1), B, n_local))
+    g, l = apply_multicrop(imgs, draws_to(draws, dev), G, L)
+    grid = G // patch
+    info = collate_masks_with_indices(2 * B, grid * grid, MaskingGenerator(
+        (grid, grid), num_masking_patches=grid * grid // 2), seed=7)
+    return arch, g, l, masks_to(rank_masks(info, grid * grid, rank, W), dev)
+
+
+def gloo_ssl_check(counts, reset_counts, expect_ssl) -> dict:
+    """Phase 8v's second half: one SSL step (`dp_ssl_inputs`) at two gloo
+    ranks of 16 images each, at --fsdp 1 (whole modules, the gradients'
+    flat all-reduce) and --fsdp 2 (FSDP2 over both ranks), against one
+    process at the 32: the losses (relative, `SSL_GATE_LOSS_BOUND`) and
+    both centres (max |a − b| within `SSL_GATE_LOSS_BOUND` of the
+    one-process centre's largest value), each rank launching K7 for its
+    step; at --fsdp 2, or the line naming the collective gloo refused."""
+    t0 = time.perf_counter()
+    shutil.rmtree(GLOO_WORK, ignore_errors=True)
+    procs = gloo_ranks("ssl", [])              # they run while this process steps
+    try:
+        arch, g, l, masks = dp_ssl_inputs(0, 1)
+        reset_counts()
+        want = {k: float(v) for k, v in arch.train_step(g, l, masks, **DP_SSL_STEP).items()}
+        ref_launches = counts()
+        centres = {c: getattr(arch, c).double().cpu() for c in ("dino_center", "ibot_center")}
+        del arch
+        torch.cuda.empty_cache()
+    except BaseException:
+        stop(procs)
+        raise
+    ranks = gloo_reports(procs, "ssl")
+    out, failures = {}, []
+    for fsdp in (1, 2):
+        got = [r[f"fsdp {fsdp}"] for r in ranks]
+        if "refused" in got[0]:
+            say("gloo_refused", phase="8v", fsdp=fsdp, collective_error=got[0]["refused"])
+            out[f"fsdp {fsdp}"] = {"gloo_refused": got[0]["refused"]}
+            continue
+        loss_err = {k: abs(got[0]["losses"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in want.items()}
+        centre_err = {c: (torch.tensor(got[0]["centres"][c], dtype=torch.float64) - v).abs()
+                      .max().item() / max(v.abs().max().item(), 1e-30)
+                      for c, v in centres.items()}
+        out[f"fsdp {fsdp}"] = {"losses": got[0]["losses"], "loss_rel_err": loss_err,
+                               "centre_rel_err": centre_err,
+                               "launches": [r["launches"] for r in got]}
+        failures += [f"fsdp {fsdp} loss {k}: {e}" for k, e in loss_err.items()
+                     if not (math.isfinite(e) and e <= SSL_GATE_LOSS_BOUND)]
+        failures += [f"fsdp {fsdp} centre {c}: {e}" for c, e in centre_err.items()
+                     if not e <= SSL_GATE_LOSS_BOUND]
+        if any(r["launches"] != expect_ssl(1) for r in got):
+            failures.append(f"fsdp {fsdp} launches {[r['launches'] for r in got]}")
+        if any(r["losses"] != got[0]["losses"] for r in got):
+            failures.append(f"fsdp {fsdp}: the ranks report different losses")
+    say("gloo_ssl_step", arch="vit_small", dtype="bf16", ranks=GLOO_RANKS,
+        backend=ranks[0]["backend"], batch_per_rank=SSL_BATCH // GLOO_RANKS,
+        one_process_losses=want, one_process_launches=ref_launches,
+        seconds=time.perf_counter() - t0, **out)
+    if ref_launches != expect_ssl(1):
+        failures.append(f"one-process launches {ref_launches}")
+    shutil.rmtree(GLOO_WORK, ignore_errors=True)
+    if failures:
+        fail("8v: " + "; ".join(failures))
+    return out
+
+
+def torchrun_pretrain(expect_ssl, smi) -> dict:
+    """Phase 8v's first half: `pretrain` under torchrun at W = 1 over NCCL:
+    ViT-S/14, DINOv2's recipe (its defaults: batch 32, 2 global crops of
+    224 and 8 of 98, 65536 prototypes), bf16, `DP_SSL_STEPS` steps."""
+    launch = torchrun([0, "adaptersis_tpu_torch.pretrain", "--bf16", "--synthetic", "--epochs",
+                       "1", "--steps_per_epoch", str(DP_SSL_STEPS), "--warmup_epochs", "0"])
+    r = launch["runs"][0]
+    ep = r["history"][0] if r["history"] else {}
+    say("torchrun_pretrain", backend=launch["backend"], world_size=launch["world_size"],
+        epoch=ep, launches=r["launches"],
+        launch_seconds_with_startup=launch["seconds_with_startup"],
+        nvidia_smi=smi[0] if smi else "unavailable")
+    if launch["backend"] != "nccl" or launch["world_size"] != 1:
+        fail(f"8v: backend {launch['backend']} at world size {launch['world_size']}")
+    if len(r["history"]) != 1 or ep.get("steps") != DP_SSL_STEPS or not all(
+            math.isfinite(ep[k]) for k in ("total_loss", "dino", "ibot", "koleo")):
+        fail(f"8v: pretrain {r['history']}")
+    if r["launches"] != expect_ssl(DP_SSL_STEPS):
+        fail(f"8v: pretrain launches {r['launches']}, expected {expect_ssl(DP_SSL_STEPS)}")
+    return launch
+
+
 def launch_counters():
     """(counts, reset_counts): read and zero every kernel wrapper's launch
     count (and K3's counts by kernel, `path_counts`)."""
@@ -3648,6 +4077,7 @@ def main() -> None:
         train_img_per_s=epoch["train_img_per_s"], peak_mem_bytes=epoch["peak_mem_bytes"],
         unchanged_trainables=unchanged, device=name,
         nvidia_smi=smi[0] if smi else "unavailable")
+    phase8_img_s = epoch["train_img_per_s"]
     if steps != 8 or not epoch["train_losses_finite"]:
         fail(f"full-width training: {steps} steps, losses {epoch['train_losses']}")
     if not all(math.isfinite(epoch.get(k, float("nan")))
@@ -3796,6 +4226,20 @@ def main() -> None:
                             want=fp32_expect, evaluated=FP32_RUNS[0][0], phase="8s",
                             depth=None, batch=FP32_TRAIN_BATCH)
 
+    # ---- 8t. train_seg under torchrun at W = 1 over NCCL, saved and resumed
+    # (`torchrun_train_seg`, M10)
+    torchrun_train_seg(counts, reset_counts, smi, phase8_img_s)
+
+    # ---- 8u. the adapter step at two gloo ranks on the card against one
+    # process at the global batch, --fsdp 1 and 2 (`gloo_seg_check`)
+    gloo_seg_check(counts, reset_counts)
+
+    # ---- 8v. pretrain under torchrun at W = 1 over NCCL, then the SSL step at
+    # two gloo ranks against one process (`torchrun_pretrain`,
+    # `gloo_ssl_check`, M13)
+    torchrun_pretrain(expect_ssl, smi)
+    gloo_ssl_check(counts, reset_counts, expect_ssl)
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
@@ -3930,6 +4374,34 @@ def times_only() -> None:
     say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa))
 
 
+def data_parallel_only() -> None:
+    """`--data-parallel`: the build and phases 8t-8v alone (8t without phase
+    8's img/s beside its own)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.library()
+    say("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi[0] if smi else
+        "unavailable", torch=torch.__version__, cuda=torch.version.cuda,
+        build_s=time.perf_counter() - t0)
+    counts, reset_counts = launch_counters()
+
+    def expect_ssl(steps):
+        return {**{k: 0 for k in counts()}, **{k: v * steps for k, v in SSL_PER_STEP.items()}}
+
+    torchrun_train_seg(counts, reset_counts, smi, None)
+    gloo_seg_check(counts, reset_counts)
+    torchrun_pretrain(expect_ssl, smi)
+    gloo_ssl_check(counts, reset_counts, expect_ssl)
+
+
 def gate_only() -> None:
     """`--gate`: the build, phase 8e (seed 0 with `SEG_GATE_PROBES`, then
     seed 1) and `seg_gate_ablation`: to measure the gate's floor, or to run
@@ -4016,8 +4488,15 @@ if __name__ == "__main__":
         gate_only()
     elif sys.argv[1:] == ["--fp32-steps"]:
         fp32_steps_only()
+    elif sys.argv[1:] == ["--data-parallel"]:
+        data_parallel_only()
+    elif sys.argv[1:2] == ["--torchrun-child"]:
+        torchrun_child(int(sys.argv[2]), sys.argv[3], sys.argv[4:])
+    elif sys.argv[1:2] == ["--gloo-child"]:
+        gloo_child(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:]:
-        fail(f"usage: python3 chip_smoke.py [--times | --gate | --fp32-steps], "
+        fail(f"usage: python3 chip_smoke.py [--times | --gate | --fp32-steps | "
+             f"--data-parallel], "
              f"got {sys.argv[1:]}")
     else:
         main()

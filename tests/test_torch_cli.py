@@ -70,9 +70,10 @@ def test_help_says_what_the_port_does_with_the_tpu_choices():
     for words in ("--attn_impl", "--msda_impl", "--platform", "--fsdp", "--avgpool_patchtokens",
                   "--dist_url", "--local_rank", "--num_labels"):
         assert words in text
-    assert text.count("not acted on") >= 6
-    # the segmentor variants are ported: only --fsdp's item is left
-    assert "M10" in text and "M11" not in text
+    assert text.count("not acted on") >= 5
+    # the segmentor variants and data parallelism are ported: no item is left
+    assert "M10" not in text and "M11" not in text
+    assert "divide the world size" in text and "tcp://host:port" in text
 
 
 @pytest.mark.parametrize("argv, want", [
@@ -104,10 +105,11 @@ def test_malformed_opts_exit(opts):
     (["--fsdp", "2"], "M10")])
 def test_unported_choices_exit_naming_their_item(tmp_path, flags, item):
     """M11's choices (the losses, decoders and models that were not ported)
-    train a tiny epoch now; --fsdp above 1 still exits naming M10."""
+    train a tiny epoch now; M10 is ported too, so --fsdp 2 exits only
+    because 2 does not divide a single process's world size of 1."""
     argv = TINY + ["--synthetic", "--epochs", "1", "--output_dir", str(tmp_path)] + flags
     if item == "M10":
-        with pytest.raises(SystemExit, match=item):
+        with pytest.raises(SystemExit, match="--fsdp 2 does not divide the world size 1"):
             train_seg.main(argv)
         return
     _trains_a_tiny_epoch(train_seg.main(argv), tmp_path)

@@ -273,8 +273,9 @@ def test_pretrain_entry_point_on_cpu(capsys):
     assert "sqrt scaling learning rate" in capsys.readouterr().out
     help_text = " ".join(pretrain.get_args_parser().format_help().split())
     assert "trains on synthetic frames" in help_text and "resumed from" in help_text
-    for bad in (["--fsdp", "2"], ["--data_path", "/data"]):
-        with pytest.raises(SystemExit, match="not ported"):
+    for bad, says in ((["--fsdp", "2"], "does not divide the world size 1"),
+                      (["--data_path", "/data"], "not ported")):
+        with pytest.raises(SystemExit, match=says):
             pretrain.main(argv + bad)
 
 
