@@ -1,1 +1,2 @@
-"""Validation preprocessing and the synthetic dataset."""
+"""The data path: the segmentation and classification datasets, the
+samplers, the threaded loader, augmentation and the native decoder."""

@@ -1,7 +1,8 @@
 """Samplers: numpy copies of the JAX package's `data/samplers.py` (its
 package imports jax). `EpochSampler`, the trainer's deterministic shuffled
-permutation per epoch, sharded across ranks; `ShardedInfiniteSampler`, the
-SSL pretraining's resumable endless stream."""
+permutation per epoch, sharded across ranks; `InfiniteSampler`, an endless
+stream of shuffled epochs strided over the ranks; `ShardedInfiniteSampler`,
+the SSL pretraining's resumable endless stream."""
 
 from __future__ import annotations
 
@@ -40,6 +41,33 @@ class EpochSampler:
         if self.drop_last:
             shard = shard[:len(self)]
         return iter(shard.tolist())
+
+
+class InfiniteSampler:
+    """One `default_rng(seed)` reshuffling every pass over the data; rank r
+    of W takes yields r, r + W, ... of that stream, after skipping
+    advance // W of its own (the JAX sampler's indices, bit for bit)."""
+
+    def __init__(self, size: int, shuffle: bool = True, seed: int = 0,
+                 rank: int = 0, world_size: int = 1, advance: int = 0):
+        self.size = size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
+        self.advance = advance
+
+    def _stream(self) -> Iterator[int]:
+        rng = np.random.default_rng(self.seed)
+        while True:
+            order = np.arange(self.size)
+            if self.shuffle:
+                rng.shuffle(order)
+            yield from order.tolist()
+
+    def __iter__(self) -> Iterator[int]:
+        it = itertools.islice(self._stream(), self.rank, None, self.world_size)
+        return itertools.islice(it, self.advance // max(self.world_size, 1), None)
 
 
 def _make_seed(seed: int, start: int, iter_count: int) -> int:

@@ -54,11 +54,12 @@ _NAME2ARCH = {
 
 def build_model_for_eval(name_or_arch: str, weights_path: Optional[str] = None,
                          checkpoint_key: str = "teacher", img_size: int = 518,
-                         patch_size: int = 14, device="cuda") -> DinoVisionTransformer:
+                         patch_size: int = 14, device="cuda",
+                         seed: int = 0) -> DinoVisionTransformer:
     """The backbone that a hub name (`dinov2_vitg14`) or an arch
     (`vit_giant2`) names, in the deployed configuration, with the `.pth` at
     `weights_path` loaded (its `checkpoint_key` sub-dict, prefixes
-    stripped), or a draw from seed 0; on `device`, in eval mode."""
+    stripped), or a draw from `seed`; on `device`, in eval mode."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available (pass device='cpu' for the plain path)")
@@ -67,7 +68,7 @@ def build_model_for_eval(name_or_arch: str, weights_path: Optional[str] = None,
     if weights_path:
         load_dinov2_backbone(model, weights_path, checkpoint_key)
     else:
-        seeded_init_(model, 0)
+        seeded_init_(model, seed)
     return model.to(device).eval()
 
 

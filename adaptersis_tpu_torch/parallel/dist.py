@@ -165,6 +165,24 @@ def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
     return _GatherRows.apply(x)
 
 
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of `x` (any count per rank, the same trailing
+    shape), concatenated in rank order on every rank; `x` itself at world
+    size 1. The counts by one all-reduce, then the rows padded to the
+    largest count through `all_gather_with_grad`."""
+    W = get_world_size()
+    if W == 1:
+        return x
+    counts = torch.zeros(W, dtype=torch.int64, device=x.device)
+    counts[get_rank()] = x.shape[0]
+    counts = all_reduce_sum(counts).tolist()
+    pad = x.new_zeros((max(counts),) + tuple(x.shape[1:]))
+    pad[:x.shape[0]] = x
+    with torch.no_grad():
+        stack = all_gather_with_grad(pad)
+    return torch.cat([stack[r, :c] for r, c in enumerate(counts)])
+
+
 def print_on_main_only() -> None:
     """Silence `print` on every rank but 0, as the reference's
     `setup_for_distributed` does (`print(..., force=True)` still prints)."""

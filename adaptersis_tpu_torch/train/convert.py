@@ -14,8 +14,8 @@ the load is strict.
   flax                                   torch
   Dense `kernel` (in, out)           →   `weight` (out, in)
   Conv `kernel` HWIO                 →   `weight` OIHW (depthwise too)
-  ConvTranspose `kernel` (kh, kw, in, out) of a module named `up`
-                                     →   `weight` (in, out, kh, kw), both
+  ConvTranspose `kernel` (kh, kw, in, out) of a module named `up`,
+  `up2` or `up4`                     →   `weight` (in, out, kh, kw), both
                                          spatial axes reversed (flax applies
                                          it unflipped, torch as the conv's
                                          gradient)
@@ -46,9 +46,14 @@ import torch
 from torch import nn
 
 
-# the name of every transposed convolution (flax nn.ConvTranspose, torch
-# nn.ConvTranspose2d) in both packages: `unet_parts.Up` and `UpWC`
-TRANSPOSED = "up"
+# the names of every transposed convolution (flax nn.ConvTranspose, torch
+# nn.ConvTranspose2d) in both packages: `up` in `unet_parts.Up`, `UpWC` and
+# ViTAdapter, `up4` and `up2` in the DPT head's `ReassembleBlocks`. The DPT
+# ones have as many input channels as outputs, so a kernel missed here would
+# load as an ordinary convolution's without a shape error. A kernel sits
+# directly under one of these names only where it is a transposed one (the
+# UNets' `up1`..`up4` are blocks holding an `up`)
+TRANSPOSED = ("up", "up2", "up4")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> Dict[tuple, np.ndarray]:
@@ -75,7 +80,7 @@ def _param(path: tuple, a: np.ndarray):
     elif leaf == "kernel":
         if a.ndim == 2:
             a = a.T
-        elif a.ndim == 4 and mod and mod[-1] == TRANSPOSED:
+        elif a.ndim == 4 and mod and mod[-1] in TRANSPOSED:
             a = a[::-1, ::-1].transpose(2, 3, 0, 1)
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
@@ -146,7 +151,7 @@ def state_dict_to_flax(state) -> Dict[str, dict]:
             tree, leaf = "batch_stats", leaf[len("running_"):]
         elif leaf == "weight" and a.ndim == 2:
             a, leaf = a.T, "kernel"
-        elif leaf == "weight" and a.ndim == 4 and mod.rpartition(".")[2] == TRANSPOSED:
+        elif leaf == "weight" and a.ndim == 4 and mod.rpartition(".")[2] in TRANSPOSED:
             a, leaf = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
         elif leaf == "weight" and a.ndim == 4:
             a, leaf = a.transpose(2, 3, 1, 0), "kernel"
@@ -177,6 +182,14 @@ def m2f_variables(tree: Mapping[str, Any]) -> Dict[str, Any]:
     if "backbone" in tree:
         out["adapter"] = {**out.get("adapter", {}), "backbone": tree["backbone"]}
     return out
+
+
+def probe_grid_variables(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX `LinearProbeGrid.params` ({head name: {w (d, classes), b}})
+    as flax Dense variables of the port's grid, whose heads are
+    `heads[<name>]` nn.Linears: load with `load_flax_variables(grid,
+    probe_grid_variables(p), {})`."""
+    return {"heads": {name: {"kernel": p["w"], "bias": p["b"]} for name, p in params.items()}}
 
 
 def load_ssl_state(arch: nn.Module, state: Mapping[str, Any]) -> None:

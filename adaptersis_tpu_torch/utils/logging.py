@@ -1,6 +1,7 @@
-"""MetricLogger and SmoothedValue: the part of the JAX package's
-`utils/logging.py` that `segment_m2f` uses. Meters keep a window of recent
-values (median, avg, max, value) and a running total (global_avg);
+"""MetricLogger, SmoothedValue and profile_trace (counterpart of the JAX
+package's `utils/logging.py`; `profile_trace` on `torch.profiler`).
+Meters keep a window of recent values (median, avg, max, value) and a
+running total (global_avg);
 `log_every` yields from an iterable and prints the meters with the
 iteration's time, the loader's wait and the card's peak memory.
 `synchronize_between_processes` sums the meters' counts and totals over the
@@ -136,3 +137,45 @@ class MetricLogger:
         if is_main_process():
             print(f"{header} Total time: {datetime.timedelta(seconds=int(total))} "
                   f"({total / max(n_iterations, 1):.6f} s / it)", flush=True)
+
+
+class profile_trace:
+    """A `torch.profiler` trace of a region, written to `logdir` as a
+    Chrome-trace `*.pt.trace.json` that TensorBoard's profiler plugin (and
+    chrome://tracing or Perfetto) loads; the CPU's activity, and the card's
+    when one is present:
+
+        with profile_trace("/tmp/trace", enabled=args.profile):
+            ... train steps ...
+
+    A no-op when disabled; a profiler that cannot start or stop prints a
+    warning and never ends the run."""
+
+    def __init__(self, logdir: str, enabled: bool = True):
+        self.logdir = logdir
+        self.enabled = enabled
+        self._prof = None
+
+    def __enter__(self):
+        if self.enabled:
+            try:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(
+                    activities=acts,
+                    on_trace_ready=torch.profiler.tensorboard_trace_handler(self.logdir))
+                prof.__enter__()
+                self._prof = prof
+            except Exception as e:  # the profiler is optional
+                print(f"profiler trace unavailable: {e}")
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            try:
+                self._prof.__exit__(None, None, None)
+            except Exception as e:
+                print(f"profiler stop failed: {e}")
+            self._prof = None
+        return False

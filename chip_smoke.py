@@ -21,6 +21,9 @@ seconds since the start):
   2c. K3 the same way at ViT-g/14's 24 heads (`G_FLASH_SHAPES`);
   2d. K3 the same way at the Mask2Former stack's walk, 1370 tokens
      (`M2F_FLASH_SHAPES`, batch 2 and 4);
+  2e. K3 the same way at the frozen-feature evals' walk, ViT-L/14 at 224
+     px: 257 tokens (`EVAL_FLASH_SHAPES`, batch 2 and 64), and at the
+     depther's 420 × 560 walk: 1201 tokens, batch 4;
   3. K1 deformable-attention forward vs msda_plain at the CAViT and CACNN
      geometries of ViT-L/14 at 588 px, bf16 values, each element within a
      bound from its own terms (`msda_allowances`): batch 2 and 16 on
@@ -61,7 +64,9 @@ seconds since the start):
      way at ViT-g/14's C = 1536, H = 24 (`G_ROW_SHAPES`: its SwiGLU blocks
      run no K5) and K6, K4 and K5 at vit_tiny's C = 192, H = 3
      (`TINY_ROW_SHAPES`), and at the Mask2Former walk's 1370 rows
-     (`M2F_ROW_SHAPES`);
+     (`M2F_ROW_SHAPES`); 4g. K6 and K4 the same way at the evals' 257
+     tokens (`EVAL_ROW_SHAPES`, batch 2 and 64) and the depther's 1201
+     (batch 4); no K5: exact GELU;
   4c. K7 flash attention with segment ids vs its plain version, bf16 and
      fp32, each element against a bound from its own terms: the forward
      (output and logsumexp), dq, dk and dv through autograd with a seeded
@@ -192,6 +197,22 @@ seconds since the start):
      steps and a validation, then `--evaluate` (`variant_runs` with
      `FP32_RUNS`): launches per step `PER_FORWARD_FP32` (48 K3 and 48 K4 on
      3×TF32, 52 K6, 7 K1, 7 K2, no K5), img/s, peak memory;
+  8w. the frozen-feature evals (M14): `evals_cli` knn, logreg and linear
+     (`--epochs 2`) at ViT-L/14, 224 px, batch 64, fp32 with exact GELU,
+     `--synthetic`, from a seeded `.pth` in `dinov2_vitl14_pretrain.pth`'s
+     layout, and knn on an image-folder tree (`--dataset imagefolder`):
+     256 train and 256 val images each (the tree 128), launches per
+     extraction forward `EVAL_PER_FORWARD` (24 K3 on 3×TF32, 24 K4, 28 K6),
+     extraction img/s, peak memory (`evals_cli_runs`);
+  8x. `eval_knn` at ImageNet-1k's sizes on seeded random features (N =
+     1,281,167, D = 1024, M = 50,000, 1000 classes, k ∈ {10, 20, 100,
+     200}, chunks of 1024): seconds per k and the peak memory; one
+     `logreg_sweep` C at 100,000 × 1024, 1000 classes (`knn_scale_run`);
+  8y. `DepthEncoderDecoder` at ViT-L/14 width with the linear and the DPT
+     head, batch 4 at 420 × 560, 3 SGD steps on the head: finite losses,
+     every head parameter moved, the backbone unchanged, 24 K3, 24 K4, 28
+     K6 a step; the linear head's steps under `profile_trace`, whose trace
+     must hold the card's kernels (`depther_run`);
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -215,14 +236,18 @@ seconds since the start):
      against the unfused sequence and cuBLAS's fp32 GEMM ("fp32 ..." keys),
      each fp32 row's bound that of 3×TF32 on the tensor cores, which its
      kernel runs, with the CUDA cores' fp32 bound beside it
-     (`bound_fp32_cuda_cores`). The kernels line gives the training path's
+     (`bound_fp32_cuda_cores`); at batch 64 the evals' fp32 K3 at 257
+     tokens against SDPA and K6 and K4 at 16448 rows ("eval ..." keys).
+     The kernels line gives the training path's
      (batch 16, uniform points) numbers and the launches of `bench`'s run
      for K1-K6, the SSL step's numbers and the launches of `bench_ssl`'s run
      for K7, and in each row `new_shapes` (ViT-g's and vit_tiny's numbers)
      and `launches_vitg_step` (per step of 8j, or of 8k for K7),
      `m2f_shapes` (each "m2f ..." key) and `launches_m2f_step` (per step
      of 8o's `bench_m2f` and 8m's `segment_m2f`), `fp32_shapes` (each
-     "fp32 ..." key) and `launches_fp32_step` (per step of 8s).
+     "fp32 ..." key) and `launches_fp32_step` (per step of 8s),
+     `eval_shapes` (each "eval ..." key) and `launches_eval_forward` (per
+     extraction forward of 8w's knn run).
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 
@@ -240,6 +265,11 @@ MSDA's location gradient stopped, and with the CNN encoder in fp32) and
 `seg_gate_ablation` (the step with one kernel at a time, and with MSDA's
 sums in float64, against the plain step), the same way on any tree whose
 K3 wrapper counts launches by kernel (`path_counts`).
+
+    python3 chip_smoke.py --evals
+
+runs the build, phases 2e, 4g, 8w, 8x and 8y and phase 9's "eval ..."
+keys alone (`evals_only`).
 
     python3 chip_smoke.py --fp32-steps
 
@@ -384,6 +414,33 @@ M2F_BENCH_STEP = {"flash_fwd": 24, "msda_fwd": 16, "msda_bwd": 12, "fused_ln_qkv
 M2F_FP32_STEP = {**M2F_BENCH_STEP, "fused_ln_mlp": 0, "layernorm": 24}
 M2F_WINDOWED_STEP = {**M2F_BENCH_STEP, "flash_fwd": 4, "fused_ln_qkv": 4, "layernorm": 20}
 M2F_SMALL_STEP = {**M2F_FP32_STEP, "flash_fwd": 12, "fused_ln_qkv": 12, "layernorm": 12}
+# the frozen-feature evals (M14) at ViT-L/14, 224 px: 16² patches and the
+# cls token (257 tokens, a tail tile that is no multiple of 64 or 128),
+# evals_cli's batch 64, fp32 with exact GELU (the JAX CLI's precision).
+# Phases 2e and 4g hold K3, K4 and K6 there at batch 2 and 64, phase 9
+# times them at 64 ("eval ..." keys). Per extraction forward: 24 blocks of
+# K4 → K3 → K6 before the plain erf MLP, and the final norm of each of the
+# 4 taps (K6); no K5, no MSDA. evals_cli extracts 4 batches a split; the
+# linear mode also walks the train split `EVAL_EPOCHS` times and the val
+# split once for the probe grid
+EVAL_BATCH, EVAL_IMSIZE, EVAL_TOKENS, EVAL_EPOCHS = 64, 224, 16 * 16 + 1, 2
+# 8y: DepthEncoderDecoder at ViT-L/14 width, 420 × 560: 30 × 40 patches and
+# the cls token (1201 = 18 · 64 + 49 tokens: another key tail and another
+# 128-row tail than 257's), whose K3, K4 and K6 shapes 2e and 4g hold too
+DEPTH_BATCH, DEPTH_HW, DEPTH_STEPS = 4, (420, 560), 3
+DEPTH_TOKENS = (DEPTH_HW[0] // 14) * (DEPTH_HW[1] // 14) + 1
+EVAL_FLASH_SHAPES = [(B, 16, EVAL_TOKENS, 64) for B in (FULL_BATCH, EVAL_BATCH)] + [
+    (DEPTH_BATCH, 16, DEPTH_TOKENS, 64)]
+EVAL_ROW_SHAPES = [(B, EVAL_TOKENS, 1024) for B in (FULL_BATCH, EVAL_BATCH)] + [
+    (DEPTH_BATCH, DEPTH_TOKENS, 1024)]
+EVAL_PER_FORWARD = {"flash_fwd": 24, "msda_fwd": 0, "fused_ln_qkv": 24, "fused_ln_mlp": 0,
+                    "layernorm": 24 + 4}
+EVAL_FORWARDS = {"knn": 8, "logreg": 8, "linear": 8 + 4 * EVAL_EPOCHS + 4}
+# 8x: k-NN at ImageNet-1k's sizes on seeded random features, and one C of
+# the logistic-regression sweep
+KNN_TRAIN, KNN_TEST, KNN_DIM, KNN_CLASSES, KNN_KS = 1_281_167, 50_000, 1024, 1000, (10, 20, 100,
+                                                                                 200)
+LOGREG_TRAIN, LOGREG_VAL = 100_000, 10_000
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W); fp32
 # is the CUDA cores' rate, "tf32x3" the rate of fp32 products at fp32
 # accuracy as three TF32 products each on the tensor cores (495 TFLOP/s / 3)
@@ -907,7 +964,7 @@ def host_us(fn, calls=1000):
     return t / calls * 1e6
 
 
-def kernel_times(ff, mc, fq, fm, ln, fa):
+def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
     """Phase 9: kernel, plain and library times at the bf16 shapes of phases
     2-4c, and each kernel's bound from the same inputs. `times[key]` =
     (kernel, plain, library) back-to-back calls between CUDA events
@@ -916,7 +973,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
     (`host_us`, for K3 and SDPA, K6 and F.layer_norm); `extra[key]` holds
     what else a kernel replaced. ViT-g's and vit_tiny's shapes (M2b) are
     timed at batch 16 under keys "vitg ..." and "vit_tiny ...", kept out of
-    the kernels line."""
+    the kernels line; with `eval_only` only M14's "eval ..." keys."""
     F = torch.nn.functional
     times, bounds, extra, dev, host = {}, {}, {}, {}, {}
 
@@ -1128,6 +1185,19 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
     def at_16(shapes):
         return [s for s in shapes if s[0] == TRAIN_BATCH]
 
+    def eval_times():
+        """M14 at evals_cli's batch 64: the fp32 K3 at ViT-L/14's 257 tokens
+        against SDPA in fp32, K6 and K4 at 16448 rows against the unfused
+        sequence and cuBLAS's fp32 GEMM (TF32 off)"""
+        flash_times([(EVAL_BATCH, 16, EVAL_TOKENS, 64)], "eval ", seed=3, dtype=torch.float32)
+        row_times([(EVAL_BATCH, EVAL_TOKENS, 1024)], HEADS, "eval ", k5=False,
+                  dtype=torch.float32)
+
+    if eval_only:
+        with torch.no_grad():
+            eval_times()
+        return times, bounds, extra, dev, host
+
     with torch.no_grad():
         flash_times(FLASH_SHAPES, k7_body=True, host_too=True)
         # K3 at tap_unet_fuse's extra walks (1.5× and 0.5× frames), batch 16
@@ -1158,6 +1228,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa):
         # against the unfused sequence and cuBLAS's fp32 GEMM (TF32 off)
         flash_times(at_16(FLASH_SHAPES), "fp32 ", dtype=torch.float32)
         row_times(at_16(ROW_SHAPES), HEADS, "fp32 ", k5=False, dtype=torch.float32)
+        eval_times()
         geo = M2F_MSDA_GEOMETRIES
         msda_times(m2f_msda_cases(M2F_BATCH, geo[:1]), "m2f ", hot_too=False)
         msda_times(m2f_msda_cases(M2F_BATCH, geo[1:3]), "m2f ", hot_too=False,
@@ -3627,6 +3698,272 @@ def torchrun_pretrain(expect_ssl, smi) -> dict:
     return launch
 
 
+def expect_eval(forwards: int) -> dict:
+    """Launches of `forwards` extraction forwards of the fp32 ViT-L/14."""
+    return {**{k: v * forwards for k, v in EVAL_PER_FORWARD.items()}, "msda_bwd": 0,
+            "flash_attn": 0, "flash_attn_bwd": 0}
+
+
+def write_folder_tree(root: Path, per_class: int = EVAL_BATCH, seed: int = 0) -> None:
+    """An image-folder tree, <root>/<split>/<class>/<n>.jpg: two classes of
+    `per_class` 240 × 320 JPEG frames a split (the second class brighter)."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        for c, name in enumerate(("class_a", "class_b")):
+            d = root / split / name
+            d.mkdir(parents=True)
+            for i in range(per_class):
+                img = rng.integers(0, 160, (240, 320, 3), np.uint8) + np.uint8(90 * c)
+                Image.fromarray(img).save(d / f"{i:04d}.jpg", quality=90)
+
+
+def evals_cli_runs(counts, reset_counts, smi) -> dict:
+    """Phase 8w (M14): `python -m adaptersis_tpu_torch.evals_cli
+    {knn,logreg,linear} --arch vit_large --patch_size 14 --imsize 224
+    --batch_size 64 --synthetic` from a seeded `.pth` in
+    `dinov2_vitl14_pretrain.pth`'s layout (linear with `--epochs 2`), then
+    knn on an image-folder tree (`--dataset imagefolder`: `data/loaders.py`,
+    `data/imagenet.py`). Each run extracts 256 train and 256 val images (the
+    tree 128 each) on the card; its launches must be `EVAL_PER_FORWARD` per
+    forward, every K3 on the 3×TF32 kernel; accuracies in [0, 1]. Prints
+    the extraction img/s per split beside each split's loader alone (the
+    CLI's `build_loader`, iterated without the model), the launches per
+    forward by kind and the peak memory; then the forward alone
+    (`extraction_forward`).
+    Returns the runs and the `.pth`'s path."""
+    from adaptersis_tpu_torch import evals_cli
+    work = ROOT / "build" / "smoke_evals"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    pth = work / "dinov2_vitl14_pretrain.pth"
+    torch.save(dinov2_vitl14_state_dict(), pth)
+    write_folder_tree(work / "tree")
+    setup_s = time.perf_counter() - t0
+    base = ["--arch", "vit_large", "--patch_size", "14", "--imsize", str(EVAL_IMSIZE),
+            "--batch_size", str(EVAL_BATCH), "--pretrained_weights", str(pth)]
+    runs = [(mode, [mode, *base, "--synthetic", "--epochs", str(EVAL_EPOCHS)],
+             EVAL_FORWARDS[mode], 4 * EVAL_BATCH) for mode in ("knn", "logreg", "linear")]
+    # 128 train images a split: k up to 100
+    runs.append(("knn imagefolder", ["knn", *base, "--dataset", "imagefolder", "--data_path",
+                                     str(work / "tree"), "--nb_knn", "10", "20", "100"],
+                 4, 2 * EVAL_BATCH))
+    out = {}
+    for name, argv, forwards, images in runs:
+        # the split's loader alone, no card: its img/s is the most the
+        # extraction can reach if the loader sets the pace
+        loader_rate = {}
+        for split in ("train", "val"):
+            t = time.perf_counter()
+            n = sum(len(b[0]) for b in evals_cli.build_loader(
+                evals_cli.get_args_parser().parse_args(argv), split))
+            loader_rate[split] = n / (time.perf_counter() - t)
+        reset_counts()
+        t = time.perf_counter()
+        res = evals_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        got, by_kernel = counts(), path_counts()
+        accs = list(res["accuracy"].values())
+        out[name] = {"seconds": seconds, "extract_img_per_s": res["extract_img_per_s"],
+                     "loader_alone_img_per_s": loader_rate,
+                     "peak_mem_bytes": res.get("peak_mem_bytes"), "launches": got,
+                     "forwards": forwards,
+                     "per_forward": {k: v / forwards for k, v in got.items()},
+                     "by_kernel": by_kernel, "num_classes": res["num_classes"],
+                     "best": res.get("best"),
+                     "accuracy": res["accuracy"] if name != "linear" else
+                     {"best": res["accuracy"][res["best"]], "heads": len(accs)}}
+        say("evals_cli", run=name, argv=argv, setup_s=setup_s, **out[name],
+            nvidia_smi=smi[0] if smi else "unavailable")
+        if (res["train_images"], res["val_images"]) != (images, images):
+            fail(f"8w {name}: extracted {res['train_images']} / {res['val_images']} images")
+        if not accs or not all(0.0 <= a <= 1.0 for a in accs):
+            fail(f"8w {name}: accuracies {res['accuracy']}")
+        if got != expect_eval(forwards):
+            fail(f"8w {name}: launches {got}, expected {EVAL_PER_FORWARD} per forward × "
+                 f"{forwards}")
+        if by_kernel != paths_expected("tf32x3", got):
+            fail(f"8w {name}: K3's launches by kernel {by_kernel}")
+        torch.cuda.empty_cache()
+    out["forward"] = extraction_forward(pth)
+    say("evals_forward", **out["forward"], nvidia_smi=smi[0] if smi else "unavailable")
+    return {"runs": out, "pth": pth}
+
+
+def extraction_forward(pth: Path, top: int = 12) -> dict:
+    """8w's extraction forward alone, on one seeded uint8 batch of 64 on the
+    card: ms per forward (CUDA events around 5 forwards after 2 warm-ups)
+    and img/s, then the device time of 2 forwards by kernel name from
+    torch.profiler's trace (the `top` largest, and the total)."""
+    from adaptersis_tpu_torch import hub
+    from adaptersis_tpu_torch.evals import ModelWithIntermediateLayers
+    fm = ModelWithIntermediateLayers(hub.build_model_for_eval("vit_large", str(pth)), 4)
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (EVAL_BATCH, EVAL_IMSIZE, EVAL_IMSIZE, 3), np.uint8)).cuda()
+
+    def forward():
+        return fm(x.float() / 255.0)
+
+    ms = cuda_ms(forward, iters=5, warmup=2)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            forward()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 2e3
+    del fm, x
+    torch.cuda.empty_cache()
+    return {"ms": ms, "img_per_s": EVAL_BATCH / ms * 1e3,
+            "device_ms_profiled": sum(by_name.values()),
+            "by_kernel_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])}
+
+
+def knn_scale_run(smi) -> dict:
+    """Phase 8x (M14): `eval_knn` at ImageNet-1k's sizes on seeded random
+    features on the card (N = 1,281,167 train rows of D = 1024, M = 50,000
+    test rows, 1000 classes, k ∈ {10, 20, 100, 200}, test chunks of 1024):
+    seconds per k and the peak memory beside the features' bytes and one
+    chunk's (chunk, N) similarities; then one C of `logreg_sweep` (100,000
+    × 1024, 1000 classes, 100 L-BFGS iterations). TF32 is off: fp32
+    products on the CUDA cores, as the JAX package's."""
+    from adaptersis_tpu_torch.evals import logreg_sweep
+    from adaptersis_tpu_torch.evals.knn import eval_knn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    train = torch.randn(KNN_TRAIN, KNN_DIM, device=dev, generator=gen)
+    train_y = torch.randint(0, KNN_CLASSES, (KNN_TRAIN,), device=dev, generator=gen)
+    test = torch.randn(KNN_TEST, KNN_DIM, device=dev, generator=gen)
+    test_y = torch.randint(0, KNN_CLASSES, (KNN_TEST,), device=dev, generator=gen)
+    data_bytes = torch.cuda.memory_allocated() - base
+    accs, seconds = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for k in KNN_KS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        accs.update(eval_knn(train, train_y, test, test_y, KNN_CLASSES, nb_knn=(k,)))
+        torch.cuda.synchronize()
+        seconds[k] = time.perf_counter() - t
+    knn = {"accuracy": accs, "seconds": seconds, "features_bytes": data_bytes,
+           "chunk_similarity_bytes": 1024 * KNN_TRAIN * 4,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() - base}
+    del train, train_y, test, test_y
+    torch.cuda.empty_cache()
+    f = torch.randn(LOGREG_TRAIN, KNN_DIM, device=dev, generator=gen)
+    y = torch.randint(0, KNN_CLASSES, (LOGREG_TRAIN,), device=dev, generator=gen)
+    vf = torch.randn(LOGREG_VAL, KNN_DIM, device=dev, generator=gen)
+    vy = torch.randint(0, KNN_CLASSES, (LOGREG_VAL,), device=dev, generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    best, lr_accs = logreg_sweep(f, y, vf, vy, KNN_CLASSES, Cs=(1.0,))
+    torch.cuda.synchronize()
+    logreg = {"C": best, "accuracy": lr_accs[best], "seconds": time.perf_counter() - t,
+              "peak_mem_bytes": torch.cuda.max_memory_allocated() - base}
+    del f, y, vf, vy
+    torch.cuda.empty_cache()
+    say("knn_scale", train=KNN_TRAIN, test=KNN_TEST, dim=KNN_DIM, classes=KNN_CLASSES,
+        knn=knn, logreg=logreg, nvidia_smi=smi[0] if smi else "unavailable")
+    if not all(0.0 <= a <= 1.0 for a in accs.values()) or len(accs) != len(KNN_KS):
+        fail(f"8x: k-NN accuracies {accs}")
+    if not 0.0 <= logreg["accuracy"] <= 1.0:
+        fail(f"8x: logreg accuracy {logreg}")
+    return {"knn": knn, "logreg": logreg}
+
+
+def depther_run(counts, reset_counts, smi, pth: Path) -> dict:
+    """Phase 8y (M14): `DepthEncoderDecoder` at ViT-L/14 width (fp32,
+    exact GELU, the `.pth` of 8w) with the linear (256 bins) and the DPT
+    head, batch 4 at 420 × 560 (30 × 40 patches), 3 SGD steps on the head
+    (the backbone under no_grad): finite losses, every head parameter
+    moved, the backbone unchanged, `EVAL_PER_FORWARD` launches a step, the
+    step's seconds and peak memory. The linear head's steps run under
+    `profile_trace`, whose trace must hold the card's kernels."""
+    from adaptersis_tpu_torch.models.depther import DepthEncoderDecoder
+    from adaptersis_tpu_torch.models.vit import build_backbone
+    from adaptersis_tpu_torch.train.convert import load_dinov2_backbone
+    from adaptersis_tpu_torch.utils.logging import profile_trace
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    H, W = DEPTH_HW
+    x = torch.rand(DEPTH_BATCH, H, W, 3, generator=gen).to(dev)
+    target = (0.5 + 4.5 * torch.rand(DEPTH_BATCH, H, W, generator=gen)).to(dev)
+    target[:, :8] = 0.0                                   # invalid rows
+    backbone = build_backbone("vit_large", img_size=518, patch_size=14)
+    load_dinov2_backbone(backbone, pth)
+    backbone = backbone.to(dev).eval()
+    frozen = {k: v.clone() for k, v in backbone.state_dict().items()}
+    trace_dir = ROOT / "build" / "smoke_evals" / "trace"
+    out = {}
+    for head in ("linear", "dpt"):
+        torch.manual_seed(0)
+        model = DepthEncoderDecoder(backbone, head=head).to(dev).train()
+        start = {k: v.detach().clone() for k, v in model.decode_head.named_parameters()}
+        opt = torch.optim.SGD(model.decode_head.parameters(), lr=1e-3, momentum=0.9)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        reset_counts()
+        with profile_trace(str(trace_dir), enabled=head == "linear"):
+            for _ in range(DEPTH_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                pred = model(x)
+                loss = model.loss(pred, target)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+                step_s.append(time.perf_counter() - t)
+        got = counts()
+        moved = [k for k, p in model.decode_head.named_parameters()
+                 if not torch.equal(p.detach(), start[k])]
+        out[head] = {"losses": losses, "step_s": step_s, "launches": got,
+                     "per_step": {k: v / DEPTH_STEPS for k, v in got.items()},
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                     "pred_shape": list(pred.shape), "head_params_moved": len(moved),
+                     "head_params": len(start)}
+        if head == "linear":
+            traces = sorted(trace_dir.glob("*.pt.trace.json"))
+            kernels = 0
+            if traces:
+                events = json.loads(traces[-1].read_text()).get("traceEvents", [])
+                kernels = sum(1 for e in events if e.get("cat") == "kernel")
+            out[head]["trace"] = {"files": len(traces), "kernel_events": kernels}
+        say("depther", head=head, batch=DEPTH_BATCH, hw=list(DEPTH_HW), **out[head],
+            nvidia_smi=smi[0] if smi else "unavailable")
+        if pred.shape != (DEPTH_BATCH, H, W, 1) or not all(math.isfinite(v) for v in losses):
+            fail(f"8y {head}: prediction {tuple(pred.shape)}, losses {losses}")
+        if len(moved) != len(start):
+            fail(f"8y {head}: {len(start) - len(moved)} head parameters did not move")
+        if got != expect_eval(DEPTH_STEPS):
+            fail(f"8y {head}: launches {got}, expected {EVAL_PER_FORWARD} per step")
+        if head == "linear" and not out[head]["trace"]["kernel_events"]:
+            fail(f"8y: profile_trace wrote no kernel events: {out[head]['trace']}")
+        del model, opt, pred, loss
+        torch.cuda.empty_cache()
+    if any(not torch.equal(v, frozen[k]) for k, v in backbone.state_dict().items()):
+        fail("8y: the frozen backbone changed")
+    return out
+
+
+def eval_kernel_checks(ff, ln, fq, fm) -> dict:
+    """Phases 2e and 4g (M14): K3, and K6 and K4 (no K5: exact GELU), at
+    evals_cli's 257 tokens, batch 2 and 64, and the depther's 1201 tokens,
+    batch 4 (`EVAL_FLASH_SHAPES`, `EVAL_ROW_SHAPES`), bf16 and fp32, each element
+    within its bound, with the planted faults and repeats of phases 2 and
+    4b (`check_k3`, `check_row_kernels`). Returns the largest bf16 errors."""
+    err = {"flash_fwd": check_k3(ff, EVAL_FLASH_SHAPES)}
+    err.update(check_row_kernels(ln, fq, fm, EVAL_ROW_SHAPES, HEADS, k5=False))
+    del err["fused_ln_mlp"]
+    torch.cuda.empty_cache()
+    return err
+
+
 def launch_counters():
     """(counts, reset_counts): read and zero every kernel wrapper's launch
     count (and K3's counts by kernel, `path_counts`)."""
@@ -3781,6 +4118,10 @@ def main() -> None:
     vitg_err["flash_attn"] = check_k7(fa, [
         (case, shape, packed_ids(shape[0], STUDENT_SEGMENTS) if case.endswith("student")
          else None, 0.125) for case, shape in G_K7_SHAPES.items()])
+
+    # ---- 2e, 4g. K3, and K6 and K4, at evals_cli's 257 tokens and the
+    # depther's 1201 (M14)
+    eval_err = eval_kernel_checks(ff, ln, fq, fm)
 
     # ---- 5. narrow whole model: CPU plain paths vs CUDA kernels, fp32
     model = narrow_model()
@@ -4240,13 +4581,20 @@ def main() -> None:
     torchrun_pretrain(expect_ssl, smi)
     gloo_ssl_check(counts, reset_counts, expect_ssl)
 
+    # ---- 8w-8y. the frozen-feature evals at ViT-L/14 (M14): evals_cli's
+    # three modes, k-NN and logreg at ImageNet's sizes, the depther
+    evals_run = evals_cli_runs(counts, reset_counts, smi)
+    knn_scale_run(smi)
+    depther_run(counts, reset_counts, smi, evals_run["pth"])
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
     say_times(name, smi, times, bounds, extra, dev, host)
     say("variant_geometries", k3_unet_fuse_max_abs_err=fuse_k3_err,
         k7_setr_ete_max_abs_err=ete_k7_err, vitg_and_vit_tiny_max_abs_err=vitg_err,
-        m2f_max_abs_err=m2f_err, device=name, nvidia_smi=smi[0] if smi else "unavailable")
+        m2f_max_abs_err=m2f_err, eval_max_abs_err=eval_err, device=name,
+        nvidia_smi=smi[0] if smi else "unavailable")
 
     def on_path(key, prefix):
         return (key.startswith(prefix) and f"B={TRAIN_BATCH}" in key
@@ -4344,6 +4692,15 @@ def main() -> None:
                                             "tflops_device") if e in extra.get(k, {})}}
             for k in times if k.startswith("fp32 ") and kname in k.split()}
         row["launches_fp32_step"] = fp32_run["train_seg fp32"]["per_train_step"][kname]
+        # M14: the fp32 kernels at evals_cli's batch 64, 257 tokens ("eval ..."
+        # keys), and the launches per extraction forward of 8w's knn run
+        row["eval_shapes"] = {
+            k: {"ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": times[k][2], "device_ms": dev[k][0],
+                **{e: extra[k][e] for e in ("bound_fp32_cuda_cores", "cublas_gemm", "unfused",
+                                            "tflops_device") if e in extra.get(k, {})}}
+            for k in times if k.startswith("eval ") and kname in k.split()}
+        row["launches_eval_forward"] = evals_run["runs"]["knn"]["per_forward"][kname]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4426,6 +4783,35 @@ def gate_only() -> None:
     seg_gate_ablation(*counters)
 
 
+def evals_only() -> None:
+    """`--evals`: the build, phases 2e and 4g (K3, K6 and K4 at evals_cli's
+    257 tokens and the depther's 1201 against their plain versions), 8w-8y (evals_cli's three
+    modes at ViT-L/14, k-NN and logreg at ImageNet's sizes, the depther)
+    and phase 9's "eval ..." keys, with the card's name and power limit."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch.ops import _build, flash_attn as fa, flash_fwd as ff, msda_cuda as mc
+    from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.library()
+    say("device", name=name, root=str(ROOT), nvidia_smi=smi[0] if smi else "unavailable",
+        torch=torch.__version__, cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+    counts, reset_counts = launch_counters()
+    say("eval_kernels", max_abs_err=eval_kernel_checks(ff, ln, fq, fm))
+    run = evals_cli_runs(counts, reset_counts, smi)
+    knn_scale_run(smi)
+    depther_run(counts, reset_counts, smi, run["pth"])
+    say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa, eval_only=True))
+    print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
+
+
 # `--fp32-steps`: 8s's and 8m's commands whole (train_seg's synthetic epoch
 # is 8 steps, segment_m2f's 4, run for FP32_STEP_EPOCHS epochs)
 FP32_STEP_EPOCHS = 3
@@ -4490,13 +4876,15 @@ if __name__ == "__main__":
         fp32_steps_only()
     elif sys.argv[1:] == ["--data-parallel"]:
         data_parallel_only()
+    elif sys.argv[1:] == ["--evals"]:
+        evals_only()
     elif sys.argv[1:2] == ["--torchrun-child"]:
         torchrun_child(int(sys.argv[2]), sys.argv[3], sys.argv[4:])
     elif sys.argv[1:2] == ["--gloo-child"]:
         gloo_child(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:]:
         fail(f"usage: python3 chip_smoke.py [--times | --gate | --fp32-steps | "
-             f"--data-parallel], "
+             f"--data-parallel | --evals], "
              f"got {sys.argv[1:]}")
     else:
         main()

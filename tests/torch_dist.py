@@ -1,6 +1,7 @@
-"""Two-rank runs of the port for the data-parallel tests, on the CPU over
-gloo: `spawn` starts W processes of this file with torchrun's variables
-(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), each running one
+"""Two-rank runs of the port for the data-parallel and distributed-eval
+tests, on the CPU over gloo: `spawn` starts W processes of this file with
+torchrun's variables (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT), each running one
 job on the inputs the test wrote, and fails a test whose ranks do not end
 inside their time limit. The jobs import torch and the port only (no jax),
 run on one intra-op thread, and write their results with torch.save.
@@ -238,8 +239,47 @@ def job_ssl(directory: Path, rank: int, W: int) -> dict:
     return out
 
 
+class _Frames:
+    """Items (uint8 frame, label, index) of a stack of frames."""
+
+    def __init__(self, imgs: np.ndarray, labels: np.ndarray):
+        self.imgs, self.labels = imgs, labels
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def __getitem__(self, i):
+        return self.imgs[i], int(self.labels[i]), i
+
+
+def job_evals(directory: Path, rank: int, W: int) -> dict:
+    """knn_classify with the train rows split over the ranks (their count
+    odd), then extract_features over this rank's shard of the frames (an
+    unshuffled EpochSampler that pads the last shard), gathered; and
+    all_gather_rows of rank + 1 rows a rank (10·rank + i)."""
+    from adaptersis_tpu_torch.data.loader import DataLoader
+    from adaptersis_tpu_torch.data.samplers import EpochSampler
+    from adaptersis_tpu_torch.evals import ModelWithIntermediateLayers, extract_features
+    from adaptersis_tpu_torch.evals.knn import knn_classify
+    from adaptersis_tpu_torch.models.vit import DinoVisionTransformer
+    from adaptersis_tpu_torch.parallel.dist import all_gather_rows
+
+    inp = torch.load(directory / "evals_in.pt", weights_only=False)
+    out = {k: knn_classify(inp["train"], inp["train_y"], inp["test"], inp["classes"], k=k,
+                           test_chunk=inp["chunk"]) for k in inp["ks"]}
+    vit = DinoVisionTransformer(**inp["vit"])
+    vit.load_state_dict(inp["state"])
+    ds = _Frames(inp["imgs"], inp["labels"])
+    loader = DataLoader(ds, EpochSampler(len(ds), shuffle=False, rank=rank, world_size=W,
+                                         drop_last=False), batch_size=2, drop_last=False)
+    out["features"], out["labels"] = extract_features(
+        ModelWithIntermediateLayers(vit.eval(), inp["n_last_blocks"]), loader)
+    out["uneven"] = all_gather_rows(10 * rank + torch.arange(rank + 1)[:, None].repeat(1, 3))
+    return out
+
+
 JOBS = {"bn": job_bn, "step": job_step, "train_seg": job_train_seg, "ete_state": job_ete_state,
-        "ssl": job_ssl}
+        "ssl": job_ssl, "evals": job_evals}
 
 
 def main(job: str, directory: str) -> None:
