@@ -21,6 +21,10 @@ fastest window), mfu (analytic FLOPs of the step, `utils/flops.py`, over the
 card's dense bf16 peak; null off the card), peak_mem_gib (null off the
 card), the device's name, the batch per rank, the world size, the global
 img/s (`value` is per GPU) and the last loss; rank 0 alone prints.
+`--profile` then traces 3 more steps of the same model and batch with
+torch.profiler and prints the device's activities by name, the idle share
+and torch's table of operators (`train_seg.profile_table`): the
+counterpart of the JAX package's `tools/profile_step.py`.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from .train.convert import seeded_init_
 from .parallel.dist import get_rank, get_world_size, init_distributed, print_on_main_only
 from .parallel.mesh import get_mesh
 from .train.trainer import Trainer
+from .train_seg import profiled_steps
 from .utils.flops import train_step_flops
 
 PATCH = 14
@@ -103,7 +108,10 @@ def device_name(device: torch.device) -> str:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    args = get_args_parser("adaptersis-torch-bench").parse_args(argv)
+    p = get_args_parser("adaptersis-torch-bench")
+    p.add_argument("--profile", action="store_true",
+                   help="then trace 3 steps with torch.profiler and print the table")
+    args = p.parse_args(argv)
     device = setup(args)
     B, S = args.batch, args.imsize
     model = build_model(args)
@@ -136,6 +144,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
               "peak_mem_gib": peak_mem, "device": device_name(device), "batch": B,
               "world_size": W, "global_img_per_s": value * W, "loss": float(losses[-1])}
     print(json.dumps(result), flush=True)
+    if args.profile:
+        print(profiled_steps(step, device), flush=True)
     return result
 
 

@@ -17,7 +17,10 @@ median window is reported.
 Prints one JSON line with the JAX tool's keys (metric, value in img/s,
 unit, ms_step, batch, spread: the slowest and fastest window, msda_impl)
 and the device's name, the peak memory and the last loss. No MFU: the
-JAX tool computes none.
+JAX tool computes none. `--profile` then traces 3 more steps on the same
+model with torch.profiler and prints the device's activities by name, the
+idle share and torch's table of operators (`train_seg.profile_table`): the
+counterpart of the JAX package's `tools/profile_m2f_step.py`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from .bench import PATCH, device_name, setup, timed_windows
 from .segment_m2f import M2FTrainer, build_model
+from .train_seg import profiled_steps
 
 NUM_CLASSES = 2
 
@@ -43,6 +47,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", default=5, type=int, help="steps per timed window")
     p.add_argument("--repeats", default=3, type=int, help="timed windows")
     p.add_argument("--device", default="cuda", type=str)
+    p.add_argument("--profile", action="store_true",
+                   help="then trace 3 steps with torch.profiler and print the table")
     return p
 
 
@@ -78,6 +84,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                if device.type == "cuda" else None),
               "loss": float(losses[-1])}
     print(json.dumps(result), flush=True)
+    if args.profile:
+        print(profiled_steps(step, device), flush=True)
     return result
 
 

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -48,7 +47,7 @@ from .parallel.mesh import get_mesh
 from .ssl.masking import MaskingGenerator, collate_masks_with_indices, rank_masks
 from .ssl.meta_arch import SSLConfig, SSLMetaArch, masks_to, schedule_values
 from .train.schedules import cosine_scheduler
-from .train_seg import profile_table
+from .train_seg import profiled_steps
 from .utils.flops import ssl_step_flops
 
 PATCH = 14
@@ -126,16 +125,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
               "loss": float(losses[-1])}
     print(json.dumps(result), flush=True)
     if args.profile:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                out = step()
-            out.item()
-            seconds = time.perf_counter() - t0
-        print(profile_table(prof, device, 3, seconds), flush=True)
+        print(profiled_steps(step, device), flush=True)
     return result
 
 

@@ -59,7 +59,7 @@ import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -242,8 +242,10 @@ def _sync(device: torch.device) -> None:
 
 def profile_table(prof, device: torch.device, steps: int, seconds: float) -> str:
     """The device's activities (kernels, copies, memsets) summed by name per
-    step, their total against the window's host time (the idle share), then
-    torch's own table of operators."""
+    step, every one of them, their total against the window's host time
+    (the idle share), then torch's own table of operators. The ranges that
+    annotations such as "Optimizer.step#AdamW.step" draw on the device's
+    timeline span kernels counted on their own, so they are left out."""
     lines = [f"torch.profiler over {steps} train steps on {device}, {seconds:.6f} s of host "
              "time (the profiler's own cost included)"]
     sort = "self_cpu_time_total"
@@ -251,7 +253,7 @@ def profile_table(prof, device: torch.device, steps: int, seconds: float) -> str
         sort = "self_cuda_time_total"
         total, calls = defaultdict(float), defaultdict(int)
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
                 total[e.name] += e.time_range.elapsed_us() / 1e3
                 calls[e.name] += 1
         busy = sum(total.values()) / 1e3
@@ -259,7 +261,7 @@ def profile_table(prof, device: torch.device, steps: int, seconds: float) -> str
                      f"idle share {1.0 - busy / seconds:.4f}")
         lines += [f"{ms / steps:10.3f} ms/step {ms / sum(total.values()):7.2%} "
                   f"{calls[name]:6d} calls  {name[:110]}"
-                  for name, ms in sorted(total.items(), key=lambda kv: -kv[1])[:40]]
+                  for name, ms in sorted(total.items(), key=lambda kv: -kv[1])]
     lines.append(prof.key_averages().table(sort_by=sort, row_limit=40))
     return "\n".join(lines) + "\n"
 
@@ -269,6 +271,19 @@ def _profiler(device: torch.device):
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return torch.profiler.profile(activities=acts)
+
+
+def profiled_steps(step: Callable[[], torch.Tensor], device: torch.device) -> str:
+    """`profile_table` of 3 more calls of `step` under torch.profiler; `step`
+    returns a device tensor whose read synchronises (the benches'
+    `--profile`)."""
+    with _profiler(device) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = step()
+        out.item()
+        seconds = time.perf_counter() - t0
+    return profile_table(prof, device, 3, seconds)
 
 
 def run(args) -> Tuple[Trainer, List[dict]]:

@@ -112,9 +112,12 @@ seconds since the start):
      (48 attention, 7 MSDA forward, 7 MSDA backward, 48 K4, 48 K5, 4 K6),
      img/s and peak memory;
   8b. the deployed configuration's entry points at their defaults (ViT-L/14
-     at 588 px, bf16, batch 16): `adaptersis_tpu_torch.bench` (train step)
-     and `adaptersis_tpu_torch.bench_infer` (forward + argmax), their JSON
-     lines, finite values and launches per step;
+     at 588 px, bf16, batch 16): `adaptersis_tpu_torch.bench --profile`
+     (train step; then 3 steps under torch.profiler, whose device table
+     must name K1-K6 by their kernels, `PROFILE_NAMES`; its top rows are
+     printed, `check_profile`) and `adaptersis_tpu_torch.bench_infer`
+     (forward + argmax), their JSON lines, finite values and launches per
+     step;
   8c. the SSL slice's entry points at full width (ViT-S/14, batch 32,
      bf16, 65536 prototypes): `adaptersis_tpu_torch.bench_ssl` at its
      defaults and `adaptersis_tpu_torch.pretrain --bf16 --synthetic
@@ -142,8 +145,19 @@ seconds since the start):
      twice the floor's distance in normalised L2 distance and max relative
      error, two planted faults (q, k, v moved by one head; K5 without b2)
      beyond them; `seg_step_gate`;
+  8f. `train.py`'s real-data run at full width (`real_data_run`): a
+     Robust-MIS tree at its 960 × 540 frames and a seeded `.pth` in
+     `dinov2_vitl14_pretrain.pth`'s layout, `train_seg` (ViT-L/14, 588 px,
+     bf16, batch 8, 2 epochs) as run A, then its repeat A′ through
+     `adaptersis_tpu_torch.quality_parity` with A's last validation as the
+     reference (`parity_checks`: parity.json's metrics are A′'s last
+     `test_*` row, exit code 1 exactly when parity_ok is false, every Δ 0
+     and PASS when A and A′ are bit-identical; A's dice + 0.05 must FAIL
+     with exit code 1, compared without training again), R stopped after
+     an epoch and resumed (`resume_rule`), `--evaluate` and `evaluate`;
+  8g. `pretrain`'s checkpoint and resume at full width (`ssl_resume_run`);
   8h. `train_seg`'s other models and decoders at the paper's width (ViT-L/14
-     at 588 px cut to `VARIANT_DEPTH` = 12 of its 24 blocks, bf16, tanh
+     at 588 px cut to `VARIANT_DEPTH` = 8 of its 24 blocks, bf16, tanh
      GELU, batch 8, synthetic, one epoch of 3 steps and a validation): the adapter model with the MLA decoder (through
      `train_mla`) and with SETR's, and tap_setr, tap_unet, tap_unet_fuse,
      tap_masktrans and tap_setr_ete; finite losses, every trainable moved,
@@ -156,23 +170,28 @@ seconds since the start):
      the floor and q, k, v moved by one head as the planted fault, per
      subtree (backbone, head) within max(1e-1, 2 × floor)
      (`ete_step_gate`);
-  8j. ViT-g/14 through `train_seg --config_file configs/vitg14_pretrain.yaml
-     --imsize 588 --bf16 --synthetic` at batch 8 (`variant_runs` with
-     `G_RUNS`: 3 steps, a validation of 2 forwards, launches per step as
-     `G_PER_FORWARD` predicts, img/s, peak memory, then `--evaluate` on its
-     checkpoint), and its train step at batch 2 on phase 8e's sides
-     (`seg_step_gate` with arch vit_giant2; the moved heads as the fault);
+  8j. ViT-g/14 at its full width cut to `G_DEPTH` = 20 of its 40 blocks
+     (`arch_depth`, as in 8k and 8l) through `train_seg --config_file
+     configs/vitg14_pretrain.yaml --imsize 588 --bf16 --synthetic` at batch
+     8 (`variant_runs` with `G_RUNS`: 3 steps, a validation of 2 forwards,
+     launches per step as `G_PER_FORWARD` predicts, img/s, peak memory, then
+     `--evaluate` on its checkpoint), and its train step at batch 2 on phase
+     8e's sides (`seg_step_gate` with arch vit_giant2; the moved heads as
+     the fault);
   8k. ViT-g/14's SSL step: `pretrain --arch vit_giant2 --bf16 --synthetic`
-     at the default crops, batch 8, 2 steps (`vitg_ssl_run`);
+     at the default crops, batch 8, 2 steps (`vitg_ssl_run`, G_DEPTH
+     blocks);
   8l. `visualize_attention` on the card (`attention_map_run`): a seeded
-     ViT-S/14 `.pth` (against the CPU's plain path) and ViT-g/14's draw;
+     ViT-S/14 `.pth` (against the CPU's plain path) and ViT-g/14's draw
+     (G_DEPTH blocks);
   8m. `segment_m2f --arch vit_large --imsize 518 --batch_size_per_gpu 4
      --synthetic` at its fp32 default, one epoch cut to 3 steps, its
      validation and checkpoint, then the same command with `--epochs 2`
      resumes; launches per step and validation forward (`M2F_FP32_STEP`),
      img/s over 2 steps, peak memory; 8n. `segment_m2f` at its defaults
-     (vit_small, D = 48), one step; 8o. `bench_m2f` at its defaults
-     (ViT-L/14, 518 px, bf16, batch 4: `M2F_BENCH_STEP`) and on
+     (vit_small, D = 48), one step; 8o. `bench_m2f --profile` at its
+     defaults (ViT-L/14, 518 px, bf16, batch 4: `M2F_BENCH_STEP`; the 3
+     profiled steps' device table must name K1-K6 as in 8b) and on
      vit_large_windowed for 3 steps (`M2F_WINDOWED_STEP`)
      (`m2f_entry_runs`);
   8p. the Mask2Former train step gate (`m2f_step_gate`, batch 2, bf16):
@@ -213,6 +232,15 @@ seconds since the start):
      every head parameter moved, the backbone unchanged, 24 K3, 24 K4, 28
      K6 a step; the linear head's steps under `profile_trace`, whose trace
      must hold the card's kernels (`depther_run`);
+  8z. `train_multi_class` (8 classes, the iou_multi loss, EndoVis 2017)
+     at ViT-L/14, 588 px, bf16, tanh GELU, batch 8 on a fabricated EndoVis
+     2017 tree (`write_endovis2017_tree`: 1280 × 1024 frames, 24 training
+     frames in two sequences, 8 test frames), one epoch of 3 steps and a
+     validation: finite losses, every trainable moved, the frozen backbone
+     unchanged, the head's 8 output channels, launches per train step and
+     validation forward as phase 8's, `test_ch_iou` and `test_isi_iou` in
+     log.txt finite in [0, 1], the labels trained on (binary_masks: {0, 1}),
+     img/s, loader wait, peak memory, seconds (`multi_class_run`);
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -280,7 +308,9 @@ copy it into another tree's root to time both trees' fp32 steps in one call.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -364,13 +394,17 @@ TINY_ROW_SHAPES = [(B, N, TINY_WIDTH) for B in (FULL_BATCH, TRAIN_BATCH)
 G_SSL_BATCH = 8
 G_K7_SHAPES = {"vitg student": (2 * G_SSL_BATCH, G_HEADS, sum(STUDENT_SEGMENTS), 64),
                "vitg teacher": (2 * G_SSL_BATCH, G_HEADS, TEACHER_N, 64)}
-# per ViT-g adapter forward: 40 blocks in each of the two walks, 80 K3 and
-# K4; the SwiGLU MLP halves take K6 (80) and the 4 tap norms (4); no K5
-G_PER_FORWARD = {"flash_fwd": 80, "msda_fwd": 7, "fused_ln_qkv": 80, "fused_ln_mlp": 0,
-                 "layernorm": 84}
-# per ViT-g SSL step: the teacher's and the student's 40 blocks forward, the
-# student's backward
-G_SSL_PER_STEP = {"flash_attn": 80, "flash_attn_bwd": 40}
+# phases 8j-8l run ViT-g/14 at its full width cut to 20 of its 40 blocks
+# (`arch_depth`; 40 until phase 8z and the two profiles came in), to keep
+# the whole script well inside its limit
+G_DEPTH = 20
+# per ViT-g adapter forward: G_DEPTH blocks in each of the two walks, a K3
+# and a K4 each; the SwiGLU MLP halves take K6, and the 4 tap norms; no K5
+G_PER_FORWARD = {"flash_fwd": 2 * G_DEPTH, "msda_fwd": 7, "fused_ln_qkv": 2 * G_DEPTH,
+                 "fused_ln_mlp": 0, "layernorm": 2 * G_DEPTH + 4}
+# per ViT-g SSL step: the teacher's and the student's G_DEPTH blocks
+# forward, the student's backward
+G_SSL_PER_STEP = {"flash_attn": 2 * G_DEPTH, "flash_attn_bwd": G_DEPTH}
 # the ViT-Adapter + Mask2Former stack (M12) at ViT-L/14, 518 px: the
 # backbone's 37² patch tokens and the cls token ride through the blocks
 # (1370 tokens); the CNN pyramid is 64², 31², 16² (5313 tokens); the pixel
@@ -2192,34 +2226,42 @@ REAL_BATCH = 8
 SEG_SUBTREES = ("cross_vit", "cross_cnn", "encoder", "decoder", "level_embed")
 
 
+def instrument_frame(rng, yy, xx):
+    """An RGB frame (a smooth field with noise and darker metallic instrument
+    shapes: 1-3 rotated ellipses with Robust-MIS's proportions at 960 px)
+    and each shape's boolean mask, drawn from `rng`."""
+    h, w = yy.shape
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    img = np.stack([120 + 60 * np.sin(xx / (90 + 30 * c) + yy / 140 + phase[c])
+                    for c in range(3)], -1)
+    shapes = []
+    for _ in range(rng.integers(1, 4)):
+        cx, cy = rng.uniform(0.1, 0.9) * w, rng.uniform(0.1, 0.9) * h
+        ang = rng.uniform(0, np.pi)
+        u = (xx - cx) * np.cos(ang) + (yy - cy) * np.sin(ang)
+        v = -(xx - cx) * np.sin(ang) + (yy - cy) * np.cos(ang)
+        shapes.append((u / rng.uniform(120, 300)) ** 2 + (v / rng.uniform(15, 40)) ** 2 < 1)
+    mask = np.logical_or.reduce(shapes)
+    img[mask] = img[mask] * 0.35 + np.asarray([170.0, 175.0, 180.0]) * 0.65
+    img += rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8), shapes
+
+
 def write_robomis_tree(root: Path, seed: int = 0) -> None:
-    """images/{training,validation}/*.png (RGB 960 × 540: a smooth field with
-    noise and darker metallic instrument shapes) and annotations/ (8-bit
-    gray, the shapes at 255), through the port's own PNG writer."""
+    """images/{training,validation}/*.png (RGB 960 × 540, `instrument_frame`)
+    and annotations/ (8-bit gray, the shapes at 255), through the port's own
+    PNG writer."""
     from adaptersis_tpu_torch.data.png_writer import write_png
     rng = np.random.default_rng(seed)
-    h, w = REAL_FRAME
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy, xx = np.mgrid[0:REAL_FRAME[0], 0:REAL_FRAME[1]].astype(np.float32)
     for split, n in (("training", REAL_TRAIN), ("validation", REAL_VAL)):
         (root / "images" / split).mkdir(parents=True)
         (root / "annotations" / split).mkdir(parents=True)
         for i in range(n):
-            phase = rng.uniform(0, 2 * np.pi, 3)
-            img = np.stack([120 + 60 * np.sin(xx / (90 + 30 * c) + yy / 140 + phase[c])
-                            for c in range(3)], -1)
-            mask = np.zeros((h, w), bool)
-            for _ in range(rng.integers(1, 4)):
-                cx, cy = rng.uniform(0.1, 0.9) * w, rng.uniform(0.1, 0.9) * h
-                ang = rng.uniform(0, np.pi)
-                u = (xx - cx) * np.cos(ang) + (yy - cy) * np.sin(ang)
-                v = -(xx - cx) * np.sin(ang) + (yy - cy) * np.cos(ang)
-                mask |= (u / rng.uniform(120, 300)) ** 2 + (v / rng.uniform(15, 40)) ** 2 < 1
-            img[mask] = img[mask] * 0.35 + np.asarray([170.0, 175.0, 180.0]) * 0.65
-            img += rng.normal(0, 6, img.shape)
-            write_png(root / "images" / split / f"{i:04d}.png",
-                      np.clip(img, 0, 255).astype(np.uint8))
+            img, shapes = instrument_frame(rng, yy, xx)
+            write_png(root / "images" / split / f"{i:04d}.png", img)
             write_png(root / "annotations" / split / f"{i:04d}.png",
-                      mask.astype(np.uint8) * 255)
+                      np.logical_or.reduce(shapes).astype(np.uint8) * 255)
 
 
 def dinov2_vitl14_state_dict(seed: int = 0) -> dict:
@@ -2283,15 +2325,88 @@ def resume_rule(phase: str, a: dict, a2: dict, r: dict, subtrees) -> dict:
     return res
 
 
+def parity_checks(work: Path, reference: dict, code, identical: bool) -> dict:
+    """Phase 8f's hold on run A′, made through `quality_parity.main` with
+    A's last `test_*` row as its reference (`code` its exit code): parity.json's
+    metrics are A′'s own last `test_*` row of log.txt, the exit code is 1
+    exactly when parity_ok is false, and where A and A′ are bit-identical
+    (`identical`) every Δ is 0 and every verdict PASS. Then A's dice + 0.05
+    as the reference, compared on A′'s output_dir with `train_seg.run`
+    replaced by nothing (no second training run), must FAIL with exit code
+    1."""
+    from adaptersis_tpu_torch import quality_parity, train_seg
+    out = work / "A2"
+    parity = json.loads((out / "parity.json").read_text())
+    table = (out / "parity.md").read_text()
+    rows = [json.loads(x) for x in (out / "log.txt").read_text().splitlines() if x.strip()]
+    own = {k[len("test_"):]: v for k, v in [r for r in rows if any(
+        k.startswith("test_") for k in r)][-1].items() if k.startswith("test_")}
+    verdicts = {line.split(" | ")[0].strip("| "): line.rstrip(" |").rsplit(" | ", 1)[1]
+                for line in table.splitlines()[2:]}
+    failures = []
+    if parity["metrics"] != own:
+        failures.append(f"parity.json's metrics {parity['metrics']}, log.txt's last row {own}")
+    if parity["reference"] != reference or code != (0 if parity["parity_ok"] else 1):
+        failures.append(f"reference {parity['reference']}, parity_ok {parity['parity_ok']}, "
+                        f"exit code {code}")
+    if identical and (parity["metrics"] != reference or not parity["parity_ok"]
+                      or any(v != "PASS" for v in verdicts.values())):
+        failures.append(f"A = A' bit for bit, but parity reads {parity}, {verdicts}")
+    worse = {**reference, "dice": reference["dice"] + 0.05}
+    (work / "reference_worse.json").write_text(json.dumps(worse))
+    plain_run = train_seg.run
+    train_seg.run = lambda args: (None, [])
+    try:
+        quality_parity.main(["--output_dir", str(out),
+                             "--reference_json", str(work / "reference_worse.json")])
+        worse_code = 0
+    except SystemExit as e:
+        worse_code = e.code
+    finally:
+        train_seg.run = plain_run
+    worse_parity = json.loads((out / "parity.json").read_text())
+    worse_table = (out / "parity.md").read_text()
+    dice_row = next(x for x in worse_table.splitlines() if x.startswith("| dice |"))
+    if worse_code != 1 or worse_parity["parity_ok"] or not dice_row.endswith("| FAIL |"):
+        failures.append(f"A's dice + 0.05: exit code {worse_code}, {worse_parity}, {dice_row}")
+    res = {"exit_code": code, "parity": parity, "verdicts": verdicts,
+           "a_equals_a2": identical, "worse_reference": {"exit_code": worse_code,
+                                                          "parity_ok": worse_parity["parity_ok"],
+                                                          "dice_row": dice_row}}
+    say("quality_parity", **res)
+    if failures:
+        fail("8f quality_parity: " + "; ".join(failures))
+    return res
+
+
 def real_data_run(counts, reset_counts, smi) -> dict:
     """Phase 8f: `train_seg` on a Robust-MIS tree from a DINOv2 `.pth` at full
     width (ViT-L/14 at 588 px, bf16, batch 8, 2 epochs): runs A and A′, R
     stopped after an epoch and resumed, `--evaluate` on A, `evaluate` at
     batch 2 (`real_data_run`'s docstring in the module header)."""
-    from adaptersis_tpu_torch import evaluate, train_seg
+    from adaptersis_tpu_torch import evaluate, quality_parity, train_seg
     from adaptersis_tpu_torch.data import native
     from adaptersis_tpu_torch.train.checkpoint import restore_checkpoint
     from adaptersis_tpu_torch.train.trainer import Trainer
+
+    def parity_run(argv_):
+        """`quality_parity.main(argv_)`: its exit code and the history of
+        the `train_seg` run it made."""
+        plain_run, kept = train_seg.run, []
+
+        def run_kept(args):
+            kept.append(plain_run(args))
+            return kept[-1]
+
+        train_seg.run = run_kept
+        try:
+            quality_parity.main(argv_)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            train_seg.run = plain_run
+        return code, kept[0][1]
 
     work = ROOT / "build" / "smoke_real"
     shutil.rmtree(work, ignore_errors=True)
@@ -2362,7 +2477,11 @@ def real_data_run(counts, reset_counts, smi) -> dict:
     del trainer, now
     torch.cuda.empty_cache()
 
-    _, hist_a2 = train_seg.run(train_seg.get_args_parser().parse_args(argv("A2")))
+    # A′ through the quality-parity harness, against A's last validation
+    reference = quality_parity.final_metrics(str(work / "A"))
+    (work / "reference_a.json").write_text(json.dumps(reference))
+    parity_code, hist_a2 = parity_run(argv("A2") + ["--reference_json",
+                                                    str(work / "reference_a.json")])
     torch.cuda.empty_cache()
     os.environ["ASN_STOP_AFTER_EPOCHS"] = "1"
     try:
@@ -2382,6 +2501,8 @@ def real_data_run(counts, reset_counts, smi) -> dict:
 
     (st_a, a), (st_a2, a2), (st_r, r) = state("A"), state("A2"), state("R")
     rule = resume_rule("8f", a, a2, r, SEG_SUBTREES + ("momentum",))
+    parity = parity_checks(work, reference, parity_code,
+                           all(v["identical"] for v in rule["a_vs_a2"].values()))
     _, hist_ev = train_seg.run(train_seg.get_args_parser().parse_args(argv("A") + ["--evaluate"]))
     torch.cuda.empty_cache()
     reset_counts()
@@ -2407,7 +2528,7 @@ def real_data_run(counts, reset_counts, smi) -> dict:
            "test_acc1_a": hist_a[-1].get("test_acc1"), "evaluate_acc1": hist_ev[0]["test_acc1"],
            "backbone_equals_pth": seen["backbone_equals_pth"],
            "backbone_equals_pth_cast_after_training": cast_ok,
-           "unchanged_trainables": unchanged, "resume": rule,
+           "unchanged_trainables": unchanged, "resume": rule, "quality_parity": parity,
            "evaluate_b2": {k: ev[k] for k in ("images", "batches", "loss", "dice", "acc1",
                                                "logits_finite", "img_per_s", "decoder")},
            "evaluate_b2_launches": ev_launches,
@@ -2438,6 +2559,158 @@ def real_data_run(counts, reset_counts, smi) -> dict:
         fail(f"8f: --evaluate acc1 {res['evaluate_acc1']} against A's {res['test_acc1_a']}")
     del pth_sd
     shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+# phase 8z: `train_multi_class` (8 classes, the iou_multi loss) on an
+# EndoVis 2017 tree at its frame size (1280 × 1024, resized to 588), two
+# training sequences and one test sequence
+EV17_TRAIN, EV17_TEST, EV17_FRAME = 24, 8, (1024, 1280)
+EV17_BATCH = 8
+
+
+def write_endovis2017_tree(root: Path, seed: int = 0) -> None:
+    """train/instrument_dataset_{1,2}/ (`EV17_TRAIN` frames between them)
+    and test/instrument_dataset_1/ (`EV17_TEST`), each with images/*.png
+    (RGB, `instrument_frame`), binary_masks/ (the shapes at 255) and
+    instruments_masks/ (each shape an instrument id in 1..7, stored as
+    id·32), through the port's own PNG writer; frame k drawn from
+    `default_rng((seed, k))`, 8 frames at a time in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from adaptersis_tpu_torch.data.png_writer import write_png
+    yy, xx = np.mgrid[0:EV17_FRAME[0], 0:EV17_FRAME[1]].astype(np.float32)
+    frames = []
+    for sub, seq, n in (("train", 1, EV17_TRAIN // 2), ("train", 2, EV17_TRAIN - EV17_TRAIN // 2),
+                        ("test", 1, EV17_TEST)):
+        d = root / sub / f"instrument_dataset_{seq}"
+        for kind in ("images", "binary_masks", "instruments_masks"):
+            (d / kind).mkdir(parents=True)
+        frames += [(d, f"frame{i:03d}.png") for i in range(n)]
+
+    def write(k: int) -> None:
+        d, name = frames[k]
+        rng = np.random.default_rng((seed, k))
+        img, shapes = instrument_frame(rng, yy, xx)
+        label = np.zeros(EV17_FRAME, np.uint8)
+        for shape, instrument in zip(shapes, rng.integers(1, 8, len(shapes))):
+            label[shape] = instrument
+        write_png(d / "images" / name, img)
+        write_png(d / "binary_masks" / name, (label > 0).astype(np.uint8) * 255)
+        write_png(d / "instruments_masks" / name, label * 32)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(frames))))
+
+
+def multi_class_run(counts, reset_counts, smi) -> dict:
+    """Phase 8z: `python -m adaptersis_tpu_torch.train_multi_class --arch
+    vit_large --patch_size 14 --imsize 588 --bf16 --gelu_approx` (8 classes,
+    the iou_multi loss, --dataset endovis2017), batch 8, seeded weights, one
+    epoch of 3 steps and a validation of one forward on
+    `write_endovis2017_tree`'s frames. Finite losses; every trainable moved
+    and the frozen backbone unchanged (as its bf16 cast); the head's 8
+    output channels; launches per train step `expect(1, 7)` and per
+    validation forward `expect(1, 0)`; `test_ch_iou` and `test_isi_iou` in
+    log.txt, finite, within [0, 1]; img/s, loader wait, peak memory and
+    seconds. Under the recipe's defaults both packages read
+    `binary_masks`, so the labels trained on are {0, 1} (recorded)."""
+    from adaptersis_tpu_torch import train_multi_class, train_seg
+    from adaptersis_tpu_torch.models.decoders import LogitConv
+    from adaptersis_tpu_torch.train.trainer import Trainer
+
+    work = ROOT / "build" / "smoke_endovis2017"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_endovis2017_tree(work / "endovis2017")
+    setup_s = time.perf_counter() - t0
+    seen, per, labels, channels = {}, {"train": [], "eval": []}, set(), set()
+    plain_build = train_seg.build_model
+    plain_train, plain_eval = Trainer.train_step, Trainer.eval_step
+
+    def build_recorded(args):
+        model = plain_build(args)
+        seen["model"] = model
+        seen["start"] = {k: v.detach().clone() for k, v in model.named_parameters()}
+        return model
+
+    def train_counted(self, imgs, masks, *a, **kw):
+        labels.update(torch.unique(masks).tolist())
+        before = counts()
+        out = plain_train(self, imgs, masks, *a, **kw)
+        per["train"].append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    def eval_counted(self, *a, **kw):
+        before = counts()
+        out = plain_eval(self, *a, **kw)
+        per["eval"].append({k: v - before[k] for k, v in counts().items()})
+        channels.add(out["logits"].shape[-1])
+        return out
+
+    argv = ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588", "--bf16",
+            "--gelu_approx", "--batch_size_per_gpu", str(EV17_BATCH), "--epochs", "1",
+            "--seed", "0", "--data_path", str(work / "endovis2017"), "--num_workers", "8",
+            "--output_dir", str(work / "out")]
+    train_seg.build_model = build_recorded
+    Trainer.train_step, Trainer.eval_step = train_counted, eval_counted
+    try:
+        t0 = time.perf_counter()
+        reset_counts()
+        hist = train_multi_class.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        train_seg.build_model = plain_build
+        Trainer.train_step, Trainer.eval_step = plain_train, plain_eval
+    by_kernel = path_counts()
+    m, start = seen.pop("model"), seen.pop("start")
+    unchanged, frozen_moved = [], []
+    for n_, p_ in m.named_parameters():
+        was = start[n_].to(p_.device, p_.dtype)
+        if p_.requires_grad and torch.equal(p_.detach(), was):
+            unchanged.append(n_)
+        elif not p_.requires_grad and not torch.equal(p_.detach(), was):
+            frozen_moved.append(n_)
+    head = [mod.out_channels for mod in m.modules() if isinstance(mod, LogitConv)]
+    del m, start
+    ep = hist[0]
+    logged = [json.loads(x) for x in (work / "out" / "log.txt").read_text().splitlines()]
+    challenge = {k: logged[-1].get(k) for k in ("test_ch_iou", "test_isi_iou")}
+    res = {"argv": argv, "setup_s": setup_s, "seconds": seconds, "head_channels": head,
+           "logit_channels": sorted(channels), "labels_trained_on": sorted(labels),
+           "steps": len(per["train"]), "validation_forwards": len(per["eval"]),
+           "train_losses": ep["train_losses"], "test_loss": ep.get("test_loss"),
+           "test_dice": ep.get("test_dice"), "test_acc1": ep.get("test_acc1"), **challenge,
+           "train_img_per_s": ep["train_img_per_s"], "loader_wait_s": ep["loader_wait_s"],
+           "peak_mem_bytes": ep["peak_mem_bytes"], "decoder": ep["decoder"],
+           "per_train_step": per["train"][:1], "per_validation_forward": per["eval"][:1],
+           "unchanged_trainables": unchanged, "frozen_moved": frozen_moved,
+           "by_kernel": by_kernel, "nvidia_smi": smi[0] if smi else "unavailable"}
+    say("multi_class_training", **res)
+    failures = []
+    if res["steps"] != EV17_TRAIN // EV17_BATCH or res["validation_forwards"] != 1:
+        failures.append(f"{res['steps']} steps, {res['validation_forwards']} validation forwards")
+    if not ep["train_losses_finite"]:
+        failures.append(f"losses {ep['train_losses']}")
+    if unchanged or frozen_moved:
+        failures.append(f"trainables unchanged {unchanged[:5]}, frozen moved {frozen_moved[:5]}")
+    if head != [8] or channels != {8}:
+        failures.append(f"logit convs of {head} channels, logits with {channels} channels")
+    if any(d != expect(1, 7) for d in per["train"]):
+        failures.append(f"launches per train step {per['train']}, expected {expect(1, 7)}")
+    if any(d != expect(1, 0) for d in per["eval"]):
+        failures.append(f"launches per validation forward {per['eval']}")
+    if by_kernel != paths_expected("wgmma", counts()):
+        failures.append(f"launches by kernel {by_kernel}")
+    if not all(isinstance(v, float) and math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in challenge.values()):
+        failures.append(f"log.txt's challenge metrics {challenge}")
+    if not labels <= {0, 1}:
+        failures.append(f"trained on labels {sorted(labels)}, binary_masks expected")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if failures:
+        fail("8z: " + "; ".join(failures))
     return res
 
 
@@ -2505,9 +2778,10 @@ def ssl_resume_run(counts, reset_counts, expect_ssl, smi) -> dict:
 
 
 # phase 8h: `train_seg`'s other models and decoders at the paper's width,
-# ViT-L/14 cut to 12 of its 24 blocks, to keep the whole script well inside
+# ViT-L/14 cut to 8 of its 24 blocks (12 until phase 8z and the two
+# profiles came in), to keep the whole script well inside
 # its 1200 s limit
-VARIANT_STEPS, VARIANT_DEPTH = 3, 12
+VARIANT_STEPS, VARIANT_DEPTH = 3, 8
 # (name, entry point, its extra flags, --model)
 VARIANTS = [("adapter mla", "train_mla", [], "adapter"),
             ("adapter setr", "train_seg", ["--decoder", "setr"], "adapter"),
@@ -2540,6 +2814,22 @@ def variant_expect(model: str, train: bool) -> dict:
             "fused_ln_mlp": D * walks, "layernorm": norms}
 
 
+@contextlib.contextmanager
+def arch_depth(arch: str, depth):
+    """`models.vit.ARCHS[arch]` cut to `depth` blocks inside the block (as
+    it is where `depth` is None)."""
+    from functools import partial
+
+    from adaptersis_tpu_torch.models import vit
+    full = vit.ARCHS[arch]
+    if depth is not None:
+        vit.ARCHS[arch] = partial(full, depth=depth)
+    try:
+        yield
+    finally:
+        vit.ARCHS[arch] = full
+
+
 def variant_argv() -> list:
     """Phase 8h's flags: ViT-L/14 at 588 px, bf16, tanh GELU, batch 8 (its depth
     cut by `variant_runs`)."""
@@ -2565,10 +2855,7 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
     8s on ViT-L/14 in fp32 at `batch` 12. Every K3, K4 and K5 launch of a
     run must take the tensor-core kernel of the run's dtype (`path_counts`:
     "tf32x3" in fp32, "wgmma" with --bf16)."""
-    from functools import partial
-
     from adaptersis_tpu_torch import train_mla, train_seg
-    from adaptersis_tpu_torch.models import vit
     from adaptersis_tpu_torch.train.trainer import Trainer
 
     work = ROOT / "build" / f"smoke_variants_{phase}"
@@ -2598,82 +2885,79 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                           "--output_dir", str(work / name.replace(" ", "_"))]
 
     report, failures = {}, []
-    full_depth = vit.ARCHS[arch]
-    if depth is not None:
-        vit.ARCHS[arch] = partial(full_depth, depth=depth)
-    train_seg.build_model = build_recorded
-    train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=VARIANT_STEPS * batch, **kw)
-    dtype = "bf16" if "--bf16" in flags() else "fp32"
-    path = "wgmma" if dtype == "bf16" else "tf32x3"
-    Trainer.train_step = counted("train", plain_train)
-    Trainer.eval_step = counted("eval", plain_eval)
-    try:
-        for name, entry, extra, model in runs:
-            per["train"].clear()
+    with arch_depth(arch, depth):
+        train_seg.build_model = build_recorded
+        train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=VARIANT_STEPS * batch, **kw)
+        dtype = "bf16" if "--bf16" in flags() else "fp32"
+        path = "wgmma" if dtype == "bf16" else "tf32x3"
+        Trainer.train_step = counted("train", plain_train)
+        Trainer.eval_step = counted("eval", plain_eval)
+        try:
+            for name, entry, extra, model in runs:
+                per["train"].clear()
+                per["eval"].clear()
+                t0 = time.perf_counter()
+                reset_counts()
+                hist = entries[entry].main(argv(name) + extra)
+                seconds = time.perf_counter() - t0
+                by_kernel, launched = path_counts(), counts()
+                m = seen.pop("model")
+                start = seen.pop("start")
+                unchanged, frozen_moved = [], []
+                for n_, p_ in m.named_parameters():
+                    was = start[n_].to(p_.device, p_.dtype)
+                    if p_.requires_grad and torch.equal(p_.detach(), was):
+                        unchanged.append(n_)
+                    elif not p_.requires_grad and not torch.equal(p_.detach(), was):
+                        frozen_moved.append(n_)
+                trained = sorted({n_.split(".")[0] for n_, p_ in m.named_parameters()
+                                  if p_.requires_grad})
+                del m, start
+                ep = hist[0]
+                r = {"entry": entry, "flags": extra, "seconds": seconds, "steps": len(per["train"]),
+                     "validation_forwards": len(per["eval"]), "train_losses": ep["train_losses"],
+                     "test_loss": ep.get("test_loss"), "test_dice": ep.get("test_dice"),
+                     "test_acc1": ep.get("test_acc1"), "train_img_per_s": ep["train_img_per_s"],
+                     "peak_mem_bytes": ep["peak_mem_bytes"], "trained_subtrees": trained,
+                     "per_train_step": per["train"][0] if per["train"] else None,
+                     "per_validation_forward": per["eval"][0] if per["eval"] else None,
+                     "unchanged_trainables": unchanged, "frozen_moved": frozen_moved,
+                     "by_kernel": by_kernel}
+                report[name] = r
+                say("variant_training", name=name, arch=arch, depth=depth, imsize=588,
+                    dtype=dtype, batch=batch, **r)
+                if by_kernel != paths_expected(path, launched):
+                    failures.append(f"{name}: launches by kernel {by_kernel}")
+                want_t, want_e = want(model, True), want(model, False)
+                if r["steps"] != VARIANT_STEPS or r["validation_forwards"] != 2:
+                    failures.append(f"{name}: {r['steps']} steps, {r['validation_forwards']} "
+                                    "validation forwards")
+                if not ep["train_losses_finite"] or not all(
+                        math.isfinite(ep.get(k, float("nan"))) for k in
+                        ("test_loss", "test_dice", "test_acc1")):
+                    failures.append(f"{name}: losses or metrics not finite: {ep}")
+                if any(d != want_t for d in per["train"]):
+                    failures.append(f"{name}: launches per train step {per['train']}, "
+                                    f"expected {want_t}")
+                if any(d != want_e for d in per["eval"]):
+                    failures.append(f"{name}: launches per validation forward {per['eval']}, "
+                                    f"expected {want_e}")
+                if unchanged or frozen_moved:
+                    failures.append(f"{name}: trainables unchanged {unchanged[:5]}, frozen "
+                                    f"parameters moved {frozen_moved[:5]}")
+                if ("backbone" in trained) != (model == "tap_setr_ete"):
+                    failures.append(f"{name}: trained subtrees {trained}")
+                if name != evaluated:
+                    shutil.rmtree(work / name.replace(" ", "_"), ignore_errors=True)
+                torch.cuda.empty_cache()
             per["eval"].clear()
-            t0 = time.perf_counter()
             reset_counts()
-            hist = entries[entry].main(argv(name) + extra)
-            seconds = time.perf_counter() - t0
-            by_kernel, launched = path_counts(), counts()
-            m = seen.pop("model")
-            start = seen.pop("start")
-            unchanged, frozen_moved = [], []
-            for n_, p_ in m.named_parameters():
-                was = start[n_].to(p_.device, p_.dtype)
-                if p_.requires_grad and torch.equal(p_.detach(), was):
-                    unchanged.append(n_)
-                elif not p_.requires_grad and not torch.equal(p_.detach(), was):
-                    frozen_moved.append(n_)
-            trained = sorted({n_.split(".")[0] for n_, p_ in m.named_parameters()
-                              if p_.requires_grad})
-            del m, start
-            ep = hist[0]
-            r = {"entry": entry, "flags": extra, "seconds": seconds, "steps": len(per["train"]),
-                 "validation_forwards": len(per["eval"]), "train_losses": ep["train_losses"],
-                 "test_loss": ep.get("test_loss"), "test_dice": ep.get("test_dice"),
-                 "test_acc1": ep.get("test_acc1"), "train_img_per_s": ep["train_img_per_s"],
-                 "peak_mem_bytes": ep["peak_mem_bytes"], "trained_subtrees": trained,
-                 "per_train_step": per["train"][0] if per["train"] else None,
-                 "per_validation_forward": per["eval"][0] if per["eval"] else None,
-                 "unchanged_trainables": unchanged, "frozen_moved": frozen_moved,
-                 "by_kernel": by_kernel}
-            report[name] = r
-            say("variant_training", name=name, arch=arch, depth=depth, imsize=588,
-                dtype=dtype, batch=batch, **r)
-            if by_kernel != paths_expected(path, launched):
-                failures.append(f"{name}: launches by kernel {by_kernel}")
-            want_t, want_e = want(model, True), want(model, False)
-            if r["steps"] != VARIANT_STEPS or r["validation_forwards"] != 2:
-                failures.append(f"{name}: {r['steps']} steps, {r['validation_forwards']} "
-                                "validation forwards")
-            if not ep["train_losses_finite"] or not all(
-                    math.isfinite(ep.get(k, float("nan"))) for k in
-                    ("test_loss", "test_dice", "test_acc1")):
-                failures.append(f"{name}: losses or metrics not finite: {ep}")
-            if any(d != want_t for d in per["train"]):
-                failures.append(f"{name}: launches per train step {per['train']}, "
-                                f"expected {want_t}")
-            if any(d != want_e for d in per["eval"]):
-                failures.append(f"{name}: launches per validation forward {per['eval']}, "
-                                f"expected {want_e}")
-            if unchanged or frozen_moved:
-                failures.append(f"{name}: trainables unchanged {unchanged[:5]}, frozen "
-                                f"parameters moved {frozen_moved[:5]}")
-            if ("backbone" in trained) != (model == "tap_setr_ete"):
-                failures.append(f"{name}: trained subtrees {trained}")
-            if name != evaluated:
-                shutil.rmtree(work / name.replace(" ", "_"), ignore_errors=True)
-            torch.cuda.empty_cache()
-        per["eval"].clear()
-        reset_counts()
-        ev = train_seg.main(argv(evaluated) + [*next(r[2] for r in runs if r[0] == evaluated),
-                                               "--evaluate"])
-        seen.clear()
-    finally:
-        train_seg.build_model, train_seg.SyntheticSeg = plain_build, plain_synthetic
-        Trainer.train_step, Trainer.eval_step = plain_train, plain_eval
-        vit.ARCHS[arch] = full_depth
+            ev = train_seg.main(argv(evaluated) + [*next(r[2] for r in runs if r[0] == evaluated),
+                                                   "--evaluate"])
+            seen.clear()
+        finally:
+            train_seg.build_model, train_seg.SyntheticSeg = plain_build, plain_synthetic
+            Trainer.train_step, Trainer.eval_step = plain_train, plain_eval
     last = report[evaluated]["test_acc1"]
     res = {"evaluated": evaluated, "evaluate_acc1": ev[0]["test_acc1"],
            "last_validation_acc1": last, "evaluate_launches": counts(),
@@ -2831,7 +3115,8 @@ def vitg_ssl_run(counts, reset_counts, expect_ssl, smi) -> dict:
     """Phase 8k: `pretrain --arch vit_giant2 --bf16 --synthetic` at its
     default crops (224 and 98 px, 8 local crops), batch `G_SSL_BATCH`, two
     steps: finite losses and parts, img/s (of the second step), peak memory,
-    and 80 K7 forwards and 40 backwards per step at 24 heads."""
+    and `G_SSL_PER_STEP` K7 launches per step at 24 heads (run with ViT-g
+    cut to `G_DEPTH` blocks)."""
     from adaptersis_tpu_torch import pretrain
     argv = ["--arch", "vit_giant2", "--bf16", "--synthetic", "--batch_size_per_gpu",
             str(G_SSL_BATCH), "--epochs", "1", "--steps_per_epoch", "2", "--warmup_epochs", "0"]
@@ -2871,7 +3156,8 @@ def attention_map_run(counts, reset_counts, smi) -> dict:
     pth = work / "vits14.pth"
     torch.save({"teacher": seeded_init_(ARCHS["vit_small"](), seed=4).state_dict()}, pth)
     res = {}
-    for arch, heads, depth, weights in (("vit_small", 6, 12, pth), ("vit_giant2", 24, 40, None)):
+    for arch, heads, depth, weights in (("vit_small", 6, 12, pth),
+                                        ("vit_giant2", 24, G_DEPTH, None)):
         def run(device):
             argv = ["--arch", arch, "--device", device, "--output_dir", str(work / device / arch)]
             argv += ["--pretrained_weights", str(weights)] if weights else []
@@ -3023,17 +3309,23 @@ def m2f_entry_runs(counts, reset_counts, smi) -> dict:
         trainer_cls.step, trainer_cls.eval_step = plain_step, plain_eval
         segment_m2f.datasets = plain_sets
     torch.cuda.empty_cache()
-    for name, argv, want, n in (("bench_m2f", [], M2F_BENCH_STEP, 2 + 3 * 5),
+    # bench_m2f: 2 warm-up steps, 3 windows of 5 and 3 profiled steps
+    for name, argv, want, n in (("bench_m2f", ["--profile"], M2F_BENCH_STEP, 2 + 3 * 5 + 3),
                                 ("bench_m2f windowed", ["--arch", "vit_large_windowed",
                                                         "--steps", "1", "--repeats", "1"],
                                  M2F_WINDOWED_STEP, 3)):
         reset_counts()
         t0 = time.perf_counter()
-        res = bench_m2f.main(argv)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = bench_m2f.main(argv)
         got = counts()
         report[name] = {"result": res, "launches": got, "seconds": time.perf_counter() - t0,
                         "per_step": {k: v / n for k, v in got.items()}}
         say("entry_point", module=bench_m2f.__name__, argv=argv, **report[name])
+        if "--profile" in argv:
+            report[name]["profile"] = check_profile(bench_m2f.__name__, printed.getvalue(),
+                                                    res, smi)
         if not all(math.isfinite(res[k]) for k in ("value", "ms_step", "peak_mem_gib", "loss")):
             failures.append(f"{name}: values not finite: {res}")
         if got != {k: v * n for k, v in want.items()}:
@@ -3964,6 +4256,40 @@ def eval_kernel_checks(ff, ln, fq, fm) -> dict:
     return err
 
 
+# the hand-written kernels by the names torch.profiler records for them
+# (CUPTI's demangled names): K4 is the GEMM's qkv epilogue, K5 its GELU and
+# residual epilogues; K2 is four kernels, of which the point pass and the dV
+# sum take the time; K6's kernel also runs as K4's and K5's LayerNorm pass in
+# bf16 (`ops/layernorm.py:ln_input`), so it runs in bench_m2f's step too,
+# whose frozen walk calls no K6 of its own (`M2F_BENCH_STEP`)
+PROFILE_NAMES = {"msda_fwd": ("msda_fwd_kernel",), "msda_bwd": ("point_kernel", "sum_kernel"),
+                 "flash_fwd": ("flash_fwd_wgmma_kernel",),
+                 "fused_ln_qkv": ("gemm_wgmma_kernel<0>",),
+                 "fused_ln_mlp": ("gemm_wgmma_kernel<1>", "gemm_wgmma_kernel<2>"),
+                 "layernorm": ("layernorm_kernel",)}
+
+
+def check_profile(module: str, printed: str, result: dict, smi, top: int = 15) -> dict:
+    """Phases 8b and 8o: a bench's `--profile` output (its JSON line, then
+    `train_seg.profile_table`) must hold the JSON line it returned and a
+    device table that names every kernel of `PROFILE_NAMES`; prints the
+    table's first `top` device rows."""
+    lines = printed.splitlines()
+    rows = [x for x in lines if " ms/step " in x and " calls  " in x]
+    busy = next((x for x in lines if x.startswith("device activity ")), None)
+    named = {k: {n: [" ".join(r.split()[:5]) for r in rows if n in r] for n in names}
+             for k, names in PROFILE_NAMES.items()}
+    missing = [n for k in named for n, found in named[k].items() if not found]
+    res = {"device_activity": busy, "device_rows": len(rows), "top_rows": rows[:top],
+           "kernels": named, "missing": missing, "nvidia_smi": smi[0] if smi else "unavailable"}
+    say("profile", module=module, **res)
+    if not lines or json.loads(lines[0]) != json.loads(json.dumps(result)):
+        fail(f"{module} --profile: its first line is not its result: {lines[:1]}")
+    if busy is None or missing:
+        fail(f"{module} --profile: the device table lacks {missing} (activity: {busy})")
+    return res
+
+
 def launch_counters():
     """(counts, reset_counts): read and zero every kernel wrapper's launch
     count (and K3's counts by kernel, `path_counts`)."""
@@ -4437,14 +4763,19 @@ def main() -> None:
 
     # ---- 8b. the deployed configuration's entry points at their defaults
     entry = {}
-    for mod, backwards in ((bench, 7), (bench_infer, 0)):
+    for mod, backwards, argv in ((bench, 7, ["--profile"]), (bench_infer, 0, [])):
         reset_counts()
-        res = mod.main([])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = mod.main(argv)
         got = counts()
-        n = 2 + 3 * 10                  # the defaults: 2 warm-up steps, 3 windows of 10
+        # the defaults: 2 warm-up steps, 3 windows of 10, and 3 profiled steps
+        n = 2 + 3 * 10 + (3 if argv else 0)
         entry[mod.__name__.rsplit(".", 1)[-1]] = (res, got)
-        say("entry_point", module=mod.__name__, result=res, launches=got,
+        say("entry_point", module=mod.__name__, argv=argv, result=res, launches=got,
             per_step={k: v / n for k, v in got.items()})
+        if argv:
+            check_profile(mod.__name__, printed.getvalue(), res, smi)
         finite = [v for k, v in res.items() if k in ("value", "mfu", "peak_mem_gib", "loss",
                                                        "ms_batch")]
         if not all(isinstance(v, float) and math.isfinite(v) for v in finite):
@@ -4521,7 +4852,7 @@ def main() -> None:
     # ---- 8g. the SSL checkpoint and resume at full width (`ssl_resume_run`)
     ssl_resume_run(counts, reset_counts, expect_ssl, smi)
 
-    # ---- 8h. the other models and decoders at the paper's width, 6 ViT-L blocks
+    # ---- 8h. the other models and decoders at the paper's width, 8 ViT-L blocks
     # (`variant_runs`)
     variant_runs(counts, reset_counts, smi)
 
@@ -4529,19 +4860,20 @@ def main() -> None:
     # (`ete_step_gate`)
     ete_step_gate(fa, counts, reset_counts)
 
-    # ---- 8j. ViT-g/14 through train_seg at full width (the config file
-    # selects it), then its train step gate at batch 2 (M2b)
-    vitg_run = variant_runs(counts, reset_counts, smi, runs=G_RUNS, flags=vitg_argv,
-                            want=vitg_expect, evaluated=G_RUNS[0][0], phase="8j",
-                            arch="vit_giant2", depth=None)
-    seg_step_gate(counts, reset_counts, expect(1, 7, G_PER_FORWARD), arch="vit_giant2",
-                  batch=G_GATE_BATCH, faults=("heads moved",))
+    with arch_depth("vit_giant2", G_DEPTH):
+        # ---- 8j. ViT-g/14 through train_seg at full width (the config file
+        # selects it), then its train step gate at batch 2 (M2b)
+        vitg_run = variant_runs(counts, reset_counts, smi, runs=G_RUNS, flags=vitg_argv,
+                                want=vitg_expect, evaluated=G_RUNS[0][0], phase="8j",
+                                arch="vit_giant2", depth=None)
+        seg_step_gate(counts, reset_counts, expect(1, 7, G_PER_FORWARD), arch="vit_giant2",
+                      batch=G_GATE_BATCH, faults=("heads moved",))
 
-    # ---- 8k. ViT-g/14's SSL step (`vitg_ssl_run`)
-    vitg_ssl = vitg_ssl_run(counts, reset_counts, expect_ssl, smi)
+        # ---- 8k. ViT-g/14's SSL step (`vitg_ssl_run`)
+        vitg_ssl = vitg_ssl_run(counts, reset_counts, expect_ssl, smi)
 
-    # ---- 8l. the attention-map tool on the card (`attention_map_run`)
-    attention_map_run(counts, reset_counts, smi)
+        # ---- 8l. the attention-map tool on the card (`attention_map_run`)
+        attention_map_run(counts, reset_counts, smi)
 
     # ---- 8m-8o. segment_m2f and bench_m2f at ViT-L/14 width (`m2f_entry_runs`)
     m2f_run = m2f_entry_runs(counts, reset_counts, smi)
@@ -4586,6 +4918,10 @@ def main() -> None:
     evals_run = evals_cli_runs(counts, reset_counts, smi)
     knn_scale_run(smi)
     depther_run(counts, reset_counts, smi, evals_run["pth"])
+
+    # ---- 8z. train_multi_class, the 8-class EndoVis 2017 recipe, at full
+    # width on a fabricated tree (`multi_class_run`)
+    multi_class_run(counts, reset_counts, smi)
 
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)

@@ -33,6 +33,18 @@ def test_bench_runs_on_cpu(capsys):
     assert res["mfu"] is None and res["peak_mem_gib"] is None
 
 
+def test_bench_profile_on_cpu(capsys):
+    """`--profile`: the same JSON line, then torch.profiler's table of 3
+    more steps."""
+    res = bench.main(TINY + ["--profile"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[0]) == res
+    assert set(res) == {"metric", "value", "unit", "spread", "mfu", "peak_mem_gib", "device",
+                        "batch", "world_size", "global_img_per_s", "loss"}
+    assert lines[1].startswith("torch.profiler over 3 train steps on cpu")
+    assert any("aten::" in x for x in lines[2:])
+
+
 def test_bench_infer_runs_on_cpu(capsys):
     res = bench_infer.main(TINY)
     assert _one_json_line(capsys) == res

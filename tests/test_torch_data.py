@@ -1,10 +1,15 @@
 """The port's dataset readers and loader against the JAX package's, on tiny
 trees in each of the five datasets' layouts written with PIL: every sample
 (frame, mask, index) bit for bit, through the native decoder and through
-PIL; EndoVis 2017's instrument labels (stored as id · 32); a 16-bit mask,
+PIL; EndoVis 2017's instrument labels (stored as id · 32), and the binary
+labels both packages' `train_multi_class` trains its 8 classes on; a 16-bit mask,
 which the native path refuses (both packages then read it with PIL); the
 loader's batches for the same EpochSampler; a worker's error raised in the
 consumer; and the port's PNG writer read back by PIL."""
+
+import os
+import runpy
+import sys
 
 import numpy as np
 import pytest
@@ -121,6 +126,66 @@ def test_endovis2017_instrument_labels(tmp_path):
         np.testing.assert_array_equal(mask, stored // 32)
         assert mask.max() <= 7
         _same(ds[0], ref[0])
+
+
+class _AtTheLoader(Exception):
+    """Raised by a stand-in DataLoader: the trainer has built its sets."""
+
+
+def test_train_multi_class_trains_on_binary_masks_in_both_packages(tmp_path, monkeypatch):
+    """Under `train_multi_class`'s defaults (8 classes, --dataset
+    endovis2017) both packages' trainers build EndoVis 2017's training set
+    with the reader's default problem type, "binary": the same labels read
+    from binary_masks/, all in {0, 1}, while the head has 8 outputs. Each
+    trainer runs up to its training loader."""
+    import adaptersis_tpu.data as jax_data
+    import adaptersis_tpu.models as jax_models
+    from adaptersis_tpu_torch import train_multi_class, train_seg
+    from adaptersis_tpu_torch.models.decoders import LogitConv
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = make_tree(tmp_path / "endovis2017", "endovis2017", np.random.default_rng(3))
+    flags = ["--arch", "vit_test", "--patch_size", "14", "--imsize", str(IMSIZE),
+             "--data_path", str(root), "--batch_size_per_gpu", "2",
+             "--output_dir", str(tmp_path / "out")]
+    got = {}
+
+    def loader(side):
+        def first_set(dataset, **kw):
+            got[side] = dataset            # the first loader a trainer makes: training
+            raise _AtTheLoader
+        return first_set
+
+    def recorded(side, build):
+        def wrap(*a, **kw):
+            got[side] = build(*a, **kw)
+            return got[side]
+        return wrap
+
+    monkeypatch.setattr(jax_data, "DataLoader", loader("jax"))
+    monkeypatch.setattr(jax_models, "AdapterSegmentor",
+                        recorded("jax model", jax_models.AdapterSegmentor))
+    monkeypatch.syspath_prepend(repo)
+    monkeypatch.setattr(sys, "argv", ["train_multi_class.py", "--platform", "cpu"] + flags)
+    with pytest.raises(_AtTheLoader):
+        runpy.run_path(os.path.join(repo, "train_multi_class.py"), run_name="__main__")
+    monkeypatch.setattr(train_seg, "DataLoader", loader("port"))
+    monkeypatch.setattr(train_seg, "build_model", recorded("port model", train_seg.build_model))
+    with pytest.raises(_AtTheLoader):
+        train_multi_class.main(flags + ["--device", "cpu"])
+
+    mine, ref = got["port"], got["jax"]
+    assert isinstance(mine, EndoVis2017) and mine.problem_type == ref.problem_type == "binary"
+    assert mine.mask_files == ref.mask_files and len(mine) == 2
+    assert {os.path.basename(os.path.dirname(f)) for f in mine.mask_files} == {"binary_masks"}
+    labels = set()
+    for i in range(len(mine)):
+        _same(mine[i], ref[i])
+        labels.update(np.unique(mine[i][1]).tolist())
+    assert labels == {0, 1}
+    assert got["jax model"].num_classes == 8
+    assert [m.out_channels for m in got["port model"].modules()
+            if isinstance(m, LogitConv)] == [8]
 
 
 def test_a_16_bit_mask_goes_through_pil(tmp_path):

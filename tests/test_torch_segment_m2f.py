@@ -232,6 +232,19 @@ def test_bench_m2f_cpu_line_and_windowed_backbone(capsys):
         assert math.isfinite(line["value"]) and math.isfinite(line["loss"])
 
 
+def test_bench_m2f_profile_on_cpu(capsys):
+    """`--profile`: the same JSON line, then torch.profiler's table of 3
+    more steps."""
+    res = bench_m2f.main(["--device", "cpu", "--arch", "vit_test", "--imsize", "56", "--batch",
+                          "2", "--steps", "1", "--repeats", "1", "--profile"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[0]) == res
+    assert set(res) == {"metric", "value", "unit", "ms_step", "batch", "spread", "msda_impl",
+                        "device", "peak_mem_gib", "loss"}
+    assert lines[1].startswith("torch.profiler over 3 train steps on cpu")
+    assert any("aten::" in x for x in lines[2:])
+
+
 def test_entry_points_exit_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
