@@ -178,14 +178,28 @@ def to_device(t, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def sharded_metrics(step, loader: DataLoader, device: torch.device) -> dict:
+def check_labels(masks, num_classes: int) -> None:
+    """Exit with a message where a batch of masks on the host holds a label
+    outside [0, num_classes), before it reaches the card: there the loss or
+    the metrics would index past the classes and stop the whole process at
+    a device-side assert. One pass over the batch (`torch.aminmax`)."""
+    lo, hi = (int(v) for v in torch.aminmax(torch.as_tensor(masks)))
+    if lo < 0 or hi >= num_classes:
+        sys.exit(f"error: a batch holds labels in [{lo}, {hi}], outside [0, "
+                 f"{num_classes}): --num_classes must cover the dataset's classes "
+                 "(train_multi_class takes it only with --num_labels)")
+
+
+def sharded_metrics(step, loader: DataLoader, device: torch.device, num_classes: int) -> dict:
     """Σ over the loader's rows of `step(imgs, masks, valid)`'s per-image
     means (its preds and logits left out) ÷ the count of real rows, over
     every rank. A row is real when its place in the padded order, rank + i·W
-    for the rank's i-th row, lies inside the set."""
+    for the rank's i-th row, lies inside the set. Each batch's labels are
+    checked against `num_classes` first (`check_labels`)."""
     rank, W, size = get_rank(), get_world_size(), len(loader.dataset)
     sums, n_images, seen = {}, 0, 0
     for imgs, masks, _ in loader:
+        check_labels(masks, num_classes)
         n = imgs.shape[0]
         valid = rank + (seen + np.arange(n)) * W < size
         seen += n
@@ -244,7 +258,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         sizes.append(n)
         return out
 
-    stats = sharded_metrics(step, loader, device)
+    stats = sharded_metrics(step, loader, device, args.num_classes)
     # the first batch carries one-time costs (kernel build, cuDNN autotune)
     steady, steady_n = (times[1:], sizes[1:]) if len(times) > 1 else (times, sizes)
     W = get_world_size()

@@ -145,23 +145,25 @@ def state_dict_to_flax(state) -> Dict[str, dict]:
         mod, _, leaf = name.rpartition(".")
         if leaf == "num_batches_tracked":
             continue
-        a = t.detach().float().cpu().numpy().copy()   # not a view of the live tensor
+        a = t.detach().float().cpu()
         tree = "params"
         if leaf in ("running_mean", "running_var"):
             tree, leaf = "batch_stats", leaf[len("running_"):]
-        elif leaf == "weight" and a.ndim == 2:
-            a, leaf = a.T, "kernel"
-        elif leaf == "weight" and a.ndim == 4 and mod.rpartition(".")[2] in TRANSPOSED:
-            a, leaf = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
-        elif leaf == "weight" and a.ndim == 4:
-            a, leaf = a.transpose(2, 3, 1, 0), "kernel"
+        elif leaf == "weight" and a.dim() == 2:
+            a, leaf = a.t(), "kernel"
+        elif leaf == "weight" and a.dim() == 4 and mod.rpartition(".")[2] in TRANSPOSED:
+            a, leaf = a.permute(2, 3, 0, 1).flip(0, 1), "kernel"
+        elif leaf == "weight" and a.dim() == 4:
+            a, leaf = a.permute(2, 3, 1, 0), "kernel"
         elif leaf == "weight":
             leaf = "scale"
         node = out[tree]
         for k in re.sub(r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1blocks_\2", mod).split(".") \
                 if mod else []:
             node = node.setdefault(k, {})
-        node[leaf] = np.ascontiguousarray(a)
+        # a contiguous copy, never a view of the live tensor; torch's copy
+        # lays out the transposed kernels several times faster than numpy
+        node[leaf] = a.clone(memory_format=torch.contiguous_format).numpy()
     return out
 
 
@@ -245,23 +247,30 @@ def seeded_init_(model: nn.Module, seed: int, skip: Tuple[str, ...] = ()) -> nn.
     initialisation that would hide a fault: weights ~ N(0, 1/fan_in),
     norm scales 1 + N(0, 0.1²), gates and biases N(0, 0.1²) (the CAViT gate,
     the sampling-offset and attention-weight kernels and LayerScale start at
-    or near zero otherwise), BN running variances in [0.5, 1.5]."""
+    or near zero otherwise), BN running variances in [0.5, 1.5]. The normal
+    draws go into one reused float64 buffer and are scaled in place, then
+    rounded to fp32 by the copy: the values of drawing, scaling and casting
+    each tensor anew, without an allocation and two passes per tensor."""
     rng = np.random.default_rng(seed)
+    named = [(n, t) for n, t in list(model.named_parameters()) + list(model.named_buffers())
+             if n.rsplit(".", 1)[-1] != "num_batches_tracked" and not n.startswith(skip)]
+    buf = np.empty(max((t.numel() for _, t in named), default=0))
     with torch.no_grad():
-        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        for name, t in named:
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "num_batches_tracked" or name.startswith(skip):
-                continue
             shape = tuple(t.shape)
             if leaf == "running_var":
-                a = rng.uniform(0.5, 1.5, shape)
-            elif leaf == "weight" and t.dim() >= 2:
-                a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+                t.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, shape).astype(np.float32)))
+                continue
+            a = buf[:t.numel()].reshape(shape)
+            rng.standard_normal(out=a)
+            if leaf == "weight" and t.dim() >= 2:
+                np.divide(a, np.sqrt(np.prod(shape[1:])), out=a)
             elif leaf == "weight":
-                a = 1.0 + 0.1 * rng.standard_normal(shape)
-            elif leaf in ("cls_token", "pos_embed", "mask_token"):
-                a = 0.02 * rng.standard_normal(shape)
+                np.add(np.multiply(a, 0.1, out=a), 1.0, out=a)
             else:
-                a = 0.1 * rng.standard_normal(shape)
-            t.copy_(torch.from_numpy(a.astype(np.float32)))
+                np.multiply(a, 0.02 if leaf in ("cls_token", "pos_embed", "mask_token") else 0.1,
+                            out=a)
+            src = torch.from_numpy(a)
+            t.copy_(src if t.dtype == torch.float32 else src.float())
     return model

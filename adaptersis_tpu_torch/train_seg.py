@@ -29,6 +29,9 @@ paths, the file `evaluate --flax_variables` and the JAX package read).
 `--profile` writes a torch.profiler table of the first epoch's steps after
 its first to `<output_dir>/profile.txt`. `ASN_STOP_AFTER_EPOCHS=n` stops the
 run after n epochs, once their checkpoint is saved (a preemption, for tests).
+Each batch's labels, training, validation and cross-test, are checked on
+the host against `--num_classes` before the card sees them
+(`evaluate.check_labels`): a label out of range exits with a message.
 
 Per model, as the JAX trainer: the eval-script models train on their raw
 logits, with their script's loss where `--loss` is left at "dc" (CE + DC;
@@ -70,7 +73,8 @@ from .data.loader import DataLoader
 from .data.samplers import EpochSampler
 from .data.synthetic import SyntheticSeg
 from .evaluate import DECODERS, MODELS, build_model, data_decoder, input_norm, model_loss
-from .evaluate import sharded_metrics, to_device as _to, val_loader, validation_set
+from .evaluate import (check_labels, sharded_metrics, to_device as _to, val_loader,
+                       validation_set)
 from .losses import get_loss
 from .parallel.dist import (barrier, get_rank, get_world_size, init_distributed,
                             is_main_process, print_on_main_only)
@@ -339,7 +343,7 @@ def run(args) -> Tuple[Trainer, List[dict]]:
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
     if args.evaluate:
-        stats = sharded_metrics(trainer.eval_step, val, device)
+        stats = sharded_metrics(trainer.eval_step, val, device, args.num_classes)
         print(json.dumps({"epoch": trainer.epoch, **{f"test_{k}": v for k, v in stats.items()}}))
         print(f"Accuracy of the network on the {len(ds_val)} test images: "
               f"{stats['acc1'] * 100:.1f}%", flush=True)
@@ -369,6 +373,7 @@ def run(args) -> Tuple[Trainer, List[dict]]:
             imgs, masks, _ = next(batches)
             if step:
                 waited += time.perf_counter() - t0
+            check_labels(masks, args.num_classes)
             draws = draws_to(rank_rows(draw_train_augment(generator, B * W, args.imsize,
                                                           use_clahe=not args.no_clahe)),
                              device)
@@ -385,12 +390,13 @@ def run(args) -> Tuple[Trainer, List[dict]]:
         logged = {"train_loss": sum(step_losses) / len(step_losses),
                   "train_lr": trainer.lr_fn(epoch), "epoch": epoch, "device": dev_name}
         if epoch % args.val_freq == 0 or epoch == args.epochs - 1:
-            test = sharded_metrics(trainer.eval_step, val, device)
+            test = sharded_metrics(trainer.eval_step, val, device, args.num_classes)
             trainer.best_acc = max(trainer.best_acc, test["acc1"])
             logged.update({f"test_{k}": v for k, v in test.items()})
             if cross_loader is not None:
                 logged.update({f"cross_{k}": v for k, v in
-                               sharded_metrics(trainer.eval_step, cross_loader, device).items()})
+                               sharded_metrics(trainer.eval_step, cross_loader, device,
+                                               args.num_classes).items()})
         if is_main_process():
             with (out_dir / "log.txt").open("a") as f:
                 f.write(json.dumps(logged) + "\n")

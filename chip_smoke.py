@@ -24,6 +24,11 @@ seconds since the start):
   2e. K3 the same way at the frozen-feature evals' walk, ViT-L/14 at 224
      px: 257 tokens (`EVAL_FLASH_SHAPES`, batch 2 and 64), and at the
      depther's 420 × 560 walk: 1201 tokens, batch 4;
+  2f. K3 the same way at the reference eval scripts' ViT-S/14 walks, 6
+     heads, N = 65, 257, 577, 785 and 1765 (224 px, tap_unet_fuse's 0.5×
+     and 1.5× frames, 392 and 588 px), and at vit_tiny's 3 heads at 257,
+     batch 2 and 16 (`VITS_FLASH_SHAPES`; under 256 keys the stale stage
+     gives the second quarter of the keys the first's v);
   3. K1 deformable-attention forward vs msda_plain at the CAViT and CACNN
      geometries of ViT-L/14 at 588 px, bf16 values, each element within a
      bound from its own terms (`msda_allowances`): batch 2 and 16 on
@@ -50,6 +55,10 @@ seconds since the start):
      bound (each token's first contribution dropped; every point's x0 and
      x0+1 corner weights swapped); 4a. the same at `G_MSDA_CASES`; 4f.
      the same at the Mask2Former cases of 3c;
+  3d, 4h. K1 and K2 the same way at vit_tiny's adapters at 224 px
+     (`TINY_MSDA_CASES`: CAViT's 16² queries on the 28², 14², 7² pyramid and
+     CACNN the reverse, D = 24, bf16 and fp32, batch 2 and 16, uniform,
+     model-like and hot-token points, faults and repeats);
   4b. K6 LayerNorm, K4 fused LN → qkv → head split and K5 fused LN → MLP →
      LayerScale → residual vs their plain versions, bf16 and fp32, C = 1024,
      H = 16, N = 1765 and 1764, batch 2 and 16, and 3 images of 1765 (the
@@ -67,6 +76,10 @@ seconds since the start):
      (`M2F_ROW_SHAPES`); 4g. K6 and K4 the same way at the evals' 257
      tokens (`EVAL_ROW_SHAPES`, batch 2 and 64) and the depther's 1201
      (batch 4); no K5: exact GELU;
+  4i. K6, K4 and K5 the same way at ViT-S/14's C = 384, H = 6 at B·N rows
+     for the N of 2f and 3 images of 785 (`VITS_ROW_SHAPES`), and K7 at
+     eval_dinov2_setr_cross_ete's (16, 6, 257, 64), no ids, fp32 and bf16,
+     forward and backward, as 4d (`entry_kernel_checks`);
   4c. K7 flash attention with segment ids vs its plain version, bf16 and
      fp32, each element against a bound from its own terms: the forward
      (output and logsumexp), dq, dk and dv through autograd with a seeded
@@ -157,7 +170,7 @@ seconds since the start):
      an epoch and resumed (`resume_rule`), `--evaluate` and `evaluate`;
   8g. `pretrain`'s checkpoint and resume at full width (`ssl_resume_run`);
   8h. `train_seg`'s other models and decoders at the paper's width (ViT-L/14
-     at 588 px cut to `VARIANT_DEPTH` = 8 of its 24 blocks, bf16, tanh
+     at 588 px cut to `VARIANT_DEPTH` = 4 of its 24 blocks, bf16, tanh
      GELU, batch 8, synthetic, one epoch of 3 steps and a validation): the adapter model with the MLA decoder (through
      `train_mla`) and with SETR's, and tap_setr, tap_unet, tap_unet_fuse,
      tap_masktrans and tap_setr_ete; finite losses, every trainable moved,
@@ -170,7 +183,7 @@ seconds since the start):
      the floor and q, k, v moved by one head as the planted fault, per
      subtree (backbone, head) within max(1e-1, 2 × floor)
      (`ete_step_gate`);
-  8j. ViT-g/14 at its full width cut to `G_DEPTH` = 20 of its 40 blocks
+  8j. ViT-g/14 at its full width cut to `G_DEPTH` = 12 of its 40 blocks
      (`arch_depth`, as in 8k and 8l) through `train_seg --config_file
      configs/vitg14_pretrain.yaml --imsize 588 --bf16 --synthetic` at batch
      8 (`variant_runs` with `G_RUNS`: 3 steps, a validation of 2 forwards,
@@ -241,6 +254,36 @@ seconds since the start):
      validation forward as phase 8's, `test_ch_iou` and `test_isi_iou` in
      log.txt finite in [0, 1], the labels trained on (binary_masks: {0, 1}),
      img/s, loader wait, peak memory, seconds (`multi_class_run`);
+  8za. the six reference eval scripts' entry points,
+     `adaptersis_tpu_torch.eval.eval_dinov2_{setr,unet,or_unet_fuse,
+     masktrans,masktrans_inov,setr_cross_ete}.main` with `--arch vit_small
+     --patch_size 14 --batch_size_per_gpu 16` and each script's own
+     defaults (fp32, exact GELU, 224, 392 or 588 px, its loss and input
+     norm, 12 blocks), one epoch cut to 2 steps and a validation of 2
+     forwards:
+     synthetic frames, but setr_cross_ete on a Robust-MIS tree with
+     `--cross_test_path` on a second (finite cross_* metrics); finite
+     losses, every trainable moved, the frozen backbone unchanged (setr_ete's
+     moved), launches per step and validation forward as `variant_expect`
+     at 12 blocks with the exact GELU, K3 on 3×TF32, img/s, peak memory,
+     seconds, then `--evaluate` on setr_cross_ete's checkpoint gives its
+     last acc1 (`eval_entry_runs`);
+  8zb. EndoVis 2018 (1280 × 1024), CholecSeg8k (854 × 480) and AutoLaparo
+     (1920 × 1080) from raw trees in their releases' layouts (16 training
+     and 4 validation frames; written and converted by `python -m
+     adaptersis_tpu_torch.data.process.<converter>` on the host since
+     phase 1, `start_datasets`), every label the reader gives checked on the
+     host to lie in [0, classes), then `train_multi_class --dataset <name>
+     --num_labels C --num_classes C` (C = 8, 13, 10) at ViT-S/14, 224 px,
+     fp32, batch 8, 2 steps and a validation, held as 8z: the head's C
+     channels, finite losses, challenge metrics in [0, 1], launches; the
+     decoder that ran and the loader wait; then CholecSeg8k at the default 8
+     classes must stop with `evaluate.check_labels`'s message before its
+     first step (`dataset_runs`);
+  8zc. `train_seg --arch vit_tiny --patch_size 14 --imsize 224
+     --synthetic`, the adapter model at its 12 blocks, batch 16, 2 steps and
+     a validation, in fp32 and with `--bf16 --gelu_approx` (K5), as 8h
+     (`tiny_runs`);
   9. kernel, plain and library times at the bf16 shapes of phases 2-4c (CUDA
      events around 20 back-to-back calls, `cuda_ms`), the kernels' and the
      library calls' device time alone (20 calls captured in a CUDA graph and
@@ -275,7 +318,14 @@ seconds since the start):
      of 8o's `bench_m2f` and 8m's `segment_m2f`), `fp32_shapes` (each
      "fp32 ..." key) and `launches_fp32_step` (per step of 8s),
      `eval_shapes` (each "eval ..." key) and `launches_eval_forward` (per
-     extraction forward of 8w's knn run).
+     extraction forward of 8w's knn run), `vits_shapes` (each "vits ..."
+     and "vit_tiny adapter ..." key: at batch 16 the eval scripts' fp32 K3
+     at N = 65-1765 against SDPA, K6 and K4 at C = 384 against the unfused
+     sequence and cuBLAS, K6, K4, K5 at 257 tokens in bf16, K7 fp32 at
+     setr_cross_ete's shape against SDPA, vit_tiny's K3, K6, K4, K5 at 257
+     tokens and K1, K2 at D = 24 in fp32 and bf16), `vits_max_abs_err` (2f-4i
+     by dtype) and `launches_vits_step` (per train step of each run of 8za
+     and 8zc).
 Then a JSON line of the kernels, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 
@@ -299,6 +349,11 @@ K3 wrapper counts launches by kernel (`path_counts`).
 runs the build, phases 2e, 4g, 8w, 8x and 8y and phase 9's "eval ..."
 keys alone (`evals_only`).
 
+    python3 chip_smoke.py --entries
+
+runs the build, phases 2f, 3d, 4h, 4i and 8za-8zc and phase 9's "vits ..."
+and "vit_tiny adapter ..." keys alone (`entries_only`).
+
     python3 chip_smoke.py --fp32-steps
 
 runs the build and the fp32 commands of phases 8s and 8m uncut
@@ -318,6 +373,7 @@ import shutil
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -389,15 +445,47 @@ G_ROW_SHAPES = [(B, N, G_WIDTH) for B in (FULL_BATCH, TRAIN_BATCH) for N in (176
     (3, 1765, G_WIDTH)]
 TINY_ROW_SHAPES = [(B, N, TINY_WIDTH) for B in (FULL_BATCH, TRAIN_BATCH)
                    for N in (1765, 1764)] + [(3, 1765, TINY_WIDTH)]
+# the reference eval scripts (phases 2f-4i, 8za-8zc) at their published
+# width, ViT-S/14 (384 wide, 12 blocks of 6 heads of 64; their heads take
+# 4 × 384 channels), fp32 with exact GELU, batch 16: their walks at 224 px
+# (16² + 1 = 257 tokens), tap_unet_fuse's 1.5× and 0.5× frames of it (577,
+# 65: one full 64-key tile and a one-key tail), eval_dinov2_masktrans's 392
+# px (785 = 6·128 + 17) and eval_dinov2_masktrans_inov's 588 (1765); and
+# vit_tiny's at 224 (3 heads). Phases 2f and 4i hold K3, K6, K4 and K5
+# there at batch 2 and 16, phase 9 times them at 16 ("vits ..." keys)
+VITS_HEADS, VITS_WIDTH, ENTRY_BATCH = 6, 384, 16
+VITS_TOKENS = (65, 257, 577, 785, 1765)
+VITS_FLASH_SHAPES = [(B, VITS_HEADS, N, 64) for B in (FULL_BATCH, ENTRY_BATCH)
+                     for N in VITS_TOKENS] + [(B, TINY_HEADS, 257, 64)
+                                              for B in (FULL_BATCH, ENTRY_BATCH)]
+# 3 images of 785 rows: the 128-row tiles straddle both image boundaries
+VITS_ROW_SHAPES = [(B, N, VITS_WIDTH) for B in (FULL_BATCH, ENTRY_BATCH)
+                   for N in VITS_TOKENS] + [(3, 785, VITS_WIDTH)]
+# K7 at eval_dinov2_setr_cross_ete's trained backbone: one 257-token
+# segment (no ids), 6 heads, in fp32 (its precision) and bf16
+VITS_K7_CASE, VITS_K7_SHAPE = "vits setr_cross_ete", (ENTRY_BATCH, VITS_HEADS, 257, 64)
+# vit_tiny's adapters at 224 px (phases 3d, 4h): CAViT's 16² ViT-token
+# queries sample the 28², 14², 7² CNN pyramid, CACNN's pyramid queries the
+# 16² tokens, 8 heads of D = 192 / 8 = 24 (48-byte bf16 rows: K1's 4-lane
+# group with one lane idle), bf16 and fp32 values, batch 2 and 16 (phase 9:
+# "vit_tiny adapter ..." keys)
+TINY_PYRAMID, TINY_GRID = [(28, 28), (14, 14), (7, 7)], [(16, 16)]
+TINY_MSDA_CASES = [(f"vit_tiny adapter {case} B={B} {str(dt)[6:]}", (B, S, 8, TINY_WIDTH // 8),
+                    Lq, shapes, 4, queries, dt)
+                   for dt in (torch.bfloat16, torch.float32) for B in (FULL_BATCH, ENTRY_BATCH)
+                   for case, S, Lq, shapes, queries in (
+                       ("cavit", 1029, 256, TINY_PYRAMID, TINY_GRID),
+                       ("cacnn", 256, 1029, TINY_GRID, TINY_PYRAMID))]
+TINY_MSDA_POINTS = ("hot token",)
 # K7 at ViT-g's SSL step (`pretrain --arch vit_giant2` at its default crops,
 # batch 8: 16 global crops, 24 heads; the same packing as ViT-S's)
 G_SSL_BATCH = 8
 G_K7_SHAPES = {"vitg student": (2 * G_SSL_BATCH, G_HEADS, sum(STUDENT_SEGMENTS), 64),
                "vitg teacher": (2 * G_SSL_BATCH, G_HEADS, TEACHER_N, 64)}
-# phases 8j-8l run ViT-g/14 at its full width cut to 20 of its 40 blocks
-# (`arch_depth`; 40 until phase 8z and the two profiles came in), to keep
-# the whole script well inside its limit
-G_DEPTH = 20
+# phases 8j-8l run ViT-g/14 at its full width cut to 12 of its 40 blocks
+# (`arch_depth`; 40 until phase 8z and the two profiles came in, 20 until
+# phases 8za-8zc did), to keep the whole script well inside its limit
+G_DEPTH = 12
 # per ViT-g adapter forward: G_DEPTH blocks in each of the two walks, a K3
 # and a K4 each; the SwiGLU MLP halves take K6, and the 4 tap norms; no K5
 G_PER_FORWARD = {"flash_fwd": 2 * G_DEPTH, "msda_fwd": 7, "fused_ln_qkv": 2 * G_DEPTH,
@@ -634,8 +722,8 @@ def qkv_allowance(xn, w, heads, refs):
 
 def row_check(report, row_err, kname, pairs, extra, shape, dtype) -> float:
     """Phase 4b's bound for K6 and K4 on (kernel, plain) output pairs: bf16
-    2⁻⁷·max|plain| + `extra`, fp32 1e-4·max|plain|; records the error and
-    returns the bound."""
+    2⁻⁷·max|plain| + `extra`, fp32 1e-4·max|plain|; records the error (fp32
+    under "<kname> fp32") and returns the bound."""
     bf = dtype == torch.bfloat16
     for o, r in pairs:
         if o.shape != r.shape or o.dtype != dtype or not o.is_contiguous():
@@ -646,8 +734,8 @@ def row_check(report, row_err, kname, pairs, extra, shape, dtype) -> float:
     report[kname] = {"max_abs_err": err, "bound": bound}
     if not err <= bound:
         fail(f"{kname} kernel disagrees with plain at {shape} {dtype}: {err} > {bound}")
-    if bf:
-        row_err[kname] = max(row_err[kname], err)
+    key = kname if bf else f"{kname} fp32"
+    row_err[key] = max(row_err.get(key, 0.0), err)
     return bound
 
 
@@ -998,7 +1086,7 @@ def host_us(fn, calls=1000):
     return t / calls * 1e6
 
 
-def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
+def kernel_times(ff, mc, fq, fm, ln, fa, only=""):
     """Phase 9: kernel, plain and library times at the bf16 shapes of phases
     2-4c, and each kernel's bound from the same inputs. `times[key]` =
     (kernel, plain, library) back-to-back calls between CUDA events
@@ -1007,7 +1095,8 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
     (`host_us`, for K3 and SDPA, K6 and F.layer_norm); `extra[key]` holds
     what else a kernel replaced. ViT-g's and vit_tiny's shapes (M2b) are
     timed at batch 16 under keys "vitg ..." and "vit_tiny ...", kept out of
-    the kernels line; with `eval_only` only M14's "eval ..." keys."""
+    the kernels line; `only` = "eval" times only M14's "eval ..." keys,
+    "entries" only the "vits ..." and "vit_tiny adapter ..." keys."""
     F = torch.nn.functional
     times, bounds, extra, dev, host = {}, {}, {}, {}, {}
 
@@ -1046,13 +1135,13 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
             del q, k, v
             torch.cuda.empty_cache()
 
-    def msda_times(cases, tag="", hot_too=True, points_timed=("uniform", "model")):
+    def msda_times(cases, tag="", hot_too=True, points_timed=("uniform", "model"), split=True):
         """K1 and K2 on uniform points (the kernels line's), on model-like
         ones and, at batch 16, with a hot token; beside the HBM bound, the
         corner rows each call moves through the L2 (in-level corners × D ×
         the value's bytes, and for K2's dV pass a 4·D byte g row per
-        corner) and the rate reached on the device; K2's device time split
-        into its four kernels (`kernel_split`)"""
+        corner) and the rate reached on the device; with `split` K2's device
+        time split into its four kernels (`kernel_split`)"""
         for i, (case, vshape, Lq, shapes, P, queries, dt) in enumerate(cases):
             hot = ["hot token"] if vshape[0] == TRAIN_BATCH and hot_too else []
             for points in (*points_timed, *hot):
@@ -1083,10 +1172,11 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
                                        + grad.numel() * 4, 4 * D * corners, "fp32")
                 l2 = corners * D * (value.element_size() + 4)
                 extra[key] = {"corners_inside": corners, "l2_bytes": l2,
-                              "l2_tb_per_s": l2 / dev[key][0] * 1e-9,
-                              "pass_ms": kernel_split(
-                                  lambda: mc.msda_bwd(value, loc, aw, grad, shapes),
-                                  ("point_kernel", "sort_kernel", "plan_kernel", "sum_kernel"))}
+                              "l2_tb_per_s": l2 / dev[key][0] * 1e-9}
+                if split:
+                    extra[key]["pass_ms"] = kernel_split(
+                        lambda: mc.msda_bwd(value, loc, aw, grad, shapes),
+                        ("point_kernel", "sort_kernel", "plan_kernel", "sum_kernel"))
                 del leaves, out, value, loc, aw, grad
                 torch.cuda.empty_cache()
 
@@ -1159,14 +1249,15 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
             del x, p, xn, h
             torch.cuda.empty_cache()
 
-    def k7_times(cases, tag=""):
-        """K7 bf16: forward, and backward from the forward's o and lse;
-        beside plain, PyTorch's SDPA with the boolean block-diagonal mask
-        (the student's; none for the teacher and setr_ete), forward and its
-        backward alone (autograd.grad with the graph kept; graphed on the
-        stream its forward ran on)"""
+    def k7_times(cases, tag="", dtype=torch.bfloat16):
+        """K7 (bf16, or `dtype`): forward, and backward from the forward's o
+        and lse; beside plain, PyTorch's SDPA with the boolean block-diagonal
+        mask (the student's; none for the teacher and setr_ete), forward and
+        its backward alone (autograd.grad with the graph kept; graphed on
+        the stream its forward ran on)"""
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
         for case, shape in cases.items():
-            q, k, v, do = k7_inputs(shape, torch.bfloat16, seed=0)
+            q, k, v, do = k7_inputs(shape, dtype, seed=0)
             B, H, N, Dh = shape
             student = case.endswith("student")
             segs = STUDENT_SEGMENTS if student else [N]
@@ -1182,7 +1273,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125))
             # reads q, k, v and the ids; writes o and lse; q·kᵀ and p·v over
             # the own-segment pairs
-            bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, "bf16")
+            bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, kind)
             if seg is None:  # K3's body on the teacher's inputs (no lse store)
                 extra[key] = {"k3_device": device_ms(lambda: ff.flash_fwd(q, k, v, 0.125))}
             key = f"{tag}flash_attn_bwd {name}"
@@ -1212,7 +1303,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
             # reads q, k, v, o, do, lse and the ids; writes dq, dk, dv; five
             # products over the own-segment pairs (q·kᵀ, do·vᵀ, pᵀ·do,
             # dsᵀ·q, ds·k)
-            bounds[key] = bound_ms(8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, "bf16")
+            bounds[key] = bound_ms(8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, kind)
             del q, k, v, do, o, lse, leaves, out, leaves_side, out_side, mask
             torch.cuda.empty_cache()
 
@@ -1227,9 +1318,31 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
         row_times([(EVAL_BATCH, EVAL_TOKENS, 1024)], HEADS, "eval ", k5=False,
                   dtype=torch.float32)
 
-    if eval_only:
+    def entry_times():
+        """At batch 16: the eval scripts' fp32 K3 at ViT-S/14's walks (6
+        heads) against SDPA, K6 and K4 at C = 384 against the unfused
+        sequence and cuBLAS's fp32 GEMM, and in bf16 K6, K4 and K5 at 224
+        px; K7 in fp32 at setr_cross_ete's (16, 6, 257, 64), forward and
+        backward, against SDPA; vit_tiny's K3 (3 heads), K6, K4 (and in
+        bf16 K5) at 224 px in fp32 and bf16, and K1 and K2 at its adapters
+        (D = 24, uniform points) in both dtypes"""
+        flash_times([(ENTRY_BATCH, VITS_HEADS, N, 64) for N in VITS_TOKENS], "vits ", seed=4,
+                    dtype=torch.float32)
+        row_times([(ENTRY_BATCH, N, VITS_WIDTH) for N in VITS_TOKENS], VITS_HEADS, "vits ",
+                  k5=False, dtype=torch.float32)
+        row_times([(ENTRY_BATCH, 257, VITS_WIDTH)], VITS_HEADS, "vits bf16 ")
+        k7_times({VITS_K7_CASE: VITS_K7_SHAPE}, "vits ", dtype=torch.float32)
+        tiny = "vit_tiny adapter "
+        for dt, tag in ((torch.float32, tiny), (torch.bfloat16, f"{tiny}bf16 ")):
+            flash_times([(ENTRY_BATCH, TINY_HEADS, 257, 64)], tag, seed=5, dtype=dt)
+            row_times([(ENTRY_BATCH, 257, TINY_WIDTH)], TINY_HEADS, tag,
+                      k5=dt == torch.bfloat16, dtype=dt)
+        msda_times([c for c in TINY_MSDA_CASES if c[1][0] == ENTRY_BATCH], tiny,
+                   hot_too=False, points_timed=("uniform",), split=False)
+
+    if only:
         with torch.no_grad():
-            eval_times()
+            {"eval": eval_times, "entries": entry_times}[only]()
         return times, bounds, extra, dev, host
 
     with torch.no_grad():
@@ -1263,6 +1376,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa, eval_only=False):
         flash_times(at_16(FLASH_SHAPES), "fp32 ", dtype=torch.float32)
         row_times(at_16(ROW_SHAPES), HEADS, "fp32 ", k5=False, dtype=torch.float32)
         eval_times()
+        entry_times()
         geo = M2F_MSDA_GEOMETRIES
         msda_times(m2f_msda_cases(M2F_BATCH, geo[:1]), "m2f ", hot_too=False)
         msda_times(m2f_msda_cases(M2F_BATCH, geo[1:3]), "m2f ", hot_too=False,
@@ -1499,11 +1613,13 @@ def check_k7(fa, cases=None) -> dict:
     give the same bits. Each case prints the share of tile pairs that
     `live_tiles` keeps (`walked_tiles`); in bf16 the kernels' own counts of
     the pairs they walked (`kernel_walks`) must equal the rule's. No
-    backward call may change its o. Returns the largest bf16 errors at the
-    SSL step's shapes, forward and backward. Phase 4d passes `cases` =
-    [(ETE_CASE, ETE_SHAPE, None, 0.125)]: tap_setr_ete's one segment of 1765
-    tokens, whose faults are di = 0 and the unrounded fp32 kernels, with
-    five repeats; it returns that case's errors."""
+    backward call may change its o. Returns the largest errors at the SSL
+    step's shapes, forward and backward, bf16 ("fwd", "bwd") and fp32
+    ("fwd fp32", "bwd fp32"). Phase 4d passes `cases` = [(ETE_CASE,
+    ETE_SHAPE, None, 0.125)]: tap_setr_ete's one segment of 1765 tokens,
+    whose faults are di = 0 and the unrounded fp32 kernels, with five
+    repeats; it returns that case's errors (and 4i the same at
+    `VITS_K7_CASE`)."""
     k7_err = {"fwd": 0.0, "bwd": 0.0}
     if cases is None:
         cases = [(name, shape,
@@ -1538,7 +1654,8 @@ def check_k7(fa, cases=None) -> dict:
                                                              allow["through"]),
                       "bwd_alone": k7_worst(bwd, alone, ref[2:], allow["alone"])}
             planted = {}
-            if case in ("student", "vitg student", ETE_CASE) and dtype == torch.bfloat16:
+            if case in ("student", "vitg student", ETE_CASE, VITS_K7_CASE) \
+                    and dtype == torch.bfloat16:
                 if seg is not None:
                     wrong = k7_outputs(fa, q, k, v, do, None, plain=False, scale=scale)
                     r = {**k7_worst(K7_NAMES[:2], wrong[:2], ref[:2], allow["fwd"]),
@@ -1602,12 +1719,13 @@ def check_k7(fa, cases=None) -> dict:
                             and not r["differing_share"] <= K7_DIFFER_SHARE):
                         fail(f"flash_attn backward differs from plain in {r['differing_share']} "
                              f"of {n}'s elements ({case}): above {K7_DIFFER_SHARE}")
-            if dtype == torch.bfloat16 and (case in K7_SHAPES or case in G_K7_SHAPES
-                                            or case == ETE_CASE):
-                k7_err["fwd"] = max(k7_err["fwd"], report["fwd"]["o"]["max_abs_err"])
-                k7_err["bwd"] = max(k7_err["bwd"],
-                                    *(report["bwd_through_kernel_forward"][n]["max_abs_err"]
-                                      for n in bwd))
+            if case not in ("interleaved ids", "straddle"):
+                tag = "" if dtype == torch.bfloat16 else " fp32"
+                k7_err["fwd" + tag] = max(k7_err.get("fwd" + tag, 0.0),
+                                          report["fwd"]["o"]["max_abs_err"])
+                k7_err["bwd" + tag] = max(k7_err.get("bwd" + tag, 0.0),
+                                          *(report["bwd_through_kernel_forward"][n]["max_abs_err"]
+                                            for n in bwd))
             del q, k, v, do, got, ref, ref_o, alone, allow
             torch.cuda.empty_cache()
     return k7_err
@@ -1636,7 +1754,7 @@ def k3_allowance(q, k, v, ref, scale: float):
     return out
 
 
-def check_k3(ff, shapes=FLASH_SHAPES) -> float:
+def check_k3(ff, shapes=FLASH_SHAPES, by_dtype=False):
     """Phase 2: K3 against its plain version (fp32 on the same values) at
     the walks' shapes (H = 16, Dh = 64, N = 1765 and 1764, batch 2 and 16;
     phase 2b: `FUSE_K3_SHAPES`), bf16 and fp32, each element within
@@ -1644,11 +1762,13 @@ def check_k3(ff, shapes=FLASH_SHAPES) -> float:
     race in the K/V ring would change them from run to run), and planted
     faults must break the bound: in bf16 the last key's v row zeroed (a
     dropped tail) and keys 128-255 given the v of keys 0-127 (a stale ring
-    stage); in fp32 the plain version with one TF32 pass for each product
-    (`ops/tf32.py`: what the tensor cores give without the split, against
-    the kernel's three). Returns the largest bf16 error."""
+    stage; under 256 keys, the second quarter given the first's); in fp32
+    the plain version with one TF32 pass for each product (`ops/tf32.py`:
+    what the tensor cores give without the split, against the kernel's
+    three). Returns the largest bf16 error (with `by_dtype`, the largest
+    per dtype: {"bfloat16": ..., "float32": ...})."""
     from adaptersis_tpu_torch.ops import tf32
-    flash_err = 0.0
+    errs = {}
     with torch.no_grad():
         for dtype in (torch.bfloat16, torch.float32):
             for i, shape in enumerate(shapes):
@@ -1669,7 +1789,8 @@ def check_k3(ff, shapes=FLASH_SHAPES) -> float:
                 if dtype == torch.bfloat16:
                     tail, stale = v.clone(), v.clone()
                     tail[:, :, -1] = 0
-                    stale[:, :, 128:256] = v[:, :, :128]
+                    stage = 128 if shape[2] >= 256 else shape[2] // 4
+                    stale[:, :, stage:2 * stage] = v[:, :, :stage]
                     wrong = {"dropped_tail": lambda: ff.flash_fwd(q, k, tail, 0.125),
                              "stale_stage": lambda: ff.flash_fwd(q, k, stale, 0.125)}
                 else:  # one batch element at a time, as `k3_allowance`
@@ -1688,11 +1809,11 @@ def check_k3(ff, shapes=FLASH_SHAPES) -> float:
                 for n, w in report["planted_faults_worst_share"].items():
                     if not w > 1.0:
                         fail(f"flash_fwd: the bound passes a planted fault ({n}, {shape}): {w}")
-                if dtype == torch.bfloat16:
-                    flash_err = max(flash_err, report["max_abs_err"])
+                kind = str(dtype)[6:]
+                errs[kind] = max(errs.get(kind, 0.0), report["max_abs_err"])
                 del q, k, v, out, ref, allow
                 torch.cuda.empty_cache()
-    return flash_err
+    return errs if by_dtype else errs["bfloat16"]
 
 
 def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
@@ -1748,8 +1869,8 @@ def check_k5(fm, ln, x, p, report, row_err, shape, planted: bool) -> None:
         if not all(v > 1.0 for v in caught.values()):
             fail(f"fused_ln_mlp: the bound passes a wrong kernel at {dtype}: {caught}")
     del wrong
-    if bf:
-        row_err["fused_ln_mlp"] = max(row_err["fused_ln_mlp"], diff.max().item())
+    key = "fused_ln_mlp" if bf else "fused_ln_mlp fp32"
+    row_err[key] = max(row_err.get(key, 0.0), diff.max().item())
 
 
 def check_row_kernels(ln, fq, fm, shapes=ROW_SHAPES + [STRADDLE_ROWS], heads=HEADS,
@@ -1758,7 +1879,8 @@ def check_row_kernels(ln, fq, fm, shapes=ROW_SHAPES + [STRADDLE_ROWS], heads=HEA
     versions, per shape in bf16 and fp32, K4 with `heads` heads (in fp32
     also per element, `qkv_allowance`); the first shape also plants faults
     and repeats each call five times; every fp32 shape plants one TF32 pass
-    in K4 and K5. Returns the largest bf16 errors."""
+    in K4 and K5. Returns the largest errors, bf16 under each kernel's
+    name, fp32 under "<name> fp32"."""
     from adaptersis_tpu_torch.ops import tf32
     row_err = {"layernorm": 0.0, "fused_ln_qkv": 0.0, "fused_ln_mlp": 0.0}
     with torch.no_grad():
@@ -2247,21 +2369,31 @@ def instrument_frame(rng, yy, xx):
     return np.clip(img, 0, 255).astype(np.uint8), shapes
 
 
-def write_robomis_tree(root: Path, seed: int = 0) -> None:
+def write_robomis_tree(root: Path, seed: int = 0, n_train: int = REAL_TRAIN,
+                       n_val: int = REAL_VAL) -> None:
     """images/{training,validation}/*.png (RGB 960 × 540, `instrument_frame`)
     and annotations/ (8-bit gray, the shapes at 255), through the port's own
-    PNG writer."""
+    PNG writer; frame k drawn from `default_rng((seed, k))`, 8 at a time in
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from adaptersis_tpu_torch.data.png_writer import write_png
-    rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:REAL_FRAME[0], 0:REAL_FRAME[1]].astype(np.float32)
-    for split, n in (("training", REAL_TRAIN), ("validation", REAL_VAL)):
+    frames = []
+    for split, n in (("training", n_train), ("validation", n_val)):
         (root / "images" / split).mkdir(parents=True)
         (root / "annotations" / split).mkdir(parents=True)
-        for i in range(n):
-            img, shapes = instrument_frame(rng, yy, xx)
-            write_png(root / "images" / split / f"{i:04d}.png", img)
-            write_png(root / "annotations" / split / f"{i:04d}.png",
-                      np.logical_or.reduce(shapes).astype(np.uint8) * 255)
+        frames += [(split, f"{i:04d}.png") for i in range(n)]
+
+    def write(k: int) -> None:
+        split, name = frames[k]
+        img, shapes = instrument_frame(np.random.default_rng((seed, k)), yy, xx)
+        write_png(root / "images" / split / name, img)
+        write_png(root / "annotations" / split / name,
+                  np.logical_or.reduce(shapes).astype(np.uint8) * 255)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(frames))))
 
 
 def dinov2_vitl14_state_dict(seed: int = 0) -> dict:
@@ -2603,27 +2735,17 @@ def write_endovis2017_tree(root: Path, seed: int = 0) -> None:
         list(pool.map(write, range(len(frames))))
 
 
-def multi_class_run(counts, reset_counts, smi) -> dict:
-    """Phase 8z: `python -m adaptersis_tpu_torch.train_multi_class --arch
-    vit_large --patch_size 14 --imsize 588 --bf16 --gelu_approx` (8 classes,
-    the iou_multi loss, --dataset endovis2017), batch 8, seeded weights, one
-    epoch of 3 steps and a validation of one forward on
-    `write_endovis2017_tree`'s frames. Finite losses; every trainable moved
-    and the frozen backbone unchanged (as its bf16 cast); the head's 8
-    output channels; launches per train step `expect(1, 7)` and per
-    validation forward `expect(1, 0)`; `test_ch_iou` and `test_isi_iou` in
-    log.txt, finite, within [0, 1]; img/s, loader wait, peak memory and
-    seconds. Under the recipe's defaults both packages read
-    `binary_masks`, so the labels trained on are {0, 1} (recorded)."""
+def multi_class_counted(counts, reset_counts, argv) -> dict:
+    """`train_multi_class.main(argv)` with what phases 8z and 8zb hold it to
+    recorded: the seconds, the labels of every training batch, the launches
+    of each train step and validation forward, the logit convs' and the
+    logits' channels, the trainables left unchanged and frozen parameters
+    moved, K3's launches by kernel, the epoch's stats and log.txt's
+    `test_ch_iou` and `test_isi_iou` (`--output_dir` is the argv's last)."""
     from adaptersis_tpu_torch import train_multi_class, train_seg
     from adaptersis_tpu_torch.models.decoders import LogitConv
     from adaptersis_tpu_torch.train.trainer import Trainer
 
-    work = ROOT / "build" / "smoke_endovis2017"
-    shutil.rmtree(work, ignore_errors=True)
-    t0 = time.perf_counter()
-    write_endovis2017_tree(work / "endovis2017")
-    setup_s = time.perf_counter() - t0
     seen, per, labels, channels = {}, {"train": [], "eval": []}, set(), set()
     plain_build = train_seg.build_model
     plain_train, plain_eval = Trainer.train_step, Trainer.eval_step
@@ -2648,10 +2770,6 @@ def multi_class_run(counts, reset_counts, smi) -> dict:
         channels.add(out["logits"].shape[-1])
         return out
 
-    argv = ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588", "--bf16",
-            "--gelu_approx", "--batch_size_per_gpu", str(EV17_BATCH), "--epochs", "1",
-            "--seed", "0", "--data_path", str(work / "endovis2017"), "--num_workers", "8",
-            "--output_dir", str(work / "out")]
     train_seg.build_model = build_recorded
     Trainer.train_step, Trainer.eval_step = train_counted, eval_counted
     try:
@@ -2673,45 +2791,472 @@ def multi_class_run(counts, reset_counts, smi) -> dict:
             frozen_moved.append(n_)
     head = [mod.out_channels for mod in m.modules() if isinstance(mod, LogitConv)]
     del m, start
-    ep = hist[0]
-    logged = [json.loads(x) for x in (work / "out" / "log.txt").read_text().splitlines()]
-    challenge = {k: logged[-1].get(k) for k in ("test_ch_iou", "test_isi_iou")}
-    res = {"argv": argv, "setup_s": setup_s, "seconds": seconds, "head_channels": head,
-           "logit_channels": sorted(channels), "labels_trained_on": sorted(labels),
+    logged = [json.loads(x) for x in (Path(argv[-1]) / "log.txt").read_text().splitlines()]
+    return {"seconds": seconds, "hist": hist, "per": per, "labels": labels,
+            "channels": channels, "head": head, "unchanged": unchanged,
+            "frozen_moved": frozen_moved, "by_kernel": by_kernel,
+            "challenge": {k: logged[-1].get(k) for k in ("test_ch_iou", "test_isi_iou")}}
+
+
+def multi_class_checks(run: dict, steps: int, val_forwards: int, classes: int,
+                       want_t: dict, want_e: dict, path: str) -> list:
+    """What phases 8z and 8zb hold a `multi_class_counted` run to: the steps
+    and validation forwards, finite losses, every trainable moved and the
+    frozen backbone unchanged, `classes` logit channels, the launches per
+    train step and validation forward, every K3 launch on `path`, and
+    finite challenge metrics in [0, 1]. Returns the failures."""
+    ep, per, failures = run["hist"][0], run["per"], []
+    if len(per["train"]) != steps or len(per["eval"]) != val_forwards:
+        failures.append(f"{len(per['train'])} steps, {len(per['eval'])} validation forwards")
+    if not ep["train_losses_finite"]:
+        failures.append(f"losses {ep['train_losses']}")
+    if run["unchanged"] or run["frozen_moved"]:
+        failures.append(f"trainables unchanged {run['unchanged'][:5]}, frozen moved "
+                        f"{run['frozen_moved'][:5]}")
+    if run["head"] != [classes] or run["channels"] != {classes}:
+        failures.append(f"logit convs of {run['head']} channels, logits with "
+                        f"{run['channels']} channels")
+    if any(d != want_t for d in per["train"]):
+        failures.append(f"launches per train step {per['train']}, expected {want_t}")
+    if any(d != want_e for d in per["eval"]):
+        failures.append(f"launches per validation forward {per['eval']}, expected {want_e}")
+    launched = {k: sum(d[k] for d in per["train"] + per["eval"]) for k in want_t}
+    if run["by_kernel"] != paths_expected(path, launched):
+        failures.append(f"launches by kernel {run['by_kernel']}")
+    if not all(isinstance(v, float) and math.isfinite(v) and 0.0 <= v <= 1.0
+               for v in run["challenge"].values()):
+        failures.append(f"log.txt's challenge metrics {run['challenge']}")
+    return failures
+
+
+def multi_class_run(counts, reset_counts, smi) -> dict:
+    """Phase 8z: `python -m adaptersis_tpu_torch.train_multi_class --arch
+    vit_large --patch_size 14 --imsize 588 --bf16 --gelu_approx` (8 classes,
+    the iou_multi loss, --dataset endovis2017), batch 8, seeded weights, one
+    epoch of 3 steps and a validation of one forward on
+    `write_endovis2017_tree`'s frames. Finite losses; every trainable moved
+    and the frozen backbone unchanged (as its bf16 cast); the head's 8
+    output channels; launches per train step `expect(1, 7)` and per
+    validation forward `expect(1, 0)`; `test_ch_iou` and `test_isi_iou` in
+    log.txt, finite, within [0, 1]; img/s, loader wait, peak memory and
+    seconds (`multi_class_counted`, `multi_class_checks`). Under the
+    recipe's defaults both packages read `binary_masks`, so the labels
+    trained on are {0, 1} (recorded)."""
+    work = ROOT / "build" / "smoke_endovis2017"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_endovis2017_tree(work / "endovis2017")
+    setup_s = time.perf_counter() - t0
+    argv = ["--arch", "vit_large", "--patch_size", "14", "--imsize", "588", "--bf16",
+            "--gelu_approx", "--batch_size_per_gpu", str(EV17_BATCH), "--epochs", "1",
+            "--seed", "0", "--data_path", str(work / "endovis2017"), "--num_workers", "8",
+            "--output_dir", str(work / "out")]
+    run = multi_class_counted(counts, reset_counts, argv)
+    ep, per = run["hist"][0], run["per"]
+    res = {"argv": argv, "setup_s": setup_s, "seconds": run["seconds"],
+           "head_channels": run["head"], "logit_channels": sorted(run["channels"]),
+           "labels_trained_on": sorted(run["labels"]),
            "steps": len(per["train"]), "validation_forwards": len(per["eval"]),
            "train_losses": ep["train_losses"], "test_loss": ep.get("test_loss"),
-           "test_dice": ep.get("test_dice"), "test_acc1": ep.get("test_acc1"), **challenge,
+           "test_dice": ep.get("test_dice"), "test_acc1": ep.get("test_acc1"),
+           **run["challenge"],
            "train_img_per_s": ep["train_img_per_s"], "loader_wait_s": ep["loader_wait_s"],
            "peak_mem_bytes": ep["peak_mem_bytes"], "decoder": ep["decoder"],
            "per_train_step": per["train"][:1], "per_validation_forward": per["eval"][:1],
-           "unchanged_trainables": unchanged, "frozen_moved": frozen_moved,
-           "by_kernel": by_kernel, "nvidia_smi": smi[0] if smi else "unavailable"}
+           "unchanged_trainables": run["unchanged"], "frozen_moved": run["frozen_moved"],
+           "by_kernel": run["by_kernel"], "nvidia_smi": smi[0] if smi else "unavailable"}
     say("multi_class_training", **res)
-    failures = []
-    if res["steps"] != EV17_TRAIN // EV17_BATCH or res["validation_forwards"] != 1:
-        failures.append(f"{res['steps']} steps, {res['validation_forwards']} validation forwards")
-    if not ep["train_losses_finite"]:
-        failures.append(f"losses {ep['train_losses']}")
-    if unchanged or frozen_moved:
-        failures.append(f"trainables unchanged {unchanged[:5]}, frozen moved {frozen_moved[:5]}")
-    if head != [8] or channels != {8}:
-        failures.append(f"logit convs of {head} channels, logits with {channels} channels")
-    if any(d != expect(1, 7) for d in per["train"]):
-        failures.append(f"launches per train step {per['train']}, expected {expect(1, 7)}")
-    if any(d != expect(1, 0) for d in per["eval"]):
-        failures.append(f"launches per validation forward {per['eval']}")
-    if by_kernel != paths_expected("wgmma", counts()):
-        failures.append(f"launches by kernel {by_kernel}")
-    if not all(isinstance(v, float) and math.isfinite(v) and 0.0 <= v <= 1.0
-               for v in challenge.values()):
-        failures.append(f"log.txt's challenge metrics {challenge}")
-    if not labels <= {0, 1}:
-        failures.append(f"trained on labels {sorted(labels)}, binary_masks expected")
+    failures = multi_class_checks(run, EV17_TRAIN // EV17_BATCH, 1, 8, expect(1, 7),
+                                  expect(1, 0), "wgmma")
+    if not run["labels"] <= {0, 1}:
+        failures.append(f"trained on labels {sorted(run['labels'])}, binary_masks expected")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     if failures:
         fail("8z: " + "; ".join(failures))
     return res
+
+
+# phase 8zb: three datasets from their raw release layouts through the
+# port's converters into train_multi_class at ViT-S/14, 224 px, fp32, batch
+# DATASET_BATCH: EndoVis 2018 (1280 × 1024 frames, 7 instrument classes and
+# the background), CholecSeg8k (854 × 480, 13 classes by the watershed
+# masks' gray levels), AutoLaparo task 3 (1920 × 1080, 10 classes by gray
+# level); DATASET_TRAIN training frames (DATASET_STEPS steps) and
+# DATASET_VAL validation frames (one forward) each
+DATASET_TRAIN, DATASET_VAL, DATASET_BATCH, DATASET_STEPS = 16, 4, 8, 2
+RAW_DATASETS = {  # --dataset: (converter module, frame (h, w), classes)
+    "endovis2018": ("endovis2018", (1024, 1280), 8),
+    "cholecseg8k": ("cholec8k", (480, 854), 13),
+    "autolaparo": ("autolaparo", (1080, 1920), 10)}
+# AutoLaparo's converter writes the split DATA_TYPE names: converted under
+# the names the trainers ask the reader for
+AUTOLAPARO_SPLITS = ("training", "validation")
+# the releases' label codes: EndoVis 2018's instrument colours (labels.json;
+# the kidney's colour maps to the background), CholecSeg8k's watershed gray
+# level of each of its 13 classes in class order, AutoLaparo's gray levels
+# of its 10 classes
+EV18_INSTRUMENTS = {"bipolar forceps": [0, 255, 0], "prograsp forceps": [0, 255, 255],
+                    "large needle driver": [125, 255, 12],
+                    "monopolar curved scissors": [255, 55, 0],
+                    "ultrasound probe": [24, 55, 125], "suction instrument": [187, 155, 25],
+                    "clip applier": [0, 255, 125]}
+EV18_KIDNEY = [255, 0, 0]
+CHOLEC_GRAY = [50, 11, 21, 13, 12, 31, 23, 24, 25, 32, 22, 33, 5]
+CHOLEC_TRAIN_VIDEOS, CHOLEC_VAL_VIDEO = ("video01", "video09"), "video12"
+AUTOLAPARO_GRAY = [0, 180, 20, 40, 60, 80, 100, 120, 140, 160]
+
+
+def labelled_frame(rng, yy, xx, classes: int):
+    """`instrument_frame` with a class id in 1..classes − 1 for each shape
+    (the first shape the highest class), 0 elsewhere: (RGB frame, label ids
+    uint8)."""
+    img, shapes = instrument_frame(rng, yy, xx)
+    label = np.zeros(yy.shape, np.uint8)
+    ids = [classes - 1] + list(rng.integers(1, classes, len(shapes) - 1))
+    for shape, c in zip(shapes, ids):
+        label[shape] = c
+    return img, label
+
+
+def write_raw_dataset(name: str, raw: Path, seed: int = 0) -> None:
+    """A raw tree of dataset `name` in its release's layout (what its
+    converter reads), `DATASET_TRAIN` training and `DATASET_VAL`
+    validation frames at the release's frame size, through the port's PNG
+    writer (AutoLaparo's frames as JPEG, through PIL); frame k drawn from
+    `default_rng((seed, k))`, 8 at a time in threads:
+      endovis2018: train_val/miccai_challenge_2018_release_1/seq_{1,2,3}/
+        left_frames/ and labels/ (each class's colour, the kidney's beside
+        them) and labels.json; seq 1 and 2 the training frames, seq 3 the
+        validation ones;
+      cholecseg8k: <video>/<video>_<k>/frame_<k>_endo.png and
+        frame_<k>_endo_watershed_mask.png (RGB, each class's gray level):
+        two of the converter's training videos, one of its test videos;
+      autolaparo: autolaparo/imgs/{training,validation}/<k>.jpg and
+        autolaparo/masks/{training,validation}/<k>.png (each class's gray
+        level), the split names the trainers read (`AUTOLAPARO_SPLITS`)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from adaptersis_tpu_torch.data.png_writer import write_png
+    frame, classes = RAW_DATASETS[name][1:]
+    yy, xx = np.mgrid[0:frame[0], 0:frame[1]].astype(np.float32)
+    half = DATASET_TRAIN // 2
+    if name == "endovis2018":
+        release = raw / "train_val" / "miccai_challenge_2018_release_1"
+        places = [(release / f"seq_{1 + k // half}", f"frame{k:03d}.png")
+                  for k in range(DATASET_TRAIN)]
+        places += [(release / "seq_3", f"frame{k:03d}.png") for k in range(DATASET_VAL)]
+        table = np.asarray([[0, 0, 0], *EV18_INSTRUMENTS.values()], np.uint8)
+        for seq in sorted({d for d, _ in places}):
+            for sub in ("left_frames", "labels"):
+                (seq / sub).mkdir(parents=True)
+            (seq / "labels.json").write_text(json.dumps(
+                [{"name": n, "color": c} for n, c in
+                 [("background tissue", [0, 0, 0]), *EV18_INSTRUMENTS.items(),
+                  ("kidney parenchyma", EV18_KIDNEY)]]))
+    elif name == "cholecseg8k":
+        videos = [CHOLEC_TRAIN_VIDEOS[k // half] for k in range(DATASET_TRAIN)]
+        videos += [CHOLEC_VAL_VIDEO] * DATASET_VAL
+        places = [(raw / v / f"{v}_{80 * (k + 1):05d}", f"frame_{80 * (k + 1)}_endo.png")
+                  for k, v in enumerate(videos)]
+        for d, _ in places:
+            d.mkdir(parents=True)
+        gray = np.asarray(CHOLEC_GRAY, np.uint8)
+    else:
+        places = [(raw / "autolaparo", split, f"{k:05d}")
+                  for split, n in zip(AUTOLAPARO_SPLITS, (DATASET_TRAIN, DATASET_VAL))
+                  for k in range(n)]
+        for split in AUTOLAPARO_SPLITS:
+            for kind in ("imgs", "masks"):
+                (raw / "autolaparo" / kind / split).mkdir(parents=True)
+        gray = np.asarray(AUTOLAPARO_GRAY, np.uint8)
+
+    def write(k: int) -> None:
+        d, *fname = places[k]
+        rng = np.random.default_rng((seed, k))
+        img, label = labelled_frame(rng, yy, xx, classes)
+        if name == "endovis2018":
+            coded = table[label]
+            coded[(label == 0) & (yy > 2 * frame[0] / 3)] = EV18_KIDNEY
+            write_png(d / "left_frames" / fname[0], img)
+            write_png(d / "labels" / fname[0], coded)
+        elif name == "cholecseg8k":
+            write_png(d / fname[0], img)
+            write_png(d / fname[0].replace("_endo.png", "_endo_watershed_mask.png"),
+                      np.repeat(gray[label][..., None], 3, -1))
+        else:
+            from PIL import Image
+            split, stem = fname
+            Image.fromarray(img).save(d / "imgs" / split / f"{stem}.jpg", quality=90)
+            write_png(d / "masks" / split / f"{stem}.png", gray[label])
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(places))))
+
+
+def convert_datasets(work: Path) -> dict:
+    """Each dataset's converter run as a module on <work>/<name>/raw, all of
+    them at once, each in its own process (AutoLaparo's once per split,
+    `DATA_TYPE`), and the reader's root each gives: <work>/<name>/converted,
+    but for EndoVis 2018, whose converter writes each training sequence's
+    labels under <raw>/train/seq_N/labels, beside which the sequence's
+    left_frames are linked, and whose validation sequence (3) goes to
+    test/seq_1."""
+    jobs = []
+    for name, (module, _, _) in RAW_DATASETS.items():
+        raw, out = work / name / "raw", work / name / "converted"
+        argv = [sys.executable, "-m", f"adaptersis_tpu_torch.data.process.{module}", str(raw)]
+        if name == "endovis2018":
+            jobs.append((name, argv, {}))
+        elif name == "autolaparo":
+            jobs += [(name, argv + [str(out)], {"DATA_TYPE": split})
+                     for split in AUTOLAPARO_SPLITS]
+        else:
+            jobs.append((name, argv + [str(out)], {}))
+    procs = [(name, subprocess.Popen(argv, cwd=ROOT, env={**os.environ, **env},
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+             for name, argv, env in jobs]
+    failed = []
+    try:
+        for name, proc in procs:
+            text = proc.communicate(timeout=300)[0]
+            if proc.returncode:
+                failed.append(f"{name}'s converter exited {proc.returncode}: {text[-2000:]}")
+    finally:
+        stop([p for _, p in procs])
+    if failed:
+        fail("8zb: " + "; ".join(failed))
+    roots = {name: work / name / "converted" for name in RAW_DATASETS}
+    raw = roots["endovis2018"] = work / "endovis2018" / "raw"
+    release = raw / "train_val" / "miccai_challenge_2018_release_1"
+    for seq in (1, 2, 3):
+        (raw / "train" / f"seq_{seq}" / "left_frames").symlink_to(
+            release / f"seq_{seq}" / "left_frames")
+    (raw / "test").mkdir()
+    (raw / "train" / "seq_3").rename(raw / "test" / "seq_1")
+    return roots
+
+
+def read_labels(name: str, root: Path) -> dict:
+    """Every label id of the reader's training and validation frames (at
+    224 px, read on the host in 8 threads), and each split's frame count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from adaptersis_tpu_torch.data.datasets import DATASETS
+    out = {}
+    for split in ("training", "validation"):
+        ds = DATASETS[name](str(root), split, imsize=224)
+        with ThreadPoolExecutor(8) as pool:
+            masks = list(pool.map(lambda i: ds[i][1], range(len(ds))))
+        out[split] = {"frames": len(ds), "labels": sorted(
+            set(np.unique(np.stack(masks)).tolist()) if masks else set())}
+    return out
+
+
+DATASET_WORK = ROOT / "build" / "smoke_datasets"
+DATASET_LOG = ROOT / "build" / "smoke_datasets.log"
+
+
+def make_datasets():
+    """The three raw trees (`write_raw_dataset`) and their conversion
+    (`convert_datasets`) under DATASET_WORK: (the readers' roots, the
+    seconds each part took)."""
+    shutil.rmtree(DATASET_WORK, ignore_errors=True)
+    t0 = time.perf_counter()
+    for name in RAW_DATASETS:
+        write_raw_dataset(name, DATASET_WORK / name / "raw")
+    written = time.perf_counter() - t0
+    roots = convert_datasets(DATASET_WORK)
+    return roots, {"write_s": written, "convert_s": time.perf_counter() - t0 - written}
+
+
+def start_datasets() -> subprocess.Popen:
+    """`make_datasets` in a child process (`--datasets-child`) from now on,
+    so that its host work (the PNG encoding of the converters' 1920 × 1080
+    outputs takes tens of seconds) overlaps the kernel checks without
+    taking the main process's interpreter: the child, whose output goes to
+    DATASET_LOG and whose result phase 8zb reads (`datasets_made`); it is
+    stopped at exit if the script ends first."""
+    import atexit
+    DATASET_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with DATASET_LOG.open("w") as log:
+        child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                  "--datasets-child"], cwd=ROOT, stdout=log,
+                                 stderr=subprocess.STDOUT)
+    atexit.register(stop, [child])
+    return child
+
+
+def datasets_child() -> None:
+    sys.path.insert(0, str(ROOT))
+    roots, seconds = make_datasets()
+    print("datasets " + json.dumps({"roots": {k: str(v) for k, v in roots.items()},
+                                    "seconds": seconds}), flush=True)
+
+
+def datasets_made(child: subprocess.Popen):
+    """Wait for `start_datasets`'s child: (the readers' roots, the seconds
+    its parts took)."""
+    try:
+        child.wait(timeout=600)
+    finally:
+        stop([child])
+    text = DATASET_LOG.read_text()
+    if child.returncode:
+        fail(f"8zb: making the trees exited {child.returncode}: {text[-3000:]}")
+    made = child_result(text, "datasets")
+    return {k: Path(v) for k, v in made["roots"].items()}, made["seconds"]
+
+
+def dataset_runs(counts, reset_counts, smi, trees) -> dict:
+    """Phase 8zb: for EndoVis 2018, CholecSeg8k and AutoLaparo, a raw tree
+    in the release's layout (`write_raw_dataset`), the port's converter as
+    a module (`convert_datasets`), both made since `start_datasets` (whose
+    child `trees` is), every label the reader gives checked on
+    the host to lie in [0, classes) before any step (`read_labels`: a label
+    out of range fails the phase here, with a message), then
+    `train_multi_class --dataset <name> --num_labels C --num_classes C` at
+    ViT-S/14, 224 px, fp32, batch DATASET_BATCH, DATASET_STEPS steps and a
+    validation, held as 8z holds its run (`multi_class_checks`: launches
+    per step those of the adapter model's fp32 step at 12 blocks, K3 on
+    3×TF32); the labels trained on within [0, C). Then CholecSeg8k at the
+    recipe's default 8 classes must stop before its first step with
+    `evaluate.check_labels`'s message, not at a device-side assert."""
+    from adaptersis_tpu_torch.data import native
+
+    work = DATASET_WORK
+    want_t = variant_expect("adapter", True, False, VITS_DEPTH)
+    want_e = variant_expect("adapter", False, False, VITS_DEPTH)
+    res, failures = {}, []
+
+    def argv(name, classes, out):
+        return ["--arch", "vit_small", "--patch_size", "14", "--imsize", "224",
+                "--batch_size_per_gpu", str(DATASET_BATCH), "--epochs", "1", "--seed", "0",
+                "--dataset", name, *(["--num_labels", str(classes)] if classes else []),
+                *(["--num_classes", str(classes)] if classes else []),
+                "--data_path", str(roots[name]), "--num_workers", "8", "--output_dir", str(out)]
+
+    t0 = time.perf_counter()
+    roots, made = datasets_made(trees)
+    say("dataset_trees", waited_s=time.perf_counter() - t0, **made)
+    for name, (_, frame, classes) in RAW_DATASETS.items():
+        read = read_labels(name, roots[name])
+        say("dataset_labels", dataset=name, classes=classes, frame=list(frame), read=read)
+        if read["training"]["frames"] != DATASET_TRAIN or read["validation"]["frames"] != DATASET_VAL:
+            fail(f"8zb {name}: the reader gives {read} frames, {DATASET_TRAIN} and "
+                 f"{DATASET_VAL} written")
+        bad = [v for s in read.values() for v in s["labels"] if not 0 <= v < classes]
+        if bad:
+            fail(f"8zb {name}: labels {sorted(set(bad))} outside [0, {classes}) before the "
+                 "first step")
+        run = multi_class_counted(counts, reset_counts, argv(name, classes,
+                                                             work / name / "out"))
+        ep, per = run["hist"][0], run["per"]
+        res[name] = {"classes": classes, "seconds": run["seconds"],
+                     "labels_trained_on": sorted(run["labels"]),
+                     "head_channels": run["head"], "steps": len(per["train"]),
+                     "validation_forwards": len(per["eval"]),
+                     "train_losses": ep["train_losses"], "test_loss": ep.get("test_loss"),
+                     "test_dice": ep.get("test_dice"), "test_acc1": ep.get("test_acc1"),
+                     **run["challenge"], "train_img_per_s": ep["train_img_per_s"],
+                     "loader_wait_s": ep["loader_wait_s"], "decoder": ep["decoder"],
+                     "native_decoder": native.decoder(), "peak_mem_bytes": ep["peak_mem_bytes"],
+                     "per_train_step": per["train"][:1],
+                     "per_validation_forward": per["eval"][:1], "by_kernel": run["by_kernel"],
+                     "nvidia_smi": smi[0] if smi else "unavailable"}
+        say("dataset_training", dataset=name, **res[name])
+        failures += [f"{name}: {f}" for f in multi_class_checks(
+            run, DATASET_STEPS, 1, classes, want_t, want_e, "tf32x3")]
+        if not run["labels"] <= set(range(classes)):
+            failures.append(f"{name}: trained on labels {sorted(run['labels'])}")
+        torch.cuda.empty_cache()
+    # CholecSeg8k's 13 classes under the recipe's default 8: the host check
+    # must stop the run with its message before the first step
+    from adaptersis_tpu_torch import train_multi_class
+    try:
+        train_multi_class.main(argv("cholecseg8k", 0, work / "too_few_classes"))
+        stopped = None
+    except SystemExit as e:
+        stopped = str(e.code)
+    res["default_classes_on_cholecseg8k"] = stopped
+    say("dataset_label_check", dataset="cholecseg8k", num_classes=8, stopped_with=stopped)
+    if not (stopped and "outside [0, 8)" in stopped):
+        failures.append(f"cholecseg8k at 8 classes: {stopped!r}, expected the label check's "
+                        "message")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if failures:
+        fail("8zb: " + "; ".join(failures))
+    return res
+
+
+# phase 8za: the reference eval scripts' entry points at their published
+# width, ViT-S/14 at all VITS_DEPTH blocks, each with its own imsize, loss,
+# input norm and precision (fp32, exact GELU), batch ENTRY_BATCH, one epoch
+# cut to ENTRY_STEPS steps and a validation of 2 forwards; phase 8zc trains
+# vit_tiny the same way
+VITS_DEPTH, ENTRY_STEPS = 12, 2
+EVAL_ENTRIES = (("eval_dinov2_setr", "tap_setr"), ("eval_dinov2_unet", "tap_unet"),
+                ("eval_dinov2_or_unet_fuse", "tap_unet_fuse"),
+                ("eval_dinov2_masktrans", "tap_masktrans"),
+                ("eval_dinov2_masktrans_inov", "tap_masktrans"),
+                ("eval_dinov2_setr_cross_ete", "tap_setr_ete"))
+TINY_RUNS = [("vit_tiny fp32", "train_seg", [], "adapter"),
+             ("vit_tiny bf16", "train_seg", ["--bf16", "--gelu_approx"], "adapter")]
+
+
+def entry_argv() -> list:
+    """Phase 8za's flags: the scripts' published backbone, batch 16; the
+    rest each script's own defaults."""
+    return ["--arch", "vit_small", "--patch_size", "14", "--batch_size_per_gpu",
+            str(ENTRY_BATCH)]
+
+
+def tiny_argv() -> list:
+    return ["--arch", "vit_tiny", "--patch_size", "14", "--imsize", "224",
+            "--batch_size_per_gpu", str(ENTRY_BATCH)]
+
+
+def eval_entry_runs(counts, reset_counts, smi) -> dict:
+    """Phase 8za: `adaptersis_tpu_torch.eval.eval_dinov2_*.main` with
+    `entry_argv`'s flags (`variant_runs`: finite losses and metrics, every
+    trainable moved, the frozen backbone unchanged, launches per train step
+    and validation forward as `variant_expect` says at 12 blocks with the
+    exact GELU, K3 and K4 on 3×TF32). eval_dinov2_setr_cross_ete trains its
+    backbone on a Robust-MIS tree (`write_robomis_tree`: ENTRY_STEPS
+    batches of 960 × 540 frames and 2 validation batches) with
+    `--cross_test_path` on a second tree from another seed (finite cross_*
+    metrics), then `--evaluate` on its checkpoint gives its last acc1; the
+    others train on synthetic frames."""
+    work = ROOT / "build" / "smoke_entry_trees"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_robomis_tree(work / "robomis", seed=1, n_train=ENTRY_STEPS * ENTRY_BATCH,
+                       n_val=2 * ENTRY_BATCH)
+    write_robomis_tree(work / "robomis_cross", seed=2, n_train=0, n_val=2 * ENTRY_BATCH)
+    say("eval_entry_trees", seconds=time.perf_counter() - t0)
+    trees = ["--dataset", "robomis", "--data_path", str(work / "robomis"),
+             "--cross_test_path", str(work / "robomis_cross")]
+    runs = [(name, f"eval.{name}", trees if model == "tap_setr_ete" else [], model)
+            for name, model in EVAL_ENTRIES]
+    try:
+        return variant_runs(counts, reset_counts, smi, runs=runs, flags=entry_argv,
+                            want=partial(variant_expect, depth=VITS_DEPTH),
+                            evaluated=EVAL_ENTRIES[-1][0], phase="8za", arch="vit_small",
+                            depth=None, batch=ENTRY_BATCH, steps=ENTRY_STEPS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def tiny_runs(counts, reset_counts, smi) -> dict:
+    """Phase 8zc: `train_seg --arch vit_tiny --patch_size 14 --imsize 224
+    --synthetic` with the adapter model at its 12 blocks, batch 16, in fp32
+    and with `--bf16 --gelu_approx` (K5), checked as 8h checks its runs
+    (`variant_runs`; --evaluate on the bf16 run's checkpoint)."""
+    return variant_runs(counts, reset_counts, smi, runs=TINY_RUNS, flags=tiny_argv,
+                        want=partial(variant_expect, depth=VITS_DEPTH),
+                        evaluated=TINY_RUNS[-1][0], phase="8zc", arch="vit_tiny", depth=None,
+                        batch=ENTRY_BATCH, steps=ENTRY_STEPS)
 
 
 SSL_SUBTREES = ("student.", "teacher.", "dino_center", "ibot_center", "adam_mu", "adam_nu")
@@ -2778,10 +3323,10 @@ def ssl_resume_run(counts, reset_counts, expect_ssl, smi) -> dict:
 
 
 # phase 8h: `train_seg`'s other models and decoders at the paper's width,
-# ViT-L/14 cut to 8 of its 24 blocks (12 until phase 8z and the two
-# profiles came in), to keep the whole script well inside
-# its 1200 s limit
-VARIANT_STEPS, VARIANT_DEPTH = 3, 8
+# ViT-L/14 cut to 4 of its 24 blocks (12 until phase 8z and the two
+# profiles came in, 8 until phases 8za-8zc did; the n_last_blocks taps
+# need 4), to keep the whole script well inside its 1200 s limit
+VARIANT_STEPS, VARIANT_DEPTH = 3, 4
 # (name, entry point, its extra flags, --model)
 VARIANTS = [("adapter mla", "train_mla", [], "adapter"),
             ("adapter setr", "train_seg", ["--decoder", "setr"], "adapter"),
@@ -2792,34 +3337,38 @@ VARIANTS = [("adapter mla", "train_mla", [], "adapter"),
 VARIANT_EVALUATED = "tap_setr_ete"
 
 
-def variant_expect(model: str, train: bool) -> dict:
-    """Launches per train step (or per validation forward) of `model` at
-    ViT-L/14 cut to D = VARIANT_DEPTH blocks, with tanh GELU: the adapter
-    model's 2D K3, K4 and K5, 4 K6, 7 K1 (and 7 K2); each frozen walk of
-    the taps D K3, K4 and K5 (unet_fuse walks three times), one K6 per tap
-    it norms (setr and masktrans read 4 blocks, the UNets 1 per walk);
-    tap_setr_ete's trained backbone D K7 forwards, and in training D
-    backwards."""
-    D = VARIANT_DEPTH
+def variant_expect(model: str, train: bool, gelu_approx: bool = True,
+                   depth: int = VARIANT_DEPTH) -> dict:
+    """Launches per train step (or per validation forward) of `model` at D =
+    `depth` blocks (ViT-L/14 cut to VARIANT_DEPTH), with tanh GELU: the
+    adapter model's 2D K3, K4 and K5, 4 K6, 7 K1 (and 7 K2); each frozen
+    walk of the taps D K3, K4 and K5 (unet_fuse walks three times), one K6
+    per tap it norms (setr and masktrans read 4 blocks, the UNets 1 per
+    walk); tap_setr_ete's trained backbone D K7 forwards, and in training D
+    backwards. With the exact GELU (not `gelu_approx`) each frozen block
+    takes K6 before its plain MLP in place of K5."""
+    D = depth
     if model == "adapter":
         per = {"flash_fwd": 2 * D, "msda_fwd": 7, "fused_ln_qkv": 2 * D,
                "fused_ln_mlp": 2 * D, "layernorm": 4}
-        return expect(1, 7 if train else 0, per)
-    out = {k: 0 for k in expect(0, 0)}
-    if model == "tap_setr_ete":
-        return {**out, "flash_attn": D, "flash_attn_bwd": D if train else 0}
-    walks, norms = {"tap_setr": (1, 4), "tap_masktrans": (1, 4), "tap_unet": (1, 1),
-                    "tap_unet_fuse": (3, 3)}[model]
-    return {**out, "flash_fwd": D * walks, "fused_ln_qkv": D * walks,
-            "fused_ln_mlp": D * walks, "layernorm": norms}
+        out = expect(1, 7 if train else 0, per)
+    else:
+        out = {k: 0 for k in expect(0, 0)}
+        if model == "tap_setr_ete":
+            return {**out, "flash_attn": D, "flash_attn_bwd": D if train else 0}
+        walks, norms = {"tap_setr": (1, 4), "tap_masktrans": (1, 4), "tap_unet": (1, 1),
+                        "tap_unet_fuse": (3, 3)}[model]
+        out = {**out, "flash_fwd": D * walks, "fused_ln_qkv": D * walks,
+               "fused_ln_mlp": D * walks, "layernorm": norms}
+    if not gelu_approx:
+        out = {**out, "fused_ln_mlp": 0, "layernorm": out["layernorm"] + out["fused_ln_mlp"]}
+    return out
 
 
 @contextlib.contextmanager
 def arch_depth(arch: str, depth):
     """`models.vit.ARCHS[arch]` cut to `depth` blocks inside the block (as
     it is where `depth` is None)."""
-    from functools import partial
-
     from adaptersis_tpu_torch.models import vit
     full = vit.ARCHS[arch]
     if depth is not None:
@@ -2839,7 +3388,8 @@ def variant_argv() -> list:
 
 def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                  want=variant_expect, evaluated=VARIANT_EVALUATED, phase="8h",
-                 arch="vit_large", depth=VARIANT_DEPTH, batch=VARIANT_BATCH) -> dict:
+                 arch="vit_large", depth=VARIANT_DEPTH, batch=VARIANT_BATCH,
+                 steps=VARIANT_STEPS) -> dict:
     """Phase 8h: `train_seg` (for the MLA decoder `train_mla`) on every
     other `--model` and `--decoder` at the paper's width: ViT-L/14 at 588
     px cut to `VARIANT_DEPTH` blocks, bf16, tanh GELU, synthetic frames,
@@ -2852,23 +3402,31 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
     restored from it) must give the last validation's acc1. `depth` (if
     not None) cuts `arch`'s blocks for these runs. Phase 8j runs the same on
     ViT-g/14 at its full depth (`runs`, `flags`, `want`, `evaluated`), phase
-    8s on ViT-L/14 in fp32 at `batch` 12. Every K3, K4 and K5 launch of a
-    run must take the tensor-core kernel of the run's dtype (`path_counts`:
-    "tf32x3" in fp32, "wgmma" with --bf16)."""
+    8s on ViT-L/14 in fp32 at `batch` 12, 8za the eval scripts' entry points
+    (`runs` names "eval.<module>") and 8zc vit_tiny. A run whose flags
+    name a `--data_path` reads that tree, not synthetic frames, and one with
+    a `--cross_test_path` validates twice as many forwards and must give
+    finite `cross_*` metrics. Every K3, K4 and K5 launch of a run must take
+    the tensor-core kernel of the run's dtype (`path_counts`: "tf32x3" in
+    fp32, "wgmma" with --bf16)."""
+    import importlib
+
     from adaptersis_tpu_torch import train_mla, train_seg
     from adaptersis_tpu_torch.train.trainer import Trainer
 
     work = ROOT / "build" / f"smoke_variants_{phase}"
     shutil.rmtree(work, ignore_errors=True)
     entries = {"train_seg": train_seg, "train_mla": train_mla}
+    entries.update({e: importlib.import_module(f"adaptersis_tpu_torch.{e}")
+                    for _, e, _, _ in runs if e.startswith("eval.")})
     seen, per = {}, {"train": [], "eval": []}
     plain_build, plain_synthetic = train_seg.build_model, train_seg.SyntheticSeg
     plain_train, plain_eval = Trainer.train_step, Trainer.eval_step
 
     def build_recorded(args):
         model = plain_build(args)
-        seen["model"] = model
-        seen["start"] = {k: v.detach().clone() for k, v in model.named_parameters()}
+        seen.update(model=model, imsize=args.imsize,
+                    start={k: v.detach().clone() for k, v in model.named_parameters()})
         return model
 
     def counted(kind, fn):
@@ -2880,25 +3438,29 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
             return out
         return wrap
 
-    def argv(name):
-        return flags() + ["--epochs", "1", "--synthetic", "--seed", "0", "--num_workers", "4",
-                          "--output_dir", str(work / name.replace(" ", "_"))]
+    def argv(name, extra):
+        data = [] if "--data_path" in extra else ["--synthetic"]
+        return flags() + extra + data + ["--epochs", "1", "--seed", "0", "--num_workers", "4",
+                                         "--output_dir", str(work / name.replace(" ", "_"))]
 
     report, failures = {}, []
     with arch_depth(arch, depth):
         train_seg.build_model = build_recorded
-        train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=VARIANT_STEPS * batch, **kw)
-        dtype = "bf16" if "--bf16" in flags() else "fp32"
-        path = "wgmma" if dtype == "bf16" else "tf32x3"
+        train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=steps * batch, **kw)
         Trainer.train_step = counted("train", plain_train)
         Trainer.eval_step = counted("eval", plain_eval)
         try:
             for name, entry, extra, model in runs:
+                run_argv = argv(name, extra)
+                dtype = "bf16" if "--bf16" in run_argv else "fp32"
+                path = "wgmma" if dtype == "bf16" else "tf32x3"
+                gelu = "--gelu_approx" in run_argv
+                cross = "--cross_test_path" in run_argv
                 per["train"].clear()
                 per["eval"].clear()
                 t0 = time.perf_counter()
                 reset_counts()
-                hist = entries[entry].main(argv(name) + extra)
+                hist = entries[entry].main(run_argv)
                 seconds = time.perf_counter() - t0
                 by_kernel, launched = path_counts(), counts()
                 m = seen.pop("model")
@@ -2914,28 +3476,33 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                                   if p_.requires_grad})
                 del m, start
                 ep = hist[0]
+                cross_rows = {k: v for k, v in ep.items() if k.startswith("cross_")}
                 r = {"entry": entry, "flags": extra, "seconds": seconds, "steps": len(per["train"]),
                      "validation_forwards": len(per["eval"]), "train_losses": ep["train_losses"],
                      "test_loss": ep.get("test_loss"), "test_dice": ep.get("test_dice"),
-                     "test_acc1": ep.get("test_acc1"), "train_img_per_s": ep["train_img_per_s"],
+                     "test_acc1": ep.get("test_acc1"), **cross_rows,
+                     "train_img_per_s": ep["train_img_per_s"],
                      "peak_mem_bytes": ep["peak_mem_bytes"], "trained_subtrees": trained,
                      "per_train_step": per["train"][0] if per["train"] else None,
                      "per_validation_forward": per["eval"][0] if per["eval"] else None,
                      "unchanged_trainables": unchanged, "frozen_moved": frozen_moved,
                      "by_kernel": by_kernel}
                 report[name] = r
-                say("variant_training", name=name, arch=arch, depth=depth, imsize=588,
-                    dtype=dtype, batch=batch, **r)
+                say("variant_training", name=name, arch=arch, depth=depth,
+                    imsize=seen.pop("imsize"), dtype=dtype, batch=batch, **r)
                 if by_kernel != paths_expected(path, launched):
                     failures.append(f"{name}: launches by kernel {by_kernel}")
-                want_t, want_e = want(model, True), want(model, False)
-                if r["steps"] != VARIANT_STEPS or r["validation_forwards"] != 2:
+                want_t, want_e = want(model, True, gelu), want(model, False, gelu)
+                if r["steps"] != steps or r["validation_forwards"] != (4 if cross else 2):
                     failures.append(f"{name}: {r['steps']} steps, {r['validation_forwards']} "
                                     "validation forwards")
                 if not ep["train_losses_finite"] or not all(
                         math.isfinite(ep.get(k, float("nan"))) for k in
                         ("test_loss", "test_dice", "test_acc1")):
                     failures.append(f"{name}: losses or metrics not finite: {ep}")
+                if cross and not (cross_rows and all(math.isfinite(v)
+                                                     for v in cross_rows.values())):
+                    failures.append(f"{name}: cross_* metrics {cross_rows}")
                 if any(d != want_t for d in per["train"]):
                     failures.append(f"{name}: launches per train step {per['train']}, "
                                     f"expected {want_t}")
@@ -2952,8 +3519,9 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                 torch.cuda.empty_cache()
             per["eval"].clear()
             reset_counts()
-            ev = train_seg.main(argv(evaluated) + [*next(r[2] for r in runs if r[0] == evaluated),
-                                                   "--evaluate"])
+            _, entry_ev, extra_ev, model_ev = next(r for r in runs if r[0] == evaluated)
+            argv_ev = argv(evaluated, extra_ev)
+            ev = entries[entry_ev].main(argv_ev + ["--evaluate"])
             seen.clear()
         finally:
             train_seg.build_model, train_seg.SyntheticSeg = plain_build, plain_synthetic
@@ -2968,8 +3536,8 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
     if abs(res["evaluate_acc1"] - last) > 1e-3:
         failures.append(f"--evaluate acc1 {res['evaluate_acc1']} against the last "
                         f"validation's {last}")
-    want_ev = next(r[3] for r in runs if r[0] == evaluated)
-    if res["evaluate_launches"] != {k: 2 * v for k, v in want(want_ev, False).items()}:
+    want_ev = want(model_ev, False, "--gelu_approx" in argv_ev)
+    if res["evaluate_launches"] != {k: 2 * v for k, v in want_ev.items()}:
         failures.append(f"--evaluate launches {res['evaluate_launches']}")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3097,17 +3665,14 @@ def fp32_argv() -> list:
             "--batch_size_per_gpu", str(FP32_TRAIN_BATCH)]
 
 
-def fp32_expect(model: str, train: bool) -> dict:
-    return expect(1, 7 if train else 0, PER_FORWARD_FP32)
-
-
 def vitg_argv() -> list:
     return ["--config_file", str(G_CONFIG), "--imsize", "588", "--bf16",
             "--batch_size_per_gpu", str(VARIANT_BATCH)]
 
 
-def vitg_expect(model: str, train: bool) -> dict:
-    """Launches per ViT-g adapter train step (or validation forward)."""
+def vitg_expect(model: str, train: bool, gelu_approx: bool) -> dict:
+    """Launches per ViT-g adapter train step (or validation forward); its
+    SwiGLU blocks run no K5 with either GELU."""
     return expect(1, 7 if train else 0, G_PER_FORWARD)
 
 
@@ -4256,6 +4821,24 @@ def eval_kernel_checks(ff, ln, fq, fm) -> dict:
     return err
 
 
+def entry_kernel_checks(ff, mc, ln, fq, fm, fa) -> dict:
+    """Phases 2f, 3d, 4h and 4i, each element within its bound, with
+    the planted faults and five bit-identical repeats of phases 2-4c, in
+    bf16 and fp32: K3 at the eval scripts' ViT-S/14 walks and vit_tiny's
+    3 heads (`VITS_FLASH_SHAPES`); K1 and K2 at vit_tiny's adapters, D =
+    24, on uniform, model-like and hot-token points (`TINY_MSDA_CASES`); K6,
+    K4 and K5 at C = 384, H = 6 (`VITS_ROW_SHAPES`); K7 at
+    eval_dinov2_setr_cross_ete's (16, 6, 257, 64), no ids, forward and
+    backward (`VITS_K7_CASE`). Returns the largest errors by kernel."""
+    err = {"flash_fwd": check_k3(ff, VITS_FLASH_SHAPES, by_dtype=True),
+           "msda_fwd": check_msda_fwd(mc, TINY_MSDA_CASES, TINY_MSDA_POINTS),
+           "msda_bwd": check_msda_bwd(mc, TINY_MSDA_CASES, TINY_MSDA_POINTS),
+           "rows": check_row_kernels(ln, fq, fm, VITS_ROW_SHAPES, VITS_HEADS),
+           "flash_attn": check_k7(fa, [(VITS_K7_CASE, VITS_K7_SHAPE, None, 0.125)])}
+    torch.cuda.empty_cache()
+    return err
+
+
 # the hand-written kernels by the names torch.profiler records for them
 # (CUPTI's demangled names): K4 is the GEMM's qkv epilogue, K5 its GELU and
 # residual epilogues; K2 is four kernels, of which the point pass and the dV
@@ -4378,6 +4961,8 @@ def main() -> None:
     say("device", name=name, count=torch.cuda.device_count(),
         nvidia_smi=smi[0] if smi else "unavailable", torch=torch.__version__,
         cuda=torch.version.cuda, build_s=build_s, library=lib_path.name)
+    # phase 8zb's raw trees and converters, on the host from now on
+    datasets = start_datasets()
 
     # ---- 2. K3 (forward-only attention) vs its plain version, per element
     # (`check_k3`)
@@ -4448,6 +5033,10 @@ def main() -> None:
     # ---- 2e, 4g. K3, and K6 and K4, at evals_cli's 257 tokens and the
     # depther's 1201 (M14)
     eval_err = eval_kernel_checks(ff, ln, fq, fm)
+
+    # ---- 2f, 3d, 4h, 4i. K3, K1, K2, K6, K4, K5 and K7 at the eval scripts'
+    # ViT-S/14 shapes and vit_tiny's adapters (`entry_kernel_checks`)
+    entry_err = entry_kernel_checks(ff, mc, ln, fq, fm, fa)
 
     # ---- 5. narrow whole model: CPU plain paths vs CUDA kernels, fp32
     model = narrow_model()
@@ -4852,8 +5441,8 @@ def main() -> None:
     # ---- 8g. the SSL checkpoint and resume at full width (`ssl_resume_run`)
     ssl_resume_run(counts, reset_counts, expect_ssl, smi)
 
-    # ---- 8h. the other models and decoders at the paper's width, 8 ViT-L blocks
-    # (`variant_runs`)
+    # ---- 8h. the other models and decoders at the paper's width,
+    # VARIANT_DEPTH ViT-L blocks (`variant_runs`)
     variant_runs(counts, reset_counts, smi)
 
     # ---- 8i. tap_setr_ete's train step, K7 against its plain version
@@ -4896,7 +5485,8 @@ def main() -> None:
     # ---- 8s. train_seg at train.py's own example precision, ViT-L/14 at
     # 588 px, batch 12 (`variant_runs` with FP32_RUNS)
     fp32_run = variant_runs(counts, reset_counts, smi, runs=FP32_RUNS, flags=fp32_argv,
-                            want=fp32_expect, evaluated=FP32_RUNS[0][0], phase="8s",
+                            want=partial(variant_expect, depth=24),
+                            evaluated=FP32_RUNS[0][0], phase="8s",
                             depth=None, batch=FP32_TRAIN_BATCH)
 
     # ---- 8t. train_seg under torchrun at W = 1 over NCCL, saved and resumed
@@ -4923,13 +5513,20 @@ def main() -> None:
     # width on a fabricated tree (`multi_class_run`)
     multi_class_run(counts, reset_counts, smi)
 
+    # ---- 8za-8zc. the eval scripts' entry points at ViT-S/14, three datasets
+    # from their raw release layouts to training, vit_tiny trained
+    entry_run = eval_entry_runs(counts, reset_counts, smi)
+    dataset_runs(counts, reset_counts, smi, datasets)
+    tiny_run = tiny_runs(counts, reset_counts, smi)
+
     # ---- 9. kernel vs plain (and library) time at the main-path shapes
     # (`kernel_times`)
     times, bounds, extra, dev, host = kernel_times(ff, mc, fq, fm, ln, fa)
     say_times(name, smi, times, bounds, extra, dev, host)
     say("variant_geometries", k3_unet_fuse_max_abs_err=fuse_k3_err,
         k7_setr_ete_max_abs_err=ete_k7_err, vitg_and_vit_tiny_max_abs_err=vitg_err,
-        m2f_max_abs_err=m2f_err, eval_max_abs_err=eval_err, device=name,
+        m2f_max_abs_err=m2f_err, eval_max_abs_err=eval_err, entry_max_abs_err=entry_err,
+        device=name,
         nvidia_smi=smi[0] if smi else "unavailable")
 
     def on_path(key, prefix):
@@ -4989,6 +5586,14 @@ def main() -> None:
               "layernorm": ["vitg", "vit_tiny"]}
     k7_keys = {"flash_attn": ["vitg flash_attn student", "vitg flash_attn teacher"],
                "flash_attn_bwd": ["vitg flash_attn_bwd student"]}
+    rows_err = entry_err["rows"]
+    vits_err = {"flash_fwd": entry_err["flash_fwd"], "msda_fwd": entry_err["msda_fwd"],
+                "msda_bwd": entry_err["msda_bwd"],
+                **{k: {"bfloat16": rows_err[k], "float32": rows_err[f"{k} fp32"]}
+                   for k in ("layernorm", "fused_ln_qkv", "fused_ln_mlp")},
+                **{k: {"bfloat16": entry_err["flash_attn"][d],
+                       "float32": entry_err["flash_attn"][f"{d} fp32"]}
+                   for k, d in (("flash_attn", "fwd"), ("flash_attn_bwd", "bwd"))}}
     for row in rows:
         kname = row["name"]
         groups = ({"vitg": k7_keys[kname]} if kname in k7_keys else
@@ -5037,6 +5642,21 @@ def main() -> None:
                                             "tflops_device") if e in extra.get(k, {})}}
             for k in times if k.startswith("eval ") and kname in k.split()}
         row["launches_eval_forward"] = evals_run["runs"]["knn"]["per_forward"][kname]
+        # each timed key of phase 9 at the eval scripts' ViT-S/14 and
+        # vit_tiny's shapes (batch 16, "vits ..." and "vit_tiny adapter ..."
+        # keys), the largest errors of phases 2f-4i by dtype, and the
+        # launches per train step of each run of 8za and 8zc
+        row["vits_shapes"] = {
+            k: {"ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": times[k][2], "device_ms": dev[k][0],
+                **{e: extra[k][e] for e in ("bound_fp32_cuda_cores", "cublas_gemm", "unfused",
+                                            "tflops_device", "l2_tb_per_s")
+                   if e in extra.get(k, {})}}
+            for k in times if k.startswith(("vits ", "vit_tiny adapter ")) and kname in k.split()}
+        row["vits_max_abs_err"] = vits_err[kname]
+        row["launches_vits_step"] = {n: r["per_train_step"][kname]
+                                     for n, r in {**entry_run, **tiny_run}.items()
+                                     if n != "evaluate"}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -5144,7 +5764,39 @@ def evals_only() -> None:
     run = evals_cli_runs(counts, reset_counts, smi)
     knn_scale_run(smi)
     depther_run(counts, reset_counts, smi, run["pth"])
-    say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa, eval_only=True))
+    say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa, only="eval"))
+    print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
+
+
+def entries_only() -> None:
+    """`--entries`: the build, phases 2f, 3d, 4h and 4i (K3, K1, K2, K6, K4,
+    K5 and K7 at the eval scripts' ViT-S/14 shapes and vit_tiny's adapters
+    against their plain versions), 8za-8zc (the six eval_dinov2_* entry
+    points, the three datasets from raw release to training, vit_tiny) and
+    phase 9's "vits ..." and "vit_tiny adapter ..." keys, with the card's
+    name and power limit."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch.ops import _build, flash_attn as fa, flash_fwd as ff, msda_cuda as mc
+    from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.library()
+    say("device", name=name, root=str(ROOT), nvidia_smi=smi[0] if smi else "unavailable",
+        torch=torch.__version__, cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+    counts, reset_counts = launch_counters()
+    datasets = start_datasets()
+    say("entry_kernels", max_abs_err=entry_kernel_checks(ff, mc, ln, fq, fm, fa))
+    eval_entry_runs(counts, reset_counts, smi)
+    dataset_runs(counts, reset_counts, smi, datasets)
+    tiny_runs(counts, reset_counts, smi)
+    say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa, only="entries"))
     print(smi[0] if smi else f"{name}, power limit unavailable", flush=True)
 
 
@@ -5214,13 +5866,17 @@ if __name__ == "__main__":
         data_parallel_only()
     elif sys.argv[1:] == ["--evals"]:
         evals_only()
+    elif sys.argv[1:] == ["--entries"]:
+        entries_only()
+    elif sys.argv[1:] == ["--datasets-child"]:
+        datasets_child()
     elif sys.argv[1:2] == ["--torchrun-child"]:
         torchrun_child(int(sys.argv[2]), sys.argv[3], sys.argv[4:])
     elif sys.argv[1:2] == ["--gloo-child"]:
         gloo_child(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:]:
         fail(f"usage: python3 chip_smoke.py [--times | --gate | --fp32-steps | "
-             f"--data-parallel | --evals], "
+             f"--data-parallel | --evals | --entries], "
              f"got {sys.argv[1:]}")
     else:
         main()

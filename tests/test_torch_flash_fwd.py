@@ -42,6 +42,22 @@ def test_plain_matches_jax_kernel(N):
     np.testing.assert_allclose(n(out), np.asarray(ref)[:, :, :N], atol=ATOL, rtol=0)
 
 
+# the reference eval scripts' ViT-S/14 walks (6 heads): tap_unet_fuse's
+# 0.5× frame of 224 px (65 = 64 + 1 tokens), its 1.5× frame (577) and
+# eval_dinov2_masktrans's 392 px (785 = 6·128 + 17)
+@pytest.mark.parametrize("N", [65, 577, 785])
+def test_plain_matches_jax_kernel_at_vits_walks(N):
+    B, H, Dh = 1, 6, 64
+    q, k, v = _qkv(B, H, N, Dh, seed=N)
+    Np = -(-N // 128) * 128
+    pad = ((0, 0), (0, 0), (0, Np - N), (0, 0))
+    valid = np.broadcast_to((np.arange(Np) < N).astype(np.int32)[None], (B, Np))
+    ref = jax_flash.flash_fwd(*(jnp.asarray(np.pad(a, pad)) for a in (q, k, v)),
+                              jnp.asarray(valid), 0.125)
+    out = ff.flash_fwd_plain(t(q), t(k), t(v), 0.125)
+    np.testing.assert_allclose(n(out), np.asarray(ref)[:, :, :N], atol=ATOL, rtol=0)
+
+
 def test_cpu_tensor_takes_plain_path_without_launch():
     q, k, v = (t(a) for a in _qkv(1, 2, 37, 64, seed=1))
     before = ff.launches

@@ -22,9 +22,10 @@ from torch_parity import n, pallas_interpret, t  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("pallas_interpret")
 
-# tokens, width, heads; the last at ViT-L's width and head count (hidden
-# 4096): the k-loop lengths the bf16 kernels run on the main path
-CASES = [(37, 128, 2), (150, 256, 4), (37, 1024, 16)]
+# tokens, width, heads; ViT-S/14's width and head count (the reference
+# eval scripts', hidden 1536); the last at ViT-L's (hidden 4096): the
+# k-loop lengths the bf16 kernels run on the main path
+CASES = [(37, 128, 2), (150, 256, 4), (65, 384, 6), (37, 1024, 16)]
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 

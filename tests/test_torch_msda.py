@@ -44,6 +44,9 @@ def _inputs(shapes, Lq, B=2, M=2, D=8, P=4, seed=0):
     pytest.param([(8, 8), (4, 4)], 9, 128, "uniform", id="shapes2-9-128"),
     # ViT-g's: 1536 wide, 8 adapter heads
     pytest.param([(8, 8), (4, 4)], 9, 192, "uniform", id="shapes2-9-192"),
+    # vit_tiny's: 192 wide, 8 adapter heads of 24, a 4² grid's queries
+    pytest.param([(8, 8), (4, 4), (2, 2)], 16, 24, "uniform", id="shapes0-16-24"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], 16, 24, "hot token", id="hot-token-d24"),
     pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, "hot token", id="hot-token-3-levels"),
     pytest.param([(6, 5)], 12, 16, "hot token", id="hot-token-1-level"),
     pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, "pixel edges", id="pixel-edges-3-levels"),

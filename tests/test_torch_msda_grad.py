@@ -49,6 +49,9 @@ def _jax_grads(fn, v, loc, aw, g):
     pytest.param([(6, 5)], 12, 16, 0.1, "uniform", id="shapes1-12-16-0.1"),
     # a third of the points outside the levels
     pytest.param([(8, 8), (4, 4)], 9, 32, 0.5, "uniform", id="shapes2-9-32-0.5"),
+    # vit_tiny's adapter head width D = 24
+    pytest.param([(8, 8), (4, 4), (2, 2)], 16, 24, 0.1, "uniform", id="shapes0-16-24-0.1"),
+    pytest.param([(8, 8), (4, 4), (2, 2)], 16, 24, 0.1, "hot token", id="hot-token-d24"),
     pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, 0.1, "hot token", id="hot-token-3-levels"),
     pytest.param([(6, 5)], 12, 16, 0.1, "hot token", id="hot-token-1-level"),
     pytest.param([(8, 8), (4, 4), (2, 2)], 9, 8, 0.1, "pixel edges", id="pixel-edges-3-levels"),

@@ -9,6 +9,7 @@ entry point `train_seg` on the CPU, its refusal without a GPU, the flax
 variable bridge in both directions, and the port's sampler and schedule."""
 
 import json
+import re
 
 import numpy as np
 import pytest
@@ -220,3 +221,100 @@ def test_sampler_and_schedule_match_jax(epoch):
     assert list(mine) == list(ref) and len(mine) == len(ref)
     assert cosine_annealing(0.01, 7)(epoch) == pytest.approx(float(jax_cosine(0.01, 7)(epoch)),
                                                              rel=1e-12)
+
+
+def _seeded_as_written(model, seed, skip=()):
+    """`seeded_init_`'s draw written out tensor by tensor: each drawn anew,
+    scaled and cast to fp32."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "num_batches_tracked" or name.startswith(skip):
+                continue
+            shape = tuple(t.shape)
+            if leaf == "running_var":
+                a = rng.uniform(0.5, 1.5, shape)
+            elif leaf == "weight" and t.dim() >= 2:
+                a = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+            elif leaf == "weight":
+                a = 1.0 + 0.1 * rng.standard_normal(shape)
+            elif leaf in ("cls_token", "pos_embed", "mask_token"):
+                a = 0.02 * rng.standard_normal(shape)
+            else:
+                a = 0.1 * rng.standard_normal(shape)
+            t.copy_(torch.from_numpy(a.astype(np.float32)))
+    return model
+
+
+@pytest.mark.parametrize("skip", [(), ("backbone.",)])
+def test_seeded_init_gives_the_bits_of_each_tensor_drawn_anew(skip):
+    """The draw into one reused buffer, scaled in place, gives the same bits
+    as drawing, scaling and casting each tensor anew (BatchNorm statistics,
+    norm scales, tokens and biases among them), with and without a skipped
+    backbone."""
+    import copy
+    base = AdapterSegmentor(DinoVisionTransformer(**VIT), **HEAD)
+    got = seeded_init_(copy.deepcopy(base), 5, skip=skip).state_dict()
+    want = _seeded_as_written(copy.deepcopy(base), 5, skip=skip).state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+def _to_flax_as_written(state):
+    """`state_dict_to_flax` written out in numpy: each tensor copied, then
+    transposed and laid out contiguously by numpy."""
+    from adaptersis_tpu_torch.train.convert import TRANSPOSED
+    out = {"params": {}, "batch_stats": {}}
+    for name, t in state.items():
+        mod, _, leaf = name.rpartition(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy().copy()
+        tree = "params"
+        if leaf in ("running_mean", "running_var"):
+            tree, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and a.ndim == 2:
+            a, leaf = a.T, "kernel"
+        elif leaf == "weight" and a.ndim == 4 and mod.rpartition(".")[2] in TRANSPOSED:
+            a, leaf = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+        elif leaf == "weight" and a.ndim == 4:
+            a, leaf = a.transpose(2, 3, 1, 0), "kernel"
+        elif leaf == "weight":
+            leaf = "scale"
+        path = re.sub(r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1blocks_\2", mod)
+        out[tree]["/".join(path.split(".") + [leaf]) if mod else leaf] = np.ascontiguousarray(a)
+    return out
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+@pytest.mark.parametrize("model", ["adapter", "tap_masktrans", "tap_setr_ete", "tap_unet"])
+def test_state_dict_to_flax_gives_the_bits_of_numpy_transposes(model):
+    """`state_dict_to_flax`, which transposes and lays out in torch, gives
+    each array the bits, shape and C order of numpy's transposes (the
+    adapter's and the UNet's transposed convolutions among them), and no
+    array shares memory with the live tensor."""
+    from adaptersis_tpu_torch import evaluate
+    args = train_seg.get_args_parser().parse_args(
+        ["--arch", "vit_test", "--patch_size", "14", "--model", model])
+    state = evaluate.build_model(args).state_dict()
+    got = state_dict_to_flax(state)
+    want = _to_flax_as_written(state)
+    for tree in ("params", "batch_stats"):
+        mine, ref = dict(_flat(got[tree])), want[tree]
+        assert set(mine) == set(ref)
+        for k, v in ref.items():
+            assert mine[k].dtype == v.dtype and mine[k].flags.c_contiguous, k
+            np.testing.assert_array_equal(mine[k], v, err_msg=k)
+    for t in state.values():
+        ptr = t.data_ptr()
+        assert all(a.__array_interface__["data"][0] != ptr
+                   for tree in got.values() for _, a in _flat(tree)), "a view"
