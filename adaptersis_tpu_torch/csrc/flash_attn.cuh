@@ -1,8 +1,8 @@
 // Shared pieces of K7, the flash attention with segment ids
 // (flash_attn_fwd.cu, flash_attn_bwd.cu): the mask value, the element
-// conversions of the CUDA-core paths, the bf16 rounding points, and the
-// Hopper paths' tile skipping and work schedule (their tensor maps and
-// launch cache are hopper.cuh's).
+// conversions of the CUDA-core paths, the bf16 rounding points, the codes
+// of the kernels a launch reports, and the Hopper paths' tile skipping and
+// work schedule (their tensor maps and launch cache are hopper.cuh's).
 
 #pragma once
 
@@ -41,7 +41,12 @@ __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
 // The segment of token i of a row (all tokens share segment 0 without ids).
 __device__ __forceinline__ int segment_of(const int* seg, int i) { return seg ? seg[i] : 0; }
 
-// ---- Hopper paths (bf16, Dh = 64) ------------------------------------------
+// The kernel a launch of asis_flash_attn_fwd or asis_flash_attn_bwd ran, as
+// they write it to *kernel: ops/flash_attn.py:KERNELS names them in this
+// order.
+enum AttnKernel { kAttnWgmma = 0, kAttnTf32x3 = 1, kAttnCudaCores = 2 };
+
+// ---- Hopper paths (Dh = 64: bf16, and fp32 as 3×TF32) ----------------------
 //
 // Tile skipping. A (query tile, key tile) pair is walked only if the two
 // tiles' segment-id ranges [min, max] overlap: disjoint ranges share no id,
@@ -89,13 +94,14 @@ __device__ __forceinline__ int next_live(const int* __restrict__ sg, int2 own, i
   return tiles;
 }
 
-// Work schedule. Each consumer warpgroup w of the G = 2·gridDim.x walks its
-// own units (a 64-row tile of one head: unit i is head i / per_head, tile
+// Work schedule. Each of G workers w (a consumer warpgroup of the bf16
+// kernels, G = 2·gridDim.x; a CTA of the fp32 ones, G = gridDim.x) walks its
+// own units (a tile of rows of one head: unit i is head i / per_head, tile
 // i % per_head): at step k unit k·G + (w + k) mod G. Each step covers G
 // consecutive units, so the tiles of a head run together and share the L2,
-// and a warpgroup's tile position within the head changes from step to
-// step, so the heavy tiles (the long segment's) are spread over all
-// warpgroups. Producer and consumer compute the same sequence; it rises
+// and a worker's tile position within the head changes from step to step,
+// so the heavy tiles (the long segment's) are spread over all workers.
+// Producer and consumer compute the same sequence; it rises
 // with k, so the first unit ≥ total ends it.
 __device__ __forceinline__ int unit_at(int w, int k, int G) { return k * G + (w + k) % G; }
 
@@ -104,5 +110,15 @@ __device__ __forceinline__ int unit_at(int w, int k, int G) { return k * G + (w 
 // consumers after their wait (the arrival releases, the wait acquires).
 constexpr int kUniform = 1;  // the tile pair needs no per-element segment mask
 constexpr int kLast = 2;     // the unit's last walked tile
+
+// The fp32 Dh-64 forward (3×TF32 on wgmma, flash_attn_fwd.cu
+// fa_fwd_tf32_kernel), shared by K7 and K3's fp32 path (flash_fwd.cu, which
+// passes no ids and no lse). q, k, v, o: contiguous (BH, N, 64) fp32,
+// 16-byte aligned; seg: (BH / H, N) int32 or null; lse: (BH, N) fp32 or
+// null; walked: null or one int32 that takes the (128, 64) tile pairs
+// walked; scale > 0. Returns cudaGetLastError() (0 = launched).
+int flash_fwd_tf32(const void* q, const void* k, const void* v, const int* seg, void* o,
+                   float* lse, int* walked, int BH, int H, int N, float scale,
+                   cudaStream_t stream);
 
 }  // namespace asis

@@ -33,12 +33,15 @@
 // and dq = ds·k (p.astype(do.dtype), ds.astype(k.dtype)); dp − di uses the
 // unrounded p; the outputs are rounded once to the input dtype.
 //
-// Two paths, as in the forward:
+// Three paths, as in the forward, each reported to the caller:
 //   * bf16 with Dh = 64: wgmma products fed by TMA, tiles whose segments
 //     cannot meet skipped (fa_bwd_wgmma_kernel<true> for dK/dV, <false> for
 //     dQ, below);
-//   * fp32, or Dh of 16 or 32: one thread per key (dK/dV) or query (dQ)
-//     row, fp32 FMAs on the CUDA cores (fa_bwd_dkv_kernel, fa_bwd_dq_kernel).
+//   * fp32 with Dh = 64: 3×TF32 wgmma products, the same tiles skipped
+//     (fa_bwd_tf32_kernel<true>, <false>, below; what bounds them is there);
+//   * Dh of 16 or 32: one thread per key (dK/dV) or query (dQ) row, fp32
+//     FMAs on the CUDA cores over every pair (fa_bwd_dkv_kernel,
+//     fa_bwd_dq_kernel).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -330,16 +333,17 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ head,
   }
 }
 
-// dK/dV: Pᵀ in place of Sᵀ and dSᵀ in place of dPᵀ, once each is in. Rows
+// dK/dV: Pᵀ in place of Sᵀ and dSᵀ in place of dPᵀ, once each is in (a tile
+// of 64 keys × 4n queries: the bf16 kernel's n = 32, the fp32 one's 16). Rows
 // are this thread's keys kr0, kr0 + 8, columns the tile's queries q0 + col;
 // lse2 = lse·log2e and di per column from the stage's slices. kMasked: a
 // straddling tile, or one past N on either side.
-template <bool kMasked>
-__device__ __forceinline__ void p_transposed(float (&st)[32], const float* __restrict__ lse_s,
+template <bool kMasked, int n>
+__device__ __forceinline__ void p_transposed(float (&st)[n], const float* __restrict__ lse_s,
                                              const int* __restrict__ sg, int q0, int kr0,
                                              int kid0, int kid1, int N, int tig, float sl2) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < n / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * j + 2 * tig + e;
@@ -358,11 +362,12 @@ __device__ __forceinline__ void p_transposed(float (&st)[32], const float* __res
   }
 }
 
-__device__ __forceinline__ void ds_transposed(float (&dp)[32], const float (&p)[32],
+template <int n>
+__device__ __forceinline__ void ds_transposed(float (&dp)[n], const float (&p)[n],
                                               const float* __restrict__ di_s, int tig,
                                               float scale) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < n / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const float d = di_s[8 * j + 2 * tig + e];
@@ -374,12 +379,12 @@ __device__ __forceinline__ void ds_transposed(float (&dp)[32], const float (&p)[
 
 // dQ: P in place of S. Rows are this thread's queries r0, r0 + 8 (lse2 per
 // row), columns the tile's keys k0 + col.
-template <bool kMasked>
-__device__ __forceinline__ void p_rows(float (&s)[32], const int* __restrict__ sg, int k0,
+template <bool kMasked, int n>
+__device__ __forceinline__ void p_rows(float (&s)[n], const int* __restrict__ sg, int k0,
                                        int r0, int id0, int id1, float l20, float l21, int N,
                                        int tig, float sl2) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < n / 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float p0 = hw::ex2(fmaf(s[4 * j + e], sl2, -l20));
@@ -614,6 +619,438 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* dout, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- Hopper path: fp32, Dh = 64 (3×TF32) ------------------------------------
+//
+// The same split, at fp32 accuracy: every product 3×TF32 (hopper.cuh: each
+// operand x = hi + lo, three wgmmas per k8 step, lo·hi and hi·lo before
+// hi·hi). What bounds it on the H100: at tap_setr_ete's (16, 16, 1765, 64)
+// the five products are 510.4 GFLOP, 3.09 ms at 3×TF32's 495 / 3 TFLOP/s
+// (7.62 ms for exact fp32 FMAs on the CUDA cores); the two kernels do seven
+// (the dQ kernel recomputes S and dP), 4.33 ms.
+//
+// What shapes the design is that a 32-bit wgmma operand cannot be
+// transposed by the hardware: B (and A from shared memory) must be
+// K-major. Of each kernel's products, the first two take the unit's own
+// tile as A and the walked tile as B in their natural layouts (Sᵀ = K·Qᵀ,
+// dPᵀ = V·dOᵀ; or S = Q·Kᵀ, dP = dO·Vᵀ: Dh is K, contiguous in both); the
+// others take P or dS from registers as A and need the walked tile with
+// its rows along K: dV += Pᵀ·dO needs dOᵀ, dK += dSᵀ·Q needs Qᵀ, dQ += dS·K
+// needs Kᵀ. So the walked tiles come in two layouts each, split once per
+// tile, and shared memory bounds the tiles: the own tiles (hi and lo of two
+// 64 × 64 fp32 tensors) take 64 KB, a dK/dV stage (Q and dO, natural and
+// transposed, hi and lo) 64 KB at 32 rows. One CTA of two warpgroups per SM
+// walks units of 64 own rows (`unit_at`):
+//   * the producer warpgroup (128 threads) reads the unit's own rows from
+//     global memory and splits them into the own buffer (both tensors
+//     K-major, hi and lo) with the count of the unit's walked tiles, then
+//     for every walked tile whose segment range meets the unit's
+//     (`next_live`, each warp reducing the ids' ranges) splits its rows into
+//     the next of two ring stages: natural (rows × Dh, 128-byte swizzled
+//     halves, the wgmma layout) and transposed (Dh rows × the tile's rows in
+//     `kperm` order, the order in which an accumulator's columns become A
+//     fragments), with the tile's lse and di slices (dK/dV) and a header
+//     (the tile, whether it needs the per-element mask). A tile's rows are
+//     loaded a tile ahead, every load of a tile in flight at once (one at a
+//     time, an L2 round trip each, the producer took twice as long). It
+//     counts the walked tiles (`walked`);
+//   * the consumer warpgroup runs, per walked tile, the two first products
+//     (24 wgmma m64n32k8 each, both operands from shared memory, issued
+//     together), P in place of Sᵀ once it is in, dS in place of dP, both
+//     split in registers (P and dS stay fp32, unrounded), and the second
+//     products (12 register-A wgmma m64n64k8 each) into fresh accumulators,
+//     added to dK, dV (or dQ) in fp32 round-to-nearest: the tensor cores
+//     truncate at every accumulation, and a sum over the up to 1765 rows of
+//     a head in one accumulator would drift by about the whole fp32 bound.
+// What holds it back: the producer's split of the walked tiles (taking it
+// out saves about a quarter of the time at tap_setr_ete's shape), and the
+// first products, bound by shared memory (each m64n32k8 reads 3 KB of
+// operands for 16 K multiply-adds). Two consumer warpgroups taking the
+// walked tiles in turn were slower: at 192 registers apiece each has to
+// run its second products one after the other, and the shared memory they
+// need for combining their sums leaves no room for a deeper ring. Each
+// output element is summed by one thread in a fixed order: no atomics, the
+// bits the same from call to call.
+
+constexpr int kFOwn = 64;                        // rows per unit
+constexpr int kFWalk = 32;                       // rows per walked tile
+constexpr int kFStages = 2;                      // walked-tile ring depth
+constexpr int kFOwnHalf = kFOwn * 128;           // 8 KB: 64 rows of 32 fp32
+constexpr int kFOwnTile = 4 * kFOwnHalf;         // one own tensor, hi and lo
+constexpr int kFWalkHalf = kFWalk * 128;         // 4 KB: 32 rows of 32 fp32
+constexpr int kFNat = 4 * kFWalkHalf;            // one walked tensor, hi and lo
+constexpr int kFTHalf = 64 * 128;                // its transpose: 64 rows of 32 fp32
+constexpr int kFTrans = 2 * kFTHalf;             // hi and lo
+constexpr int kFThreads = 2 * 128;               // producer and consumer warpgroups
+
+template <bool kDkv>
+__host__ __device__ constexpr int fstage_bytes() {
+  return 2 * kFNat + (kDkv ? 2 : 1) * kFTrans;
+}
+
+struct FCtl {
+  uint64_t own_full, own_empty, full[kFStages], empty[kFStages];
+  int unit_tiles, tile[kFStages], flags[kFStages];
+  float lse[kFStages][kFWalk], di[kFStages][kFWalk];  // dK/dV: the walked queries'
+};
+
+template <bool kDkv>
+__host__ __device__ constexpr int fsmem_bytes() {
+  return 2 * kFOwnTile + kFStages * fstage_bytes<kDkv>() + static_cast<int>(sizeof(FCtl)) + 1024;
+}
+
+// Rows r0 .. r0 + rows − 1 of one head (rows ≥ N as zeros), as the 128
+// producer threads x hold them: 16-byte chunk i / rows of row i % rows for
+// i = x, x + 128, ...; every load in flight at once.
+template <int rows>
+__device__ __forceinline__ void load_rows(const float* __restrict__ head, int r0, int N, int x,
+                                          float4 (&a)[rows / 8]) {
+#pragma unroll
+  for (int it = 0; it < rows / 8; ++it) {
+    const int i = x + 128 * it, r = i % rows, c = i / rows;
+    a[it] = r0 + r < N ? __ldg(reinterpret_cast<const float4*>(head + (size_t)(r0 + r) * 64) + c)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Those rows split x = hi + lo into `nat` (two 32-column halves of rows ×
+// 128 bytes, 128-byte swizzled: hi, then lo at + 2·half) and, with kTrans,
+// into `trans` (64 rows of Dh × the rows in `kperm` order, one 128-byte
+// swizzled atom wide: hi, then lo at + kFTHalf). A warp holds 32
+// consecutive rows of one 16-byte chunk: its natural writes hit 8 distinct
+// chunks per 8 lanes, its transposed ones 32 distinct banks of one row.
+template <int rows, bool kTrans>
+__device__ __forceinline__ void store_split(const float4 (&a)[rows / 8], uint8_t* nat,
+                                            uint8_t* trans, int x) {
+  constexpr int kHalf = rows * 128;
+#pragma unroll
+  for (int it = 0; it < rows / 8; ++it) {
+    const int i = x + 128 * it, r = i % rows, c = i / rows;
+    const float v[4] = {a[it].x, a[it].y, a[it].z, a[it].w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hw::tf32_split(v[e], h[e], l[e]);
+    const int at = (c >> 3) * kHalf + hw::sw128_at(r, 4 * (c & 7));
+    *reinterpret_cast<uint4*>(nat + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(nat + 2 * kHalf + at) = make_uint4(l[0], l[1], l[2], l[3]);
+    if (kTrans) {
+      const int col = hw::kperm(r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tat = hw::sw128_at(4 * c + e, col);
+        *reinterpret_cast<uint32_t*>(trans + tat) = h[e];
+        *reinterpret_cast<uint32_t*>(trans + kFTHalf + tat) = l[e];
+      }
+    }
+  }
+}
+
+// d = own · walkedᵀ over Dh (64 × 32): `own` the unit's tile (hi halves at
+// own, own + kFOwnHalf; lo at + 2·kFOwnHalf), `walk` the stage's natural
+// tile (the same at kFWalkHalf). 24 wgmma, the small products first.
+__device__ __forceinline__ void first_product(float (&d)[16], uint32_t own, uint32_t walk) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t ah = hw::sw128_desc(own + (kk >> 2) * kFOwnHalf) + 2 * (kk & 3);
+    const uint64_t bh = hw::sw128_desc(walk + (kk >> 2) * kFWalkHalf) + 2 * (kk & 3);
+    hw::wgmma_m64n32k8_tf32_ss(d, ah + ((2 * kFOwnHalf) >> 4), bh, kk > 0);
+    hw::wgmma_m64n32k8_tf32_ss(d, ah, bh + ((2 * kFWalkHalf) >> 4), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    hw::wgmma_m64n32k8_tf32_ss(d, hw::sw128_desc(own + (kk >> 2) * kFOwnHalf) + 2 * (kk & 3),
+                               hw::sw128_desc(walk + (kk >> 2) * kFWalkHalf) + 2 * (kk & 3), 1);
+}
+
+// part = a · walked over the walked tile's 32 rows (64 × 64), a fresh
+// accumulator: a split in registers (`split_frags`: hi in a's registers,
+// lo), `trans` the stage's transposed tile. 12 wgmma, the small products
+// first, committed as one group; `add_part` waits for it and adds it to
+// the running sum. The register operands are pinned as `issue_rs` pins
+// them.
+__device__ __forceinline__ void second_product(float (&part)[32], float (&a)[16],
+                                               uint32_t (&lo)[4][4], uint32_t trans) {
+  hw::fence_regs(part);
+  hw::fence_regs(a);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) hw::fence_regs(lo[j]);
+  hw::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t hi[4];
+    hw::hi_frag(a, j, hi);
+    const uint64_t th = hw::sw128_desc(trans) + 2 * j;
+    hw::wgmma_m64n64k8_tf32_rs(part, lo[j], th, j > 0);
+    hw::wgmma_m64n64k8_tf32_rs(part, hi, th + (kFTHalf >> 4), 1);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t hi[4];
+    hw::hi_frag(a, j, hi);
+    hw::wgmma_m64n64k8_tf32_rs(part, hi, hw::sw128_desc(trans) + 2 * j, 1);
+  }
+  hw::wgmma_commit();
+  hw::fence_regs(part);
+  hw::fence_regs(a);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) hw::fence_regs(lo[j]);
+}
+
+__device__ __forceinline__ void add_part(float (&acc)[32], float (&part)[32], float (&a)[16],
+                                         uint32_t (&lo)[4][4]) {
+  hw::wgmma_wait<0>();
+  hw::fence_regs(part);
+  hw::fence_regs(a);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) hw::fence_regs(lo[j]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += part[i];
+}
+
+// Store an accumulator's rows r0, r0 + 8 (as `store_rows`) in fp32.
+__device__ __forceinline__ void store_rows_f32(float* __restrict__ head, const float (&c)[32],
+                                               int r0, int N, int tig) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = i * 8 + tig * 2;
+    if (r0 < N)
+      *reinterpret_cast<float2*>(head + static_cast<size_t>(r0) * 64 + col) =
+          make_float2(c[4 * i], c[4 * i + 1]);
+    if (r0 + 8 < N)
+      *reinterpret_cast<float2*>(head + static_cast<size_t>(r0 + 8) * 64 + col) =
+          make_float2(c[4 * i + 2], c[4 * i + 3]);
+  }
+}
+
+// kDkv: the dK/dV kernel (own = K, V; walked = Q, dO with their lse and di;
+// outputs dK, dV). Else the dQ kernel (own = Q, dO; walked = K, V; output
+// dQ; lse and di read per row).
+template <bool kDkv>
+__global__ void __launch_bounds__(kFThreads, 1)
+fa_bwd_tf32_kernel(const float* __restrict__ own0, const float* __restrict__ own1,
+                   const float* __restrict__ walk0, const float* __restrict__ walk1,
+                   const float* __restrict__ lse, const float* __restrict__ di,
+                   const int* __restrict__ seg, float* __restrict__ out0,
+                   float* __restrict__ out1, int* __restrict__ walked, int BH, int H, int N,
+                   float scale) {
+  constexpr int kStage = fstage_bytes<kDkv>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - raw_addr);
+  const uint32_t stages = base + 2 * kFOwnTile;  // + s·kStage
+  FCtl& c = *reinterpret_cast<FCtl*>(base_ptr + 2 * kFOwnTile + kFStages * kStage);
+
+  const int units = (N + kFOwn - 1) / kFOwn;    // per head
+  const int wtiles = (N + kFWalk - 1) / kFWalk;  // walked tiles per head
+  const int total = BH * units;
+  const int G = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(hw::smem_u32(&c.own_full), 4);
+    hw::mbar_init(hw::smem_u32(&c.own_empty), 4);
+    for (int s = 0; s < kFStages; ++s) {
+      hw::mbar_init(hw::smem_u32(&c.full[s]), 4);
+      hw::mbar_init(hw::smem_u32(&c.empty[s]), 4);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // unit k of this CTA: unit_at(blockIdx.x, k, G), the own buffer's phase
+  // k & 1; the kv-th walked tile (over all units): stage and consumer kv %
+  // 2, phase (kv / 2) & 1. All three warpgroups walk the same sequence.
+  if (warp < 4) {
+    // ---- producer warpgroup: every thread loads and splits
+    // The unit's own rows, loaded before the wait for the own buffer; a
+    // walked tile's rows, lse and di slices (dK/dV): the tile being stored
+    // (0) and the next (1), loaded a tile ahead, so that each tile's loads
+    // have a tile's time to arrive.
+    const int x = threadIdx.x;
+    float4 oa[kFOwn / 8], ob[kFOwn / 8], wa[2][kFWalk / 8], wb[2][kFWalk / 8];
+    float wl[2] = {0.f, 0.f}, wd[2] = {0.f, 0.f};
+    int kv = 0;
+    for (int k = 0;; ++k) {
+      const int u = unit_at(blockIdx.x, k, G);
+      if (u >= total) break;
+      const int bh = u / units, u0 = (u % units) * kFOwn;
+      const size_t head = static_cast<size_t>(bh) * N * 64;
+      const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+      const int2 own = sg ? asis::id_range(sg, u0, kFOwn, N, lane) : make_int2(0, 0);
+      const auto load_walked = [&](int j, float4 (&a)[kFWalk / 8], float4 (&b)[kFWalk / 8],
+                                   float& l, float& d) {
+        const int t0 = j * kFWalk;
+        load_rows<kFWalk>(walk0 + head, t0, N, x, a);
+        load_rows<kFWalk>(walk1 + head, t0, N, x, b);
+        const bool in = kDkv && x < kFWalk && t0 + x < N;
+        l = in ? lse[static_cast<size_t>(bh) * N + t0 + x] : 0.f;
+        d = in ? di[static_cast<size_t>(bh) * N + t0 + x] : 0.f;
+      };
+      bool uni, uni1, uni2;
+      int n = 0;  // the unit's walked tiles
+      for (int j = next_live(sg, own, 0, wtiles, kFWalk, N, lane, uni); j < wtiles;
+           j = next_live(sg, own, j + 1, wtiles, kFWalk, N, lane, uni))
+        ++n;
+      // every unit walks at least its own rows' tile
+      int j = next_live(sg, own, 0, wtiles, kFWalk, N, lane, uni);
+      int j1 = next_live(sg, own, j + 1, wtiles, kFWalk, N, lane, uni1);
+      load_rows<kFOwn>(own0 + head, u0, N, x, oa);
+      load_rows<kFOwn>(own1 + head, u0, N, x, ob);
+      load_walked(j, wa[0], wb[0], wl[0], wd[0]);
+      if (j1 < wtiles) load_walked(j1, wa[1], wb[1], wl[1], wd[1]);
+      // the previous unit's last products are in (passes at once for k = 0)
+      hw::mbar_wait(hw::smem_u32(&c.own_empty), (k & 1) ^ 1);
+      store_split<kFOwn, false>(oa, base_ptr, nullptr, x);
+      store_split<kFOwn, false>(ob, base_ptr + kFOwnTile, nullptr, x);
+      if (x == 0) c.unit_tiles = n;
+      hw::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.own_full));
+      while (j < wtiles) {
+        const int j2 = j1 < wtiles ? next_live(sg, own, j1 + 1, wtiles, kFWalk, N, lane, uni2)
+                                   : wtiles;
+        const int s = kv % kFStages;
+        // the stage's previous tile has been read (passes at once in round 0)
+        hw::mbar_wait(hw::smem_u32(&c.empty[s]), ((kv / kFStages) & 1) ^ 1);
+        uint8_t* st = base_ptr + 2 * kFOwnTile + s * kStage;
+        store_split<kFWalk, true>(wa[0], st, st + 2 * kFNat, x);
+        store_split<kFWalk, kDkv>(wb[0], st + kFNat, st + 2 * kFNat + kFTrans, x);
+        if (kDkv && x < kFWalk) {
+          c.lse[s][x] = wl[0];
+          c.di[s][x] = wd[0];
+        }
+        if (x == 0) {
+          c.tile[s] = j;
+          c.flags[s] = uni ? kUniform : 0;
+        }
+        hw::fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.full[s]));
+#pragma unroll
+        for (int i = 0; i < kFWalk / 8; ++i) {
+          wa[0][i] = wa[1][i];
+          wb[0][i] = wb[1][i];
+        }
+        wl[0] = wl[1];
+        wd[0] = wd[1];
+        if (j2 < wtiles) load_walked(j2, wa[1], wb[1], wl[1], wd[1]);
+        ++kv;
+        j = j1;
+        j1 = j2;
+        uni = uni1;
+        uni1 = uni2;
+      }
+    }
+    if (walked != nullptr && x == 0) atomicAdd(walked, kv);
+    return;
+  }
+
+  // ---- consumer warpgroup
+  const int tig = lane & 3, row = (warp & 3) * 16 + (lane >> 2);  // and row + 8
+  const float sl2 = scale * kLog2e;
+  float acc0[32], acc1[32], part0[32], part1[32], sc[16], dp[16];
+  uint32_t lo0[4][4], lo1[4][4];
+
+  int kv = 0;
+  for (int k = 0;; ++k) {
+    const int u = unit_at(blockIdx.x, k, G);
+    if (u >= total) break;
+    const int bh = u / units, u0 = (u % units) * kFOwn;
+    const int r0 = u0 + row;  // this thread's own rows r0, r0 + 8
+    const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+    const int id0 = sg && r0 < N ? __ldg(sg + r0) : 0;
+    const int id1 = sg && r0 + 8 < N ? __ldg(sg + r0 + 8) : 0;
+    // dQ: the own rows' lse (log2 domain) and di; rows ≥ N are not stored
+    const size_t at = static_cast<size_t>(bh) * N;
+    const float l20 = !kDkv && r0 < N ? lse[at + r0] * kLog2e : 0.f;
+    const float l21 = !kDkv && r0 + 8 < N ? lse[at + r0 + 8] * kLog2e : 0.f;
+    const float di0 = !kDkv && r0 < N ? di[at + r0] : 0.f;
+    const float di1 = !kDkv && r0 + 8 < N ? di[at + r0 + 8] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
+    hw::mbar_wait(hw::smem_u32(&c.own_full), k & 1);
+    const int n = c.unit_tiles;
+
+    for (const int end = kv + n; kv < end; ++kv) {
+      const int s = kv % kFStages;
+      hw::mbar_wait(hw::smem_u32(&c.full[s]), (kv / kFStages) & 1);
+      const int t0 = c.tile[s] * kFWalk;
+      const bool masked = !(c.flags[s] & kUniform) || t0 + kFWalk > N || u0 + kFOwn > N;
+      const uint32_t st = stages + s * kStage;
+      // dK/dV: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ; dQ: S = Q·Kᵀ, dP = dO·Vᵀ
+      hw::fence_regs(sc);
+      hw::fence_regs(dp);
+      hw::wgmma_fence();
+      first_product(sc, base, st);
+      hw::wgmma_commit();
+      first_product(dp, base + kFOwnTile, st + kFNat);
+      hw::wgmma_commit();
+      hw::wgmma_wait<1>();
+      hw::fence_regs(sc);
+      if (kDkv) {
+        if (masked) {
+          p_transposed<true>(sc, c.lse[s], sg, t0, r0, id0, id1, N, tig, sl2);
+        } else {
+          p_transposed<false>(sc, c.lse[s], sg, t0, r0, id0, id1, N, tig, sl2);
+        }
+      } else if (masked) {
+        p_rows<true>(sc, sg, t0, r0, id0, id1, l20, l21, N, tig, sl2);
+      } else {
+        p_rows<false>(sc, sg, t0, r0, id0, id1, l20, l21, N, tig, sl2);
+      }
+      hw::wgmma_wait<0>();
+      hw::fence_regs(dp);
+      if (kDkv) {
+        ds_transposed(dp, sc, c.di[s], tig, scale);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) dp[i] = (dp[i] - ((i & 2) ? di1 : di0)) * sc[i] * scale;
+      }
+      // dK/dV: dV += Pᵀ·dO (dOᵀ after Qᵀ), issued before dS is split, and
+      // dK += dSᵀ·Q (Qᵀ at st + 2·kFNat); dQ: dQ += dS·K (Kᵀ at st + 2·kFNat)
+      if (kDkv) {
+        hw::split_frags(sc, lo0);  // P_hi in S's registers
+        second_product(part1, sc, lo0, st + 2 * kFNat + kFTrans);
+      }
+      hw::split_frags(dp, lo1);  // dS_hi in dP's registers
+      second_product(part0, dp, lo1, st + 2 * kFNat);
+      if (kDkv) add_part(acc1, part1, sc, lo0);
+      add_part(acc0, part0, dp, lo1);
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.empty[s]));
+    }
+    // the unit's last products are in: the producer may refill the own tiles
+    __syncwarp();
+    if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.own_empty));
+    store_rows_f32(out0 + at * 64, acc0, r0, N, tig);
+    if (kDkv) store_rows_f32(out1 + at * 64, acc1, r0, N, tig);
+  }
+}
+
+int launch_tf32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                const float* di, const int* seg, void* dq, void* dk, void* dv, int* walked,
+                int BH, int H, int N, float scale, cudaStream_t stream) {
+  static hw::LaunchCache dkv_cache, dq_cache;
+  int sms = 0;
+  cudaError_t err =
+      hw::prepare(dkv_cache, fa_bwd_tf32_kernel<true>, fsmem_bytes<true>(), &sms);
+  if (err == cudaSuccess)
+    err = hw::prepare(dq_cache, fa_bwd_tf32_kernel<false>, fsmem_bytes<false>(), &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k);
+  const float *fv = static_cast<const float*>(v), *fdo = static_cast<const float*>(dout);
+  const int grid = std::min(BH * ((N + kFOwn - 1) / kFOwn), sms);
+  fa_bwd_tf32_kernel<true><<<grid, kFThreads, fsmem_bytes<true>(), stream>>>(
+      fk, fv, fq, fdo, lse, di, seg, static_cast<float*>(dk), static_cast<float*>(dv), walked,
+      BH, H, N, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fa_bwd_tf32_kernel<false><<<grid, kFThreads, fsmem_bytes<false>(), stream>>>(
+      fq, fdo, fk, fv, lse, di, seg, static_cast<float*>(dq), nullptr,
+      walked ? walked + 1 : nullptr, BH, H, N, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int kDh>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* di, const int* seg, void* dq, void* dk, void* dv, int BH, int H, int N,
@@ -638,7 +1075,6 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
   switch (Dh) {
     case 16: return launch<T, 16>(q, k, v, dout, lse, di, seg, dq, dk, dv, BH, H, N, scale, s);
     case 32: return launch<T, 32>(q, k, v, dout, lse, di, seg, dq, dk, dv, BH, H, N, scale, s);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, di, seg, dq, dk, dv, BH, H, N, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -651,21 +1087,28 @@ extern "C" {
 // bfloat16, else float32), Dh one of 16, 32, 64; lse (the forward's, natural
 // log) and di = Σ o·do: (B·H, N) float32; seg: contiguous (B, N) int32
 // segment ids, or null for one segment; walked: null, or two int32 to which
-// the bf16 Dh-64 kernels add the (64, 64) tile pairs they walked, the dK/dV
-// kernel's first, counted by the producer warps as the forward's (the
-// CUDA-core paths walk every pair and leave them as they are). Launches the
-// dK/dV kernel, then the dQ kernel, on `stream`; returns the first
-// cudaGetLastError() that is not 0.
+// the Dh-64 kernels add the tile pairs they walked, (64, 64) in bf16 and
+// (64 own rows, 32 walked) in fp32, the dK/dV kernel's first, counted by
+// the warps that stream them as the forward's (the CUDA-core paths, Dh 16
+// and 32, walk every pair and leave them as they are). Launches the dK/dV
+// kernel, then the dQ kernel, on `stream`, writes the AttnKernel they ran
+// to *kernel (flash_attn.cuh); returns the first cudaGetLastError() that is
+// not 0.
 int asis_flash_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* di, const int* seg, void* dq, void* dk,
                         void* dv, int* walked, int B, int H, int N, int Dh, float scale,
-                        int is_bf16, void* stream) {
+                        int is_bf16, int* kernel, void* stream) {
   const int BH = B * H;
   if (B <= 0 || H <= 0 || N <= 0 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && Dh == 64)
-    return launch_wgmma(q, k, v, dout, lse, di, seg, dq, dk, dv, walked, BH, H, N, scale,
-                       s);
+  if (Dh == 64) {
+    *kernel = is_bf16 ? asis::kAttnWgmma : asis::kAttnTf32x3;
+    return is_bf16 ? launch_wgmma(q, k, v, dout, lse, di, seg, dq, dk, dv, walked, BH, H, N,
+                                  scale, s)
+                   : launch_tf32(q, k, v, dout, lse, di, seg, dq, dk, dv, walked, BH, H, N,
+                                 scale, s);
+  }
+  *kernel = asis::kAttnCudaCores;
   return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, dout, lse, di, seg, dq, dk, dv, BH, H, N, Dh,
                                            scale, s)
                  : dispatch<float>(q, k, v, dout, lse, di, seg, dq, dk, dv, BH, H, N, Dh, scale,
@@ -673,4 +1116,3 @@ int asis_flash_attn_bwd(const void* q, const void* k, const void* v, const void*
 }
 
 }  // extern "C"
-

@@ -34,12 +34,17 @@
 // by at most a bf16 rounding of each p, which chip_smoke.py's bound allows.
 // No padding to 128: the ragged tail (N = 457, 257) is masked in the kernel.
 //
-// Two paths:
-//   * bf16 with Dh = 64 (every SSL call): wgmma products fed by TMA, tiles
-//     whose segments cannot meet skipped (fa_fwd_wgmma_kernel, below);
-//   * fp32, or Dh of 16 or 32 (the parity checks and the narrow models):
-//     one thread per query row, fp32 FMAs on the CUDA cores
-//     (fa_fwd_kernel), p rounded to bf16 for bf16 inputs.
+// Three paths, each reported to the caller (flash_attn.cuh AttnKernel):
+//   * bf16 with Dh = 64 (the bf16 SSL step): wgmma products fed by TMA,
+//     tiles whose segments cannot meet skipped (fa_fwd_wgmma_kernel, below);
+//   * fp32 with Dh = 64 (tap_setr_ete's fp32 train step, the ViT-S
+//     setr_cross_ete eval script, pretrain without --bf16): the same design
+//     at fp32 accuracy by 3×TF32 on wgmma, the same tiles skipped
+//     (fa_fwd_tf32_kernel, below; what bounds it is there), which K3's
+//     fp32 path (flash_fwd.cu) launches too, with one segment and no lse;
+//   * Dh of 16 or 32 (the narrow models of the tests): one thread per query
+//     row, fp32 FMAs on the CUDA cores over every tile (fa_fwd_kernel), p
+//     rounded to bf16 for bf16 inputs.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -198,18 +203,19 @@ struct FwdCtl {
 };
 constexpr int kSmemBytes = 2 * kRegion + 2 * static_cast<int>(sizeof(FwdCtl)) + 1024;
 
-// This thread's share of a 64 × 128 score tile: rows r0 (registers 4j,
-// 4j + 1) and r0 + 8 (4j + 2, 4j + 3) at keys k0 + 8j + 2·tig (+1).
+// This thread's share of a 64 × 2n score tile (n = 64: the bf16 kernel's
+// 128 keys; n = 32: the fp32 kernel's 64): rows r0 (registers 4j, 4j + 1)
+// and r0 + 8 (4j + 2, 4j + 3) at keys k0 + 8j + 2·tig (+1).
 
 // A uniform tile (no segment mask; keys ≥ N masked when kTail): the new
 // running maxima n0, n1 (log2 domain), S → P in place, P's row sums.
-template <bool kTail>
-__device__ __forceinline__ void softmax_uniform(float (&sc)[64], int k0, int N, int tig,
+template <bool kTail, int n>
+__device__ __forceinline__ void softmax_uniform(float (&sc)[n], int k0, int N, int tig,
                                                 float sl2, float m0, float m1, float& n0,
                                                 float& n1, float& ln0, float& ln1) {
   float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < n / 4; ++j) {
     float* s = sc + 4 * j;
     if (kTail) {
       const int key = k0 + 8 * j + 2 * tig;
@@ -229,7 +235,7 @@ __device__ __forceinline__ void softmax_uniform(float (&sc)[64], int k0, int N, 
   n1 = fmaxf(m1, mx1 * sl2);
   ln0 = ln1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < n / 4; ++j) {
     float* s = sc + 4 * j;
     // exp2(−inf) = 0 for the masked tail
     s[0] = hw::ex2(fmaf(s[0], sl2, -n0));
@@ -242,13 +248,14 @@ __device__ __forceinline__ void softmax_uniform(float (&sc)[64], int k0, int N, 
 }
 
 // A tile straddling a segment boundary: each pair compares its ids.
-__device__ __forceinline__ void softmax_ids(float (&sc)[64], const int* __restrict__ sg, int k0,
+template <int n>
+__device__ __forceinline__ void softmax_ids(float (&sc)[n], const int* __restrict__ sg, int k0,
                                             int N, int tig, float sl2, int id0, int id1,
                                             float m0, float m1, float& n0, float& n1, float& ln0,
                                             float& ln1) {
   float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < n / 4; ++j) {
     float* s = sc + 4 * j;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -269,7 +276,7 @@ __device__ __forceinline__ void softmax_ids(float (&sc)[64], const int* __restri
   n1 = fmaxf(m1, mx1);
   ln0 = ln1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < n / 4; ++j) {
     float* s = sc + 4 * j;
     s[0] = hw::ex2(s[0] - n0);
     s[1] = hw::ex2(s[1] - n0);
@@ -282,13 +289,14 @@ __device__ __forceinline__ void softmax_ids(float (&sc)[64], const int* __restri
 
 // One tile's softmax: S becomes P, m the new running maxima, O's correction
 // factors a = exp2(m_old − m_new) (0 on the first tile), l the row sums.
-__device__ __forceinline__ void softmax(float (&sc)[64], int flags, const int* sg, int k0, int N,
+template <int n>
+__device__ __forceinline__ void softmax(float (&sc)[n], int flags, const int* sg, int k0, int N,
                                         int tig, float sl2, int id0, int id1, float& m0,
                                         float& m1, float& a0, float& a1, float& l0, float& l1) {
   float n0, n1, ln0, ln1;
   if (!(flags & kUniform)) {
     softmax_ids(sc, sg, k0, N, tig, sl2, id0, id1, m0, m1, n0, n1, ln0, ln1);
-  } else if (k0 + kKeys > N) {
+  } else if (k0 + 2 * n > N) {
     softmax_uniform<true>(sc, k0, N, tig, sl2, m0, m1, n0, n1, ln0, ln1);
   } else {
     softmax_uniform<false>(sc, k0, N, tig, sl2, m0, m1, n0, n1, ln0, ln1);
@@ -544,6 +552,338 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* seg, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- Hopper path: fp32, Dh = 64 (3×TF32) ------------------------------------
+//
+// The one fp32 Dh-64 forward of the port: K7's, and K3's fp32 path
+// (flash_fwd.cu) launches it with one segment and no lse (`flash_fwd_tf32`,
+// flash_attn.cuh). fp32 attention needs fp32 accuracy: one TF32 pass keeps
+// 11 bits of q and k, a score error of ≈ 3e-4 relative, ten times what
+// fp32 attention allows. So both products run 3×TF32 (hopper.cuh): each
+// operand split x = hi + lo, three wgmmas per k8 step (lo·hi, hi·lo,
+// hi·hi), at 3 × the operations on the TF32 rate: at tap_setr_ete's
+// (16, 16, 1765, 64) 1.237 ms against 3.05 ms for exact fp32 FMAs on the
+// CUDA cores. One persistent CTA of three warpgroups per SM walks units of
+// 128 query rows of one head (`unit_at`), and per unit only the 64-key
+// tiles whose segment range meets the unit's (`next_live`, the whole of
+// warp 0 reducing the ids' ranges; without ids every tile):
+//   * warp 0 (lane 0) issues the TMA loads: the unit's Q (128 rows, as two
+//     halves of 32 fp32, each 128-byte swizzled) into the Q buffer, and each
+//     walked key tile's raw K and V into a ring of kTStages raw stages, with
+//     a header naming the tile, whether it needs the per-element mask and
+//     whether it is the unit's last; it counts the walked tiles (`walked`);
+//   * warps 1-3 split each raw stage into a split stage: K_hi and K_lo in
+//     K's own layout (K-major for S = Q·Kᵀ), and Vᵀ_hi, Vᵀ_lo (keys
+//     contiguous: K-major for O += P·V; 32-bit wgmma operands cannot be
+//     transposed by the hardware) (hopper.cuh `split_kv_stage`), and copy
+//     its header over;
+//   * two consumer warpgroups of 64 query rows take their Q fragments from
+//     the buffer once per unit, split in registers (64 registers, held for
+//     the whole unit), and release it; per walked tile they run S (24
+//     register-A wgmma m64n64k8), the bf16 path's softmax in the log2 domain
+//     (ids compared per pair on a straddling tile, kMaskValue for a pair of
+//     different segments, keys ≥ N at −inf), split P in registers
+//     (unrounded: p stays fp32 to 2⁻²²) and run the tile's P·V (24 more).
+// The tensor cores truncate (round toward zero) at every accumulation into
+// an fp32 accumulator, so a long chain of wgmmas drifts one way: O summed
+// over a 1765-token walk in one accumulator is ≈ 670 such steps, with 4–6 ×
+// the error of the same products summed in round-to-nearest. So each
+// tile's P·V starts a fresh accumulator and is added as O = O·a + P·V by
+// one rounded FMA (which also applies the max correction a), and in each
+// product the small terms (lo·hi, hi·lo) go first, while the accumulator is
+// small, and hi·hi last. P's accumulator layout gives a thread keys 2t and
+// 2t + 1 of each 8-key step, where the tf32 A fragment wants keys t and
+// t + 4: the fragment takes them as logical keys t and t + 4 (hopper.cuh
+// `split_frags`), and the split writes Vᵀ's keys in the same order. The
+// consumer warpgroups are not paired by barriers: each waits for its own
+// products, and the other's fill the tensor cores meanwhile. The epilogue
+// stores O / l and, where asked, lse = (m + log2 l)·ln 2 for rows < N.
+// Shared memory: Q 32 KB, two raw stages of 32 KB, two split stages of
+// 64 KB. Numerics as the bf16 path: the scale after q·kᵀ, p unrounded.
+
+constexpr int kTRows = 128;                        // query rows per unit
+constexpr int kTKeys = 64;                         // keys per tile
+constexpr int kTStages = 2;                        // raw and split ring depth
+constexpr int kTQBytes = kTRows * 64 * 4;          // 32 KB: two 16 KB halves
+constexpr int kTHalf = kTKeys * 128;               // 8 KB: 64 rows of 32 fp32
+constexpr int kTRawBytes = 4 * kTHalf;             // K, V raw: two halves each
+constexpr int kTSplitBytes = 8 * kTHalf;           // K_hi, K_lo, Vᵀ_hi, Vᵀ_lo
+constexpr int kTRawOffset = kTQBytes;
+constexpr int kTSplitOffset = kTRawOffset + kTStages * kTRawBytes;
+constexpr int kTCtlOffset = kTSplitOffset + kTStages * kTSplitBytes;
+constexpr int kSplitWarps = 3;
+constexpr int kConsumerWarps = 8;
+
+struct TfCtl {
+  uint64_t q_full, q_empty, raw_full[kTStages], raw_empty[kTStages], split_full[kTStages],
+      split_empty[kTStages];
+  int raw_tile[kTStages], raw_flags[kTStages], tile[kTStages], flags[kTStages];
+};
+constexpr int kTSmemBytes = kTCtlOffset + static_cast<int>(sizeof(TfCtl)) + 1024;
+
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, const int* __restrict__ seg,
+                   float* __restrict__ o, float* __restrict__ lse, int* __restrict__ walked,
+                   int BH, int H, int N, float sl2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - raw_addr);
+  TfCtl& c = *reinterpret_cast<TfCtl*>(base_ptr + kTCtlOffset);
+
+  const int units = (N + kTRows - 1) / kTRows;  // per head
+  const int total = BH * units;
+  const int tiles = (N + kTKeys - 1) / kTKeys;  // key tiles per head
+  const int G = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(hw::smem_u32(&c.q_full), 1);
+    hw::mbar_init(hw::smem_u32(&c.q_empty), kConsumerWarps);
+    for (int s = 0; s < kTStages; ++s) {
+      hw::mbar_init(hw::smem_u32(&c.raw_full[s]), 1);
+      hw::mbar_init(hw::smem_u32(&c.raw_empty[s]), kSplitWarps);
+      hw::mbar_init(hw::smem_u32(&c.split_full[s]), kSplitWarps);
+      hw::mbar_init(hw::smem_u32(&c.split_empty[s]), kConsumerWarps);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // unit k of this CTA: unit_at(blockIdx.x, k, G); its Q phase k & 1. The
+  // kv-th walked tile uses stage kv % kTStages of both rings (phase
+  // (kv / kTStages) & 1). All three roles walk the same sequence.
+  if (warp < 4) {
+    hw::regs_dealloc<56>();
+    if (warp == 0) {
+      int kv = 0;
+      for (int k = 0;; ++k) {
+        const int u = unit_at(blockIdx.x, k, G);
+        if (u >= total) break;
+        const int bh = u / units, q0 = (u % units) * kTRows;
+        const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+        const int2 own = sg ? asis::id_range(sg, q0, kTRows, N, lane) : make_int2(0, 0);
+        if (lane == 0) {
+          // the previous unit's Q is in the consumers' registers
+          hw::mbar_wait(hw::smem_u32(&c.q_empty), (k & 1) ^ 1);
+          hw::mbar_expect_tx(hw::smem_u32(&c.q_full), kTQBytes);
+          hw::tma_load_3d(base, &qmap, hw::smem_u32(&c.q_full), 0, q0, bh);
+          hw::tma_load_3d(base + kTQBytes / 2, &qmap, hw::smem_u32(&c.q_full), 32, q0, bh);
+        }
+        bool uni, uni_next;
+        int j = next_live(sg, own, 0, tiles, kTKeys, N, lane, uni);
+        while (j < tiles) {
+          const int nxt = next_live(sg, own, j + 1, tiles, kTKeys, N, lane, uni_next);
+          if (lane == 0) {
+            const int s = kv % kTStages;
+            const uint32_t full = hw::smem_u32(&c.raw_full[s]);
+            // the stage's previous tile is split (passes at once in round 0)
+            hw::mbar_wait(hw::smem_u32(&c.raw_empty[s]), ((kv / kTStages) & 1) ^ 1);
+            c.raw_tile[s] = j;
+            c.raw_flags[s] = (uni ? kUniform : 0) | (nxt >= tiles ? kLast : 0);
+            const uint32_t st = base + kTRawOffset + s * kTRawBytes;
+            hw::mbar_expect_tx(full, kTRawBytes);
+            hw::tma_load_3d(st, &kmap, full, 0, j * kTKeys, bh);
+            hw::tma_load_3d(st + kTHalf, &kmap, full, 32, j * kTKeys, bh);
+            hw::tma_load_3d(st + 2 * kTHalf, &vmap, full, 0, j * kTKeys, bh);
+            hw::tma_load_3d(st + 3 * kTHalf, &vmap, full, 32, j * kTKeys, bh);
+          }
+          __syncwarp();
+          ++kv;
+          j = nxt;
+          uni = uni_next;
+        }
+      }
+      if (walked != nullptr && lane == 0) atomicAdd(walked, kv);
+    } else {
+      const int x = threadIdx.x - 32;
+      int kv = 0;
+      for (int k = 0; unit_at(blockIdx.x, k, G) < total; ++k) {
+        for (bool last = false; !last; ++kv) {
+          const int s = kv % kTStages, ph = (kv / kTStages) & 1;
+          hw::mbar_wait(hw::smem_u32(&c.raw_full[s]), ph);
+          const int tile = c.raw_tile[s], flags = c.raw_flags[s];
+          last = flags & kLast;
+          hw::mbar_wait(hw::smem_u32(&c.split_empty[s]), ph ^ 1);  // passes at once in round 0
+          hw::split_kv_stage<32 * kSplitWarps>(base_ptr + kTRawOffset + s * kTRawBytes,
+                                               base_ptr + kTSplitOffset + s * kTSplitBytes, x);
+          hw::fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) {
+            if (warp == 1) {
+              c.tile[s] = tile;
+              c.flags[s] = flags;
+            }
+            hw::mbar_arrive(hw::smem_u32(&c.raw_empty[s]));
+            hw::mbar_arrive(hw::smem_u32(&c.split_full[s]));
+          }
+        }
+      }
+    }
+  } else {
+    hw::regs_alloc<224>();
+    const int wg = (warp >> 2) - 1, tig = lane & 3;
+    const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // and row + 8
+    uint32_t qhi[8][4], qlo[8][4], plo[8][4];
+    float acc[32], pv[32], sc[32];
+
+    int kv = 0;
+    for (int k = 0;; ++k) {
+      const int u = unit_at(blockIdx.x, k, G);
+      if (u >= total) break;
+      const int bh = u / units, r0 = (u % units) * kTRows + row;
+      const int* sg = seg ? seg + static_cast<size_t>(bh / H) * N : nullptr;
+      // rows ≥ N are not stored: any id will do
+      const int id0 = sg && r0 < N ? __ldg(sg + r0) : 0;
+      const int id1 = sg && r0 + 8 < N ? __ldg(sg + r0 + 8) : 0;
+      // Q's fragments: rows row, row + 8, dims 8kk + tig (+ 4) in half kk / 4
+      hw::mbar_wait(hw::smem_u32(&c.q_full), k & 1);
+      {
+        const int sw = row & 7;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const float* h0 = reinterpret_cast<const float*>(
+              base_ptr + (kk >> 2) * (kTQBytes / 2) + row * 128);
+          const float* h1 = h0 + 8 * 32;  // row + 8
+          const int c0 = (((2 * kk) & 7) ^ sw) * 4 + tig, c1 = (((2 * kk + 1) & 7) ^ sw) * 4 + tig;
+          hw::tf32_split(h0[c0], qhi[kk][0], qlo[kk][0]);
+          hw::tf32_split(h1[c0], qhi[kk][1], qlo[kk][1]);
+          hw::tf32_split(h0[c1], qhi[kk][2], qlo[kk][2]);
+          hw::tf32_split(h1[c1], qhi[kk][3], qlo[kk][3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.q_empty));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max (log2 domain)
+      float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
+      for (bool last = false; !last; ++kv) {
+        const int s = kv % kTStages;
+        hw::mbar_wait(hw::smem_u32(&c.split_full[s]), (kv / kTStages) & 1);
+        const int flags = c.flags[s], k0 = c.tile[s] * kTKeys;
+        last = flags & kLast;
+        const uint32_t st = base + kTSplitOffset + s * kTSplitBytes;
+        // S = Q·Kᵀ: K_hi at st, K_lo at st + 2·kTHalf, each two dim halves;
+        // the small products first, while S is small
+        hw::fence_regs(sc);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          hw::fence_regs(qhi[kk]);
+          hw::fence_regs(qlo[kk]);
+        }
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint64_t dk = hw::sw128_desc(st + (kk >> 2) * kTHalf) + 2 * (kk & 3);
+          const uint64_t dl = dk + ((2 * kTHalf) >> 4);
+          hw::wgmma_m64n64k8_tf32_rs(sc, qlo[kk], dk, kk > 0);
+          hw::wgmma_m64n64k8_tf32_rs(sc, qhi[kk], dl, 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          hw::wgmma_m64n64k8_tf32_rs(sc, qhi[kk], hw::sw128_desc(st + (kk >> 2) * kTHalf) +
+                                                      2 * (kk & 3), 1);
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(sc);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          hw::fence_regs(qhi[kk]);
+          hw::fence_regs(qlo[kk]);
+        }
+        float a0, a1;
+        softmax(sc, flags, sg, k0, N, tig, sl2, id0, id1, m0, m1, a0, a1, l0, l1);
+        hw::split_frags(sc, plo);  // P_hi in S's registers
+        // this tile's P·V into pv (Vᵀ_hi at st + 4·kTHalf, Vᵀ_lo at
+        // st + 6·kTHalf, each two key halves), the small products first
+        hw::fence_regs(pv);
+        hw::fence_regs(sc);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) hw::fence_regs(plo[kk]);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t phi[4];
+          hw::hi_frag(sc, kk, phi);
+          const uint64_t dv = hw::sw128_desc(st + (4 + (kk >> 2)) * kTHalf) + 2 * (kk & 3);
+          hw::wgmma_m64n64k8_tf32_rs(pv, plo[kk], dv, kk > 0);
+          hw::wgmma_m64n64k8_tf32_rs(pv, phi, dv + ((2 * kTHalf) >> 4), 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          uint32_t phi[4];
+          hw::hi_frag(sc, kk, phi);
+          hw::wgmma_m64n64k8_tf32_rs(
+              pv, phi, hw::sw128_desc(st + (4 + (kk >> 2)) * kTHalf) + 2 * (kk & 3), 1);
+        }
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_regs(pv);
+        hw::fence_regs(sc);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) hw::fence_regs(plo[kk]);
+        __syncwarp();
+        if (lane == 0) hw::mbar_arrive(hw::smem_u32(&c.split_empty[s]));
+        // O = O·a + P·V in fp32 round-to-nearest
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[4 * i] = fmaf(acc[4 * i], a0, pv[4 * i]);
+          acc[4 * i + 1] = fmaf(acc[4 * i + 1], a0, pv[4 * i + 1]);
+          acc[4 * i + 2] = fmaf(acc[4 * i + 2], a1, pv[4 * i + 2]);
+          acc[4 * i + 3] = fmaf(acc[4 * i + 3], a1, pv[4 * i + 3]);
+        }
+      }
+
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      // each row's own key is in its segment: m is a real score and l ≥ 1
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      float* head = o + static_cast<size_t>(bh) * N * 64;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = i * 8 + tig * 2;
+        if (r0 < N)
+          *reinterpret_cast<float2*>(head + static_cast<size_t>(r0) * 64 + col) =
+              make_float2(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+        if (r0 + 8 < N)
+          *reinterpret_cast<float2*>(head + static_cast<size_t>(r0 + 8) * 64 + col) =
+              make_float2(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+      }
+      if (tig == 0 && lse != nullptr) {
+        if (r0 < N) lse[static_cast<size_t>(bh) * N + r0] = (m0 + log2f(l0)) * kLn2;
+        if (r0 + 8 < N) lse[static_cast<size_t>(bh) * N + r0 + 8] = (m1 + log2f(l1)) * kLn2;
+      }
+    }
+  }
+}
+
+}  // namespace
+
+int asis::flash_fwd_tf32(const void* q, const void* k, const void* v, const int* seg, void* o,
+                          float* lse, int* walked, int BH, int H, int N, float scale,
+                          cudaStream_t stream) {
+  static hw::LaunchCache cache;
+  int sms = 0;
+  const cudaError_t err = hw::prepare(cache, fa_fwd_tf32_kernel, kTSmemBytes, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!(scale > 0.f)) return static_cast<int>(cudaErrorInvalidValue);  // the max of raw scores
+  CUtensorMap qm, km, vm;
+  if (!hw::head_map_f32(&qm, q, BH, N, kTRows) || !hw::head_map_f32(&km, k, BH, N, kTKeys) ||
+      !hw::head_map_f32(&vm, v, BH, N, kTKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int total = BH * ((N + kTRows - 1) / kTRows);
+  fa_fwd_tf32_kernel<<<std::min(total, sms), kThreads, kTSmemBytes, stream>>>(
+      qm, km, vm, seg, static_cast<float*>(o), lse, walked, BH, H, N, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
 template <typename T, int kDh>
 int launch(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse,
            int BH, int H, int N, float scale, cudaStream_t stream) {
@@ -560,7 +900,6 @@ int dispatch(const void* q, const void* k, const void* v, const int* seg, void* 
   switch (Dh) {
     case 16: return launch<T, 16>(q, k, v, seg, o, lse, BH, H, N, scale, s);
     case 32: return launch<T, 32>(q, k, v, seg, o, lse, BH, H, N, scale, s);
-    case 64: return launch<T, 64>(q, k, v, seg, o, lse, BH, H, N, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -570,24 +909,29 @@ int dispatch(const void* q, const void* k, const void* v, const int* seg, void* 
 extern "C" {
 
 // q, k, v, o: contiguous (B·H, N, Dh) in one dtype (is_bf16: bfloat16, else
-// float32), Dh one of 16, 32, 64; seg: contiguous (B, N) int32 segment ids,
-// or null for one segment; lse: (B·H, N) float32, natural log. walked:
-// null, or one int32 to which the bf16 Dh-64 kernel adds the (64-query,
-// 128-key) tile pairs it walked, counted by the producer warps that stream
-// them (the consumers follow their headers; counting there costs spills).
-// The CUDA-core paths walk every pair and leave it as it is. Launches on
-// `stream` and returns cudaGetLastError() (0 = launched).
+// float32), Dh one of 16, 32, 64 (64: the tensor-core kernels, which take
+// scale > 0); seg: contiguous (B, N) int32 segment ids, or null for one
+// segment; lse: (B·H, N) float32, natural log. walked: null, or one int32
+// to which the Dh-64 kernels add the tile pairs they walked, (64 queries,
+// 128 keys) in bf16 and (128, 64) in fp32, counted by the warp that streams
+// them (the consumers follow their headers; counting there costs spills);
+// the CUDA-core paths (Dh 16, 32) walk every pair and leave it as it is.
+// Launches on `stream`, writes the AttnKernel it launched to *kernel
+// (flash_attn.cuh) and returns cudaGetLastError() (0 = launched).
 int asis_flash_attn_fwd(const void* q, const void* k, const void* v, const int* seg, void* o,
                         float* lse, int* walked, int B, int H, int N, int Dh, float scale,
-                        int is_bf16, void* stream) {
+                        int is_bf16, int* kernel, void* stream) {
   const int BH = B * H;
   if (B <= 0 || H <= 0 || N <= 0 || BH > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && Dh == 64)
-    return launch_wgmma(q, k, v, seg, o, lse, walked, BH, H, N, scale, s);
+  if (Dh == 64) {
+    *kernel = is_bf16 ? asis::kAttnWgmma : asis::kAttnTf32x3;
+    return is_bf16 ? launch_wgmma(q, k, v, seg, o, lse, walked, BH, H, N, scale, s)
+                   : asis::flash_fwd_tf32(q, k, v, seg, o, lse, walked, BH, H, N, scale, s);
+  }
+  *kernel = asis::kAttnCudaCores;
   return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, seg, o, lse, BH, H, N, Dh, scale, s)
                  : dispatch<float>(q, k, v, seg, o, lse, BH, H, N, Dh, scale, s);
 }
 
 }  // extern "C"
-

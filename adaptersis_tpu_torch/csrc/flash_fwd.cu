@@ -30,7 +30,10 @@
 //     (flash_fwd_wgmma_kernel, below);
 //   * fp32 with Dh = 64 (the fp32 walks, train_seg's and segment_m2f's
 //     default precision): the same products at fp32 accuracy by 3×TF32 on
-//     wgmma (flash_fwd_tf32_kernel, below; what bounds it is there);
+//     wgmma. That kernel is K7's fp32 forward (flash_attn_fwd.cu
+//     fa_fwd_tf32_kernel, where its design and what bounds it are), launched
+//     with one segment and no lse: without ids it walks every tile and
+//     computes what this kernel's contract asks;
 //   * Dh of 16 or 32, which no walk of the port runs: fp32 FMAs on the
 //     CUDA cores (flash_fwd_kernel).
 // Both keep the TRUE running row max of an online softmax, in fp32. The TPU
@@ -55,6 +58,7 @@
 
 #include <algorithm>
 
+#include "flash_attn.cuh"
 #include "hopper.cuh"
 #include "bf16.cuh"
 
@@ -488,335 +492,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- Hopper path: fp32, Dh = 64 (3×TF32) -------------------------------------
-//
-// The fp32 walks (train_seg's and segment_m2f's default precision) need
-// fp32 accuracy: one TF32 pass keeps 11 bits of q and k, a score error of
-// ≈ 3e-4 relative, ten times what fp32 attention allows. So both products
-// run 3×TF32 (hopper.cuh): each operand split x = hi + lo into two tf32
-// values, three wgmmas per k8 step (lo·hi, hi·lo, hi·hi), at 3 × the
-// operations on the tensor cores' TF32 rate
-// (1.24 ms at batch 16 against 3.05 ms for exact fp32 FMAs on the CUDA
-// cores). One persistent CTA of three warpgroups per SM walks the (b·h,
-// 128-query) tiles, 64-key tiles at a time:
-//   * warp 0 (its first thread) issues the TMA loads: each tile's Q (128
-//     rows, as two halves of 32 fp32, 128 bytes, each 128-byte swizzled)
-//     into one Q buffer, and each key tile's raw K and V (64 × 64 fp32) into
-//     a ring of kTStages raw stages;
-//   * warps 1-3 split each raw stage into a split stage: K_hi and K_lo in
-//     K's own layout (K-major for S = Q·Kᵀ: an elementwise split of 16-byte
-//     chunks), and Vᵀ_hi, Vᵀ_lo (64 rows of Dh, keys contiguous: K-major for
-//     O += P·V; 32-bit wgmma operands cannot be transposed by the hardware),
-//     then fence the writes for the async proxy and hand the stage over;
-//   * two consumer warpgroups of 64 query rows load their Q fragments from
-//     the Q buffer once per query tile, split them in registers (64
-//     registers, held for the whole walk) and release the buffer; per key
-//     tile they run S (24 register-A wgmma m64n64k8), the online softmax of
-//     the bf16 path in fp32 (true running max, ragged keys ≥ N masked in the
-//     last tile), split P in registers (P_hi in S's registers, P_lo beside
-//     them) and run the tile's P·V (24 more) into an accumulator of its own.
-// The tensor cores truncate (round toward zero) at every accumulation into
-// an fp32 accumulator, so a long chain of wgmmas drifts one way: O summed
-// over a 1765-token walk in one accumulator is ≈ 670 such steps, with 4–6 ×
-// the error of the same products summed in round-to-nearest (PERF.md §6).
-// So each tile's P·V starts a fresh accumulator and is added as O = O·a +
-// P·V by one rounded FMA (which also applies the max correction a), and in
-// each product the small terms (lo·hi, hi·lo) go first, while the
-// accumulator is small, and hi·hi last.
-// P's accumulator layout gives a thread keys 2t and 2t + 1 of each 8-key
-// step, where the tf32 A fragment wants keys t and t + 4: so the fragment
-// takes them as logical keys t and t + 4, and the split writes Vᵀ's keys in
-// the same order (key p of a step at column p/2 + 4·(p mod 2)); the sum
-// over a step's keys is the same. The consumer warpgroups are not paired
-// by barriers: each waits for its own products, and the other's products
-// fill the tensor cores meanwhile. Shared memory: Q 32 KB, two raw stages
-// of 32 KB, two split stages of 64 KB.
-
-constexpr int kTKeys = 64;                         // keys per tile
-constexpr int kTStages = 2;                        // raw and split ring depth
-constexpr int kTQBytes = kRows * kHead * 4;        // 32 KB: two 16 KB halves
-constexpr int kTHalf = kTKeys * 128;               // 8 KB: 64 rows of 32 fp32
-constexpr int kTRawBytes = 4 * kTHalf;             // K, V raw: two halves each
-constexpr int kTSplitBytes = 8 * kTHalf;           // K_hi, K_lo, Vᵀ_hi, Vᵀ_lo
-constexpr int kTRawOffset = kTQBytes;
-constexpr int kTSplitOffset = kTRawOffset + kTStages * kTRawBytes;
-constexpr int kTBarOffset = kTSplitOffset + kTStages * kTSplitBytes;
-constexpr int kTSmemBytes = kTBarOffset + 8 * (2 + 4 * kTStages) + 1024;
-constexpr int kSplitWarps = 3;
-
-// Raw stage s → split stage s, by the 96 threads x of warps 1-3: 16-byte
-// chunks of K split in place of layout; V's chunk (key, d..d+3) to column
-// key' of rows d..d+3 of Vᵀ, key' the fragment order above. A warp takes 32
-// consecutive keys of one d-chunk: its V reads hit 8 distinct swizzled
-// chunks per 8 lanes, its Vᵀ writes 32 distinct banks of one row.
-__device__ __forceinline__ void split_stage(const uint8_t* raw, uint8_t* split, int x) {
-  for (int i = x; i < 1024; i += 32 * kSplitWarps) {
-    const float4 a = *reinterpret_cast<const float4*>(raw + 16 * i);
-    uint32_t h[4], l[4];
-    hw::tf32_split(a.x, h[0], l[0]);
-    hw::tf32_split(a.y, h[1], l[1]);
-    hw::tf32_split(a.z, h[2], l[2]);
-    hw::tf32_split(a.w, h[3], l[3]);
-    *reinterpret_cast<uint4*>(split + 16 * i) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(split + 2 * kTHalf + 16 * i) = make_uint4(l[0], l[1], l[2], l[3]);
-  }
-  const uint8_t* vraw = raw + 2 * kTHalf;
-  uint8_t* vt_hi = split + 4 * kTHalf;
-  uint8_t* vt_lo = split + 6 * kTHalf;
-  for (int i = x; i < 1024; i += 32 * kSplitWarps) {
-    const int key = i & 63, c = i >> 6;  // d = 4c .. 4c + 3, in half c / 8
-    const float4 a = *reinterpret_cast<const float4*>(
-        vraw + (c >> 3) * kTHalf + key * 128 + (((c & 7) ^ (key & 7)) << 4));
-    const int kb = key >> 5, p = key & 7;
-    const int col = (key & 31 & ~7) + (p >> 1) + 4 * (p & 1);
-    const float v[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 4 * c + e;
-      const int at = kb * kTHalf + d * 128 + ((((col >> 2) ^ (d & 7))) << 4) + 4 * (col & 3);
-      uint32_t hi, lo;
-      hw::tf32_split(v[e], hi, lo);
-      *reinterpret_cast<uint32_t*>(vt_hi + at) = hi;
-      *reinterpret_cast<uint32_t*>(vt_lo + at) = lo;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
-                      const __grid_constant__ CUtensorMap kmap,
-                      const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int BH,
-                      int N, float scale_log2) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw_addr = hw::smem_u32(smem_raw);
-  const uint32_t base = (raw_addr + 1023u) & ~1023u;
-  uint8_t* const base_ptr = smem_raw + (base - raw_addr);
-  const uint32_t q_full = base + kTBarOffset;
-  const uint32_t q_empty = q_full + 8;
-  const uint32_t raw_full = q_empty + 8;               // + 8·stage
-  const uint32_t raw_empty = raw_full + 8 * kTStages;  // + 8·stage
-  const uint32_t split_full = raw_empty + 8 * kTStages;
-  const uint32_t split_empty = split_full + 8 * kTStages;
-
-  const int qblocks = (N + kRows - 1) / kRows;
-  const int total = BH * qblocks;
-  const int tiles = (N + kTKeys - 1) / kTKeys;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  if (threadIdx.x == 0) {
-    hw::mbar_init(q_full, 1);
-    hw::mbar_init(q_empty, kConsumerWarps);
-    for (int s = 0; s < kTStages; ++s) {
-      hw::mbar_init(raw_full + 8 * s, 1);
-      hw::mbar_init(raw_empty + 8 * s, kSplitWarps);
-      hw::mbar_init(split_full + 8 * s, kSplitWarps);
-      hw::mbar_init(split_empty + 8 * s, kConsumerWarps);
-    }
-    hw::mbar_init_fence();
-  }
-  __syncthreads();
-
-  // Query tiles are dealt to the CTAs in turn; t counts this CTA's tiles and
-  // kv the key tiles it has walked (stage kv % kTStages of both rings,
-  // phase (kv / kTStages) & 1). All three roles walk the same sequence.
-  if (warp < 4) {
-    hw::regs_dealloc<56>();
-    if (warp == 0) {
-      if (lane == 0) {
-        int kv = 0;
-        for (int tile = blockIdx.x, t = 0; tile < total; tile += gridDim.x, ++t) {
-          const int bh = tile / qblocks, q0 = (tile % qblocks) * kRows;
-          hw::mbar_wait(q_empty, (t & 1) ^ 1);  // the previous tile's Q is in registers
-          hw::mbar_expect_tx(q_full, kTQBytes);
-          hw::tma_load_3d(base, &qmap, q_full, 0, q0, bh);
-          hw::tma_load_3d(base + kTQBytes / 2, &qmap, q_full, 32, q0, bh);
-          for (int j = 0; j < tiles; ++j, ++kv) {
-            const int s = kv % kTStages;
-            hw::mbar_wait(raw_empty + 8 * s, ((kv / kTStages) & 1) ^ 1);
-            const uint32_t st = base + kTRawOffset + s * kTRawBytes;
-            hw::mbar_expect_tx(raw_full + 8 * s, kTRawBytes);
-            hw::tma_load_3d(st, &kmap, raw_full + 8 * s, 0, j * kTKeys, bh);
-            hw::tma_load_3d(st + kTHalf, &kmap, raw_full + 8 * s, 32, j * kTKeys, bh);
-            hw::tma_load_3d(st + 2 * kTHalf, &vmap, raw_full + 8 * s, 0, j * kTKeys, bh);
-            hw::tma_load_3d(st + 3 * kTHalf, &vmap, raw_full + 8 * s, 32, j * kTKeys, bh);
-          }
-        }
-      }
-    } else {
-      const int x = threadIdx.x - 32;
-      int kv = 0;
-      for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
-        for (int j = 0; j < tiles; ++j, ++kv) {
-          const int s = kv % kTStages, ph = (kv / kTStages) & 1;
-          hw::mbar_wait(raw_full + 8 * s, ph);
-          hw::mbar_wait(split_empty + 8 * s, ph ^ 1);  // passes at once in round 0
-          split_stage(base_ptr + kTRawOffset + s * kTRawBytes,
-                      base_ptr + kTSplitOffset + s * kTSplitBytes, x);
-          hw::fence_proxy_async();
-          __syncwarp();
-          if (lane == 0) {
-            hw::mbar_arrive(raw_empty + 8 * s);
-            hw::mbar_arrive(split_full + 8 * s);
-          }
-        }
-      }
-    }
-  } else {
-    hw::regs_alloc<224>();
-    const int wg = (warp >> 2) - 1, tig = lane & 3;
-    const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // and row + 8
-    uint32_t qhi[8][4], qlo[8][4], plo[8][4];
-    float acc[32], pv[32], sc[32];
-
-    int kv = 0;
-    for (int tile = blockIdx.x, t = 0; tile < total; tile += gridDim.x, ++t) {
-      const int bh = tile / qblocks, r0 = (tile % qblocks) * kRows + row;
-      // Q's fragments: rows row, row + 8, dims 8kk + tig (+ 4) in half kk / 4
-      hw::mbar_wait(q_full, t & 1);
-      {
-        const int sw = row & 7;
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const float* h0 = reinterpret_cast<const float*>(
-              base_ptr + (kk >> 2) * (kTQBytes / 2) + row * 128);
-          const float* h1 = h0 + 8 * 32;  // row + 8
-          const int c0 = (((2 * kk) & 7) ^ sw) * 4 + tig, c1 = (((2 * kk + 1) & 7) ^ sw) * 4 + tig;
-          hw::tf32_split(h0[c0], qhi[kk][0], qlo[kk][0]);
-          hw::tf32_split(h1[c0], qhi[kk][1], qlo[kk][1]);
-          hw::tf32_split(h0[c1], qhi[kk][2], qlo[kk][2]);
-          hw::tf32_split(h1[c1], qhi[kk][3], qlo[kk][3]);
-        }
-      }
-      __syncwarp();
-      if (lane == 0) hw::mbar_arrive(q_empty);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-      float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // running max, rows r0, r0 + 8
-      float l0 = 0.f, l1 = 0.f;                      // this thread's share of the row sums
-      for (int j = 0; j < tiles; ++j, ++kv) {
-        const int s = kv % kTStages;
-        hw::mbar_wait(split_full + 8 * s, (kv / kTStages) & 1);
-        const uint32_t st = base + kTSplitOffset + s * kTSplitBytes;
-        // S = Q·Kᵀ: K_hi at st, K_lo at st + 2·kTHalf, each two dim halves;
-        // the small products first, while S is small
-        hw::fence_regs(sc);
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          hw::fence_regs(qhi[kk]);
-          hw::fence_regs(qlo[kk]);
-        }
-        hw::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint64_t dk = hw::sw128_desc(st + (kk >> 2) * kTHalf) + 2 * (kk & 3);
-          const uint64_t dl = dk + ((2 * kTHalf) >> 4);
-          hw::wgmma_m64n64k8_tf32_rs(sc, qlo[kk], dk, kk > 0);
-          hw::wgmma_m64n64k8_tf32_rs(sc, qhi[kk], dl, 1);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          hw::wgmma_m64n64k8_tf32_rs(sc, qhi[kk], hw::sw128_desc(st + (kk >> 2) * kTHalf) +
-                                                      2 * (kk & 3), 1);
-        hw::wgmma_commit();
-        hw::wgmma_wait<0>();
-        hw::fence_regs(sc);
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          hw::fence_regs(qhi[kk]);
-          hw::fence_regs(qlo[kk]);
-        }
-        float a0, a1;
-        softmax(sc, j * kTKeys, N, tig, scale_log2, m0, m1, a0, a1, l0, l1);
-        // P = hi + lo as A fragments: keys 2t, 2t + 1 of step kk are sc[4kk],
-        // sc[4kk + 1] (row r0) and sc[4kk + 2], sc[4kk + 3] (row r0 + 8),
-        // taken as the fragment's keys t and t + 4; P_hi replaces P in sc
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          uint32_t hi;
-          hw::tf32_split(sc[i], hi, plo[i >> 2][(i & 1) * 2 + ((i >> 1) & 1)]);
-          sc[i] = __uint_as_float(hi);
-        }
-        // this tile's P·V into pv (Vᵀ_hi at st + 4·kTHalf, Vᵀ_lo at
-        // st + 6·kTHalf, each two key halves), the small products first
-        hw::fence_regs(pv);
-        hw::fence_regs(sc);
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) hw::fence_regs(plo[kk]);
-        hw::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t phi[4] = {__float_as_uint(sc[4 * kk]), __float_as_uint(sc[4 * kk + 2]),
-                                   __float_as_uint(sc[4 * kk + 1]),
-                                   __float_as_uint(sc[4 * kk + 3])};
-          const uint64_t dv = hw::sw128_desc(st + (4 + (kk >> 2)) * kTHalf) + 2 * (kk & 3);
-          hw::wgmma_m64n64k8_tf32_rs(pv, plo[kk], dv, kk > 0);
-          hw::wgmma_m64n64k8_tf32_rs(pv, phi, dv + ((2 * kTHalf) >> 4), 1);
-        }
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint32_t phi[4] = {__float_as_uint(sc[4 * kk]), __float_as_uint(sc[4 * kk + 2]),
-                                   __float_as_uint(sc[4 * kk + 1]),
-                                   __float_as_uint(sc[4 * kk + 3])};
-          hw::wgmma_m64n64k8_tf32_rs(
-              pv, phi, hw::sw128_desc(st + (4 + (kk >> 2)) * kTHalf) + 2 * (kk & 3), 1);
-        }
-        hw::wgmma_commit();
-        hw::wgmma_wait<0>();
-        hw::fence_regs(pv);
-        hw::fence_regs(sc);
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) hw::fence_regs(plo[kk]);
-        __syncwarp();
-        if (lane == 0) hw::mbar_arrive(split_empty + 8 * s);
-        // O = O·a + P·V in fp32 round-to-nearest: the tensor cores truncate
-        // at each accumulation, so O never accumulates across tiles there
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[4 * i] = fmaf(acc[4 * i], a0, pv[4 * i]);
-          acc[4 * i + 1] = fmaf(acc[4 * i + 1], a0, pv[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(acc[4 * i + 2], a1, pv[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(acc[4 * i + 3], a1, pv[4 * i + 3]);
-        }
-      }
-
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-      }
-      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-      float* head = o + static_cast<size_t>(bh) * N * kHead;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = i * 8 + tig * 2;
-        if (r0 < N)
-          *reinterpret_cast<float2*>(head + static_cast<size_t>(r0) * kHead + c) =
-              make_float2(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
-        if (r0 + 8 < N)
-          *reinterpret_cast<float2*>(head + static_cast<size_t>(r0 + 8) * kHead + c) =
-              make_float2(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
-      }
-    }
-  }
-}
-
-int launch_tf32(const void* q, const void* k, const void* v, void* o, int BH, int N, float scale,
-                cudaStream_t stream) {
-  static hw::LaunchCache cache;
-  int sms = 0;
-  const cudaError_t err = hw::prepare(cache, flash_fwd_tf32_kernel, kTSmemBytes, &sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!(scale > 0.f)) return static_cast<int>(cudaErrorInvalidValue);  // the max is of raw scores
-  CUtensorMap qm, km, vm;
-  if (!hw::head_map_f32(&qm, q, BH, N, kRows) || !hw::head_map_f32(&km, k, BH, N, kTKeys) ||
-      !hw::head_map_f32(&vm, v, BH, N, kTKeys))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int total = BH * ((N + kRows - 1) / kRows);
-  flash_fwd_tf32_kernel<<<std::min(total, sms), kThreads, kTSmemBytes, stream>>>(
-      qm, km, vm, static_cast<float*>(o), BH, N, scale * 1.4426950408889634f);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int kDh>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int N,
            float scale, cudaStream_t stream) {
@@ -856,8 +531,10 @@ int asis_flash_fwd(const void* q, const void* k, const void* v, void* o, int BH,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dh == kHead) {
     *kernel = is_bf16 ? kWgmmaKernel : kTf32x3Kernel;
+    // fp32: K7's 3×TF32 forward with one segment, no lse and no walk count
     return is_bf16 ? launch_wgmma(q, k, v, o, BH, N, scale, s)
-                   : launch_tf32(q, k, v, o, BH, N, scale, s);
+                   : asis::flash_fwd_tf32(q, k, v, nullptr, o, nullptr, nullptr, BH, 1, N, scale,
+                                          s);
   }
   *kernel = kCudaCoresKernel;
   return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, BH, N, Dh, scale, s)

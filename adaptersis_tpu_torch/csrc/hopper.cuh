@@ -323,6 +323,25 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64×32, fp32) = or += a (64×8 tf32, K-major, shared) · b (32×8 tf32,
+// K-major, shared)ᵀ; d's layout is wgmma_m64n128k16_ss's with 4 column
+// groups. A K-major tf32 A operand takes the same descriptor as B.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float (&d)[16], uint64_t desc_a,
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64×64, fp32) = or += a (64×8 tf32, registers) · b (64×8 tf32, K-major,
 // shared)ᵀ; d's layout is wgmma_m64n128k16_ss's with 8 column groups.
 __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
@@ -344,6 +363,83 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// An fp32 accumulator's 8-column groups as tf32 A fragments over its
+// columns, split x = hi + lo in place: hi's bit patterns replace c, lo goes
+// to lo[j]; `hi_frag` reads group j's hi fragment back. Group j's columns
+// 8j + 2t, 8j + 2t + 1 (t = lane % 4) are taken as the fragment's k = t and
+// t + 4. The B operand that meets them holds its K rows in the same order:
+// row p of each 8-row step at K column p/2 + 4·(p mod 2) (`kperm`). The sum
+// over a step's K is the same.
+template <int n>
+__device__ __forceinline__ void split_frags(float (&c)[n], uint32_t (&lo)[n / 4][4]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) {
+    uint32_t hi;
+    tf32_split(c[i], hi, lo[i >> 2][(i & 1) * 2 + ((i >> 1) & 1)]);
+    c[i] = __uint_as_float(hi);
+  }
+}
+
+template <int n>
+__device__ __forceinline__ void hi_frag(const float (&c)[n], int j, uint32_t (&a)[4]) {
+  a[0] = __float_as_uint(c[4 * j]);
+  a[1] = __float_as_uint(c[4 * j + 2]);
+  a[2] = __float_as_uint(c[4 * j + 1]);
+  a[3] = __float_as_uint(c[4 * j + 3]);
+}
+
+__host__ __device__ constexpr int kperm(int p) { return (p & ~7) + ((p & 7) >> 1) + 4 * (p & 1); }
+
+// Byte offset of element (row, col) in a tile of 128-byte rows (32 fp32)
+// swizzled as TMA's 128-byte mode lays them out: 16-byte chunk col / 4 of
+// row `row` at chunk (col / 4) ^ (row % 8).
+__host__ __device__ constexpr int sw128_at(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ (row & 7))) << 4) + 4 * (col & 3);
+}
+
+// Raw K/V stage → split stage for the fp32 attention forward (K7's
+// fa_fwd_tf32_kernel, which K3's fp32 path launches too), by `threads` threads (x
+// = 0 .. threads − 1). The raw stage holds a tile of 64 keys × 64 as TMA
+// wrote it: K's two 32-column halves (8 KB each, 128-byte swizzled), then
+// V's. The split stage gets K_hi and K_lo in K's own layout (K-major for S
+// = Q·Kᵀ: an elementwise split of 16-byte chunks), then Vᵀ_hi, Vᵀ_lo (64
+// rows of Dh, keys contiguous, in two key halves of 32: K-major for O +=
+// P·V; 32-bit wgmma operands cannot be transposed by the hardware), keys
+// in `kperm` order. A warp takes 32 consecutive keys of one d-chunk: its V
+// reads hit 8 distinct swizzled chunks per 8 lanes, its Vᵀ writes 32
+// distinct banks of one row.
+template <int threads>
+__device__ __forceinline__ void split_kv_stage(const uint8_t* raw, uint8_t* split, int x) {
+  constexpr int kHalf = 64 * 128;
+  for (int i = x; i < 1024; i += threads) {
+    const float4 a = *reinterpret_cast<const float4*>(raw + 16 * i);
+    uint32_t h[4], l[4];
+    tf32_split(a.x, h[0], l[0]);
+    tf32_split(a.y, h[1], l[1]);
+    tf32_split(a.z, h[2], l[2]);
+    tf32_split(a.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(split + 16 * i) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(split + 2 * kHalf + 16 * i) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+  const uint8_t* vraw = raw + 2 * kHalf;
+  uint8_t* vt_hi = split + 4 * kHalf;
+  uint8_t* vt_lo = split + 6 * kHalf;
+  for (int i = x; i < 1024; i += threads) {
+    const int key = i & 63, c = i >> 6;  // d = 4c .. 4c + 3, in half c / 8
+    const float4 a = *reinterpret_cast<const float4*>(
+        vraw + (c >> 3) * kHalf + key * 128 + (((c & 7) ^ (key & 7)) << 4));
+    const int kb = key >> 5, col = kperm(key & 31);
+    const float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = kb * kHalf + sw128_at(4 * c + e, col);
+      uint32_t hi, lo;
+      tf32_split(v[e], hi, lo);
+      *reinterpret_cast<uint32_t*>(vt_hi + at) = hi;
+      *reinterpret_cast<uint32_t*>(vt_lo + at) = lo;
+    }
+  }
+}
 
 // ---- named barriers ----------------------------------------------------
 

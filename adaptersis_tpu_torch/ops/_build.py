@@ -97,9 +97,11 @@ def library() -> ctypes.CDLL:
     lib.asis_flash_fwd.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i,
                                    ctypes.POINTER(i), p]
     lib.asis_flash_fwd.restype = i
-    lib.asis_flash_attn_fwd.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, i, p]
+    lib.asis_flash_attn_fwd.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_float, i,
+                                                  ctypes.POINTER(i), p]
     lib.asis_flash_attn_fwd.restype = i
-    lib.asis_flash_attn_bwd.argtypes = [p] * 11 + [i, i, i, i, ctypes.c_float, i, p]
+    lib.asis_flash_attn_bwd.argtypes = [p] * 11 + [i, i, i, i, ctypes.c_float, i,
+                                                   ctypes.POINTER(i), p]
     lib.asis_flash_attn_bwd.restype = i
     lib.asis_msda_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                   ctypes.POINTER(i), ctypes.POINTER(i), i, p]

@@ -10,8 +10,12 @@ block-diagonal mask), the teacher walks its global crops as one segment.
 `csrc/flash_attn_fwd.cu`, which also writes the row logsumexp, and its
 backward `csrc/flash_attn_bwd.cu` (a dK/dV kernel and a dQ kernel); on a
 CPU tensor both run the plain versions here. The port runs the true lengths:
-no padding to 128, the ragged tail is masked in the kernels. The bf16
-kernels walk only the tile pairs whose segments can meet (`live_tiles`).
+no padding to 128, the ragged tail is masked in the kernels. A head width of
+64 runs on the tensor cores, bf16 in one pass and fp32 in three TF32 passes
+that keep fp32 accuracy (`ops/tf32.py`), and those kernels walk only the
+tile pairs whose segments can meet (`live_tiles`); Dh 16 and 32 run on the
+CUDA cores over every pair. Each launcher reports the kernel it ran
+(`KERNELS`).
 
 The plain versions follow the library kernel's rounding points:
   s  = (q·kᵀ in fp32) × scale, the scale applied after the product, plus
@@ -23,6 +27,7 @@ The plain versions follow the library kernel's rounding points:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,10 +35,23 @@ import torch
 
 from . import _build
 
-# Kernel launches since the last reset; chip_smoke.py reads them. A backward
-# call launches two kernels (dK/dV, then dQ) and counts once.
+# The kernels the launchers report, in the order of their AttnKernel codes
+# (csrc/flash_attn.cuh): "wgmma" (bf16, Dh 64), "tf32x3" (fp32, Dh 64),
+# "cuda_cores" (Dh 16, 32).
+KERNELS = ("wgmma", "tf32x3", "cuda_cores")
+
+# Kernel launches since the last reset, in all and by the kernel the
+# launcher reports; chip_smoke.py reads and zeroes them. A backward call
+# launches two kernels (dK/dV, then dQ) and counts once.
 launches = 0
 bwd_launches = 0
+path_launches = dict.fromkeys(KERNELS, 0)
+bwd_path_launches = dict.fromkeys(KERNELS, 0)
+
+# The tile pairs of the Dh-64 kernels (query rows × key columns): the
+# forward's and the backward's (own rows × walked rows), by dtype.
+FWD_TILES = {torch.bfloat16: (64, 128), torch.float32: (128, 64)}
+BWD_TILES = {torch.bfloat16: (64, 64), torch.float32: (64, 32)}
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
@@ -150,21 +168,23 @@ def flash_attn_fwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
                           walked: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA tensors: (o, lse) as `flash_attn_fwd_plain`.
-    `walked`, a (1,) int32 tensor, takes the number of (64-query, 128-key)
-    tile pairs the bf16 Dh-64 kernel walked, to hold against `live_tiles`;
-    the CUDA-core paths walk every pair and leave it as it is."""
+    `walked`, a (1,) int32 tensor, takes the number of tile pairs a Dh-64
+    kernel walked (`FWD_TILES` of the dtype), to hold against `live_tiles`;
+    the CUDA-core paths (Dh 16, 32) walk every pair and leave it as it is."""
     _check("flash_attn", q, k, v, segment_ids)
     _walked("flash_attn", walked, 1, q.device)
     B, H, N, Dh = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     lib = _build.library()
+    kernel = ctypes.c_int(-1)
     err = _build.launch(q, lib.asis_flash_attn_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         _ptr(segment_ids), o.data_ptr(), lse.data_ptr(), _ptr(walked), B, H, N, Dh,
-                        float(scale), int(q.dtype == torch.bfloat16))
+                        float(scale), int(q.dtype == torch.bfloat16), ctypes.byref(kernel))
     _build.check(lib, err, "flash_attn forward")
     global launches
     launches += 1
+    path_launches[KERNELS[kernel.value]] += 1
     return o, lse
 
 
@@ -176,12 +196,14 @@ def flash_attn_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: 
     """The backward kernels on CUDA tensors: (dq, dk, dv) as
     `flash_attn_bwd_plain`. di = Σ o·do is a plain fp32 reduction, as the
     library computes it outside its kernels. `walked`, a (2,) int32 tensor,
-    takes the number of (64, 64) tile pairs the bf16 Dh-64 dK/dV and dQ
-    kernels walked, as `flash_attn_fwd_kernel`'s."""
+    takes the number of tile pairs the Dh-64 dK/dV and dQ kernels walked
+    (`BWD_TILES` of the dtype), as `flash_attn_fwd_kernel`'s."""
     _check("flash_attn backward", q, k, v, segment_ids)
     _walked("flash_attn backward", walked, 2, q.device)
     B, H, N, Dh = q.shape
     do = do.to(q.dtype).contiguous()
+    if do.data_ptr() % 16:   # the kernels read do in 16-byte vectors, as q, k and v
+        do = do.clone()
     if do.shape != q.shape or lse.shape != (B, H, N) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attn backward: do {tuple(do.shape)}, lse {tuple(lse.shape)} "
                          f"{lse.dtype} do not match q {tuple(q.shape)}")
@@ -191,13 +213,16 @@ def flash_attn_bwd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: 
     di = o.to(torch.float32, copy=True).mul_(do).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library()
+    kernel = ctypes.c_int(-1)
     err = _build.launch(q, lib.asis_flash_attn_bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         do.data_ptr(), lse.contiguous().data_ptr(), di.data_ptr(),
                         _ptr(segment_ids), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        _ptr(walked), B, H, N, Dh, float(scale), int(q.dtype == torch.bfloat16))
+                        _ptr(walked), B, H, N, Dh, float(scale), int(q.dtype == torch.bfloat16),
+                        ctypes.byref(kernel))
     _build.check(lib, err, "flash_attn backward")
     global bwd_launches
     bwd_launches += 1
+    bwd_path_launches[KERNELS[kernel.value]] += 1
     return dq, dk, dv
 
 

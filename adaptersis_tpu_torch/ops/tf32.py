@@ -1,11 +1,11 @@
 """The tf32 arithmetic of the fp32 kernels' products, as plain torch.
 
-The fp32 paths of K3 (`csrc/flash_fwd.cu`) and K4/K5 (`csrc/ln_gemm.cu`)
-run on the tensor cores in TF32, whose products read 10 explicit mantissa
-bits of each operand. To keep fp32 accuracy they split every operand
-x = hi + lo into two tf32 values and sum three products, lo·hi + hi·lo +
-hi·hi, in fp32 (3×TF32); lo·lo and lo's own rounding, ≈ 2⁻²² of a product,
-are dropped.
+The fp32 paths of K3 (`csrc/flash_fwd.cu`), K4/K5 (`csrc/ln_gemm.cu`) and
+K7 (`csrc/flash_attn_{fwd,bwd}.cu`) run on the tensor cores in TF32, whose
+products read 10 explicit mantissa bits of each operand. To keep fp32
+accuracy they split every operand x = hi + lo into two tf32 values and sum
+three products, lo·hi + hi·lo + hi·hi, in fp32 (3×TF32); lo·lo and lo's own
+rounding, ≈ 2⁻²² of a product, are dropped.
 
 `round_tf32` is the card's `cvt.rna.tf32.f32`: round to the nearest tf32
 value, ties away from zero (the low 13 bits of the fp32 pattern cleared
@@ -14,9 +14,10 @@ after adding half of them), NaN kept. `split_tf32` is the kernels' split.
 `passes` 3 (their arithmetic) or 1 (one TF32 pass on rounded operands, what
 a kernel without the split would compute): each product of two tf32 values
 is exact in fp32, so the emulation differs from the kernels only in the
-order of the fp32 sums. The emulated K3, K4 and K5 are what `chip_smoke.py`
-holds the fp32 bounds against (one pass must break them, three must not),
-and `tests/test_torch_tf32_split.py` does the same on the CPU against the
+order of the fp32 sums. The emulated K3, K4, K5 and K7 are what
+`chip_smoke.py` holds the fp32 bounds against (one pass must break them,
+three must not), and `tests/test_torch_tf32_split.py` and
+`tests/test_torch_flash_attn_tf32.py` do the same on the CPU against the
 JAX package's kernels."""
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from .flash_attn import MASK_VALUE
 from .fused_mlp import gelu_tanh
 from .layernorm import ln_rows
 
@@ -81,3 +83,35 @@ def fused_ln_mlp_tf32(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     """K5 in fp32 with TF32 products (`fused_ln_mlp_plain`'s arithmetic)."""
     h = gelu_tanh(matmul_tf32(ln_rows(x, ln_w, ln_b, eps), w1.float().t(), passes) + b1.float())
     return x + gamma.float() * (matmul_tf32(h, w2.float().t(), passes) + b2.float())
+
+
+def _scores_tf32(q, k, scale, segment_ids, passes):
+    s = matmul_tf32(q.float(), k.float().transpose(-1, -2), passes) * scale
+    if segment_ids is None:
+        return s
+    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+    return s + torch.where(same, 0.0, MASK_VALUE)
+
+
+def flash_attn_fwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                        segment_ids=None, passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's forward in fp32 with TF32 products, as the kernel computes it
+    (the scale after q·kᵀ, p unrounded, o = (p·v) / l): (o, lse)."""
+    s = _scores_tf32(q, k, scale, segment_ids, passes)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return matmul_tf32(p, v.float(), passes) / l, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attn_bwd_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, scale: float, segment_ids=None,
+                        passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7's backward in fp32 with TF32 products (`flash_attn_bwd_plain`'s
+    formulas, p and ds unrounded): (dq, dk, dv)."""
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    di = (o.float() * do).sum(dim=-1, keepdim=True)
+    p = torch.exp(_scores_tf32(q, k, scale, segment_ids, passes) - lse.unsqueeze(-1))
+    dv = matmul_tf32(p.transpose(-1, -2), do, passes)
+    ds = (matmul_tf32(do, v.transpose(-1, -2), passes) - di) * p * scale
+    return (matmul_tf32(ds, k, passes), matmul_tf32(ds.transpose(-1, -2), q, passes), dv)

@@ -90,14 +90,18 @@ seconds since the start):
      without ids, interleaved ids at scale 0.1, and segments whose
      boundaries fall one token past a tile edge, their straddling keys
      carrying most of the mass; each case prints the share of tile pairs
-     the kernels walk; planted faults must fail: no segment ids, di = 0, p
-     and ds not rounded to bf16, q scaled before q·kᵀ, and the straddling
-     tokens given the next segment's id; five more bf16 calls at the
-     student's shape give the same bits;
+     the kernels walk at the dtype's tiles, which the kernels' own counts
+     must equal; planted faults must fail: no segment ids, di = 0, p and ds
+     not rounded to bf16 (bf16), one TF32 pass for each product (fp32,
+     `ops/tf32.py`, whose three passes must stay inside the bounds), q
+     scaled before q·kᵀ, and the straddling tokens given the next segment's
+     id; five more calls at the student's shape give the same bits, in
+     both dtypes; every launch takes the dtype's tensor-core kernel (fp32
+     with Dh 64: 3×TF32, `path_counts`);
   4d. K7 the same way at tap_setr_ete's geometry, (2, 16, 1765, 64), one
      segment (no ids): forward and backward per element, the planted
-     faults di = 0 and p and ds not rounded to bf16, five bit-identical
-     repeats;
+     faults di = 0 and (bf16) p and ds not rounded or (fp32) one TF32
+     pass, five bit-identical repeats in each dtype;
   4e. K7 the same way at ViT-g/14's SSL step (`G_K7_SHAPES`: the student's
      (16, 24, 457, 64) with its planted faults and repeats, the teacher's
      (16, 24, 257, 64));
@@ -114,7 +118,8 @@ seconds since the start):
   6b. a narrow SSL step (fp32, TF32 off), CPU (plain) vs CUDA (kernels),
      2 steps from the same seeded weights, augmented crops (made on the
      CPU) and masks: loss and parts, every student gradient (non-zero on
-     the card), the teacher after the EMA, both centres, K7 launches;
+     the card), the teacher after the EMA, both centres, K7 launches (its
+     two heads of 64: all on the 3×TF32 kernels);
   7. the serving path at full width: `adaptersis_tpu_torch.evaluate`,
      vit_large, 588 px, bf16, batch 2, synthetic data; launches per forward
      (48 attention, 7 MSDA: the last round's CACNN output reaches no
@@ -178,11 +183,14 @@ seconds since the start):
      forward as `variant_expect` says, img/s, peak memory, seconds; then
      `--evaluate` on tap_setr_ete's checkpoint gives its last acc1
      (`variant_runs`);
-  8i. tap_setr_ete's train step gate (ViT-L/14 at 588 px, bf16, batch 2,
-     LayerScale ~ N(0, 0.1²)): K7 against `flash_attn_plain`, with SDPA as
-     the floor and q, k, v moved by one head as the planted fault, per
-     subtree (backbone, head) within max(1e-1, 2 × floor)
-     (`ete_step_gate`);
+  8i. tap_setr_ete's train step gate (ViT-L/14 at 588 px, all 24 blocks,
+     batch 2, LayerScale ~ N(0, 0.1²)): K7 against `flash_attn_plain`, q, k,
+     v moved by one head as the planted fault, 24 K7 forwards and
+     backwards; in bf16 with tanh GELU, SDPA as the floor, per subtree
+     (backbone, head) within max(1e-1, 2 × floor); then at `train.py`'s
+     precision (fp32, exact GELU, TF32 off), the floor attention in
+     float64 (`attn_fp64`), held to 8r's fp32 bounds or 2 × floor, every
+     K7 launch on the 3×TF32 kernels (`ete_step_gate`);
   8j. ViT-g/14 at its full width cut to `G_DEPTH` = 12 of its 40 blocks
      (`arch_depth`, as in 8k and 8l) through `train_seg --config_file
      configs/vitg14_pretrain.yaml --imsize 588 --bf16 --synthetic` at batch
@@ -228,7 +236,9 @@ seconds since the start):
      example precision (no --bf16, no --gelu_approx), one epoch cut to 3
      steps and a validation, then `--evaluate` (`variant_runs` with
      `FP32_RUNS`): launches per step `PER_FORWARD_FP32` (48 K3 and 48 K4 on
-     3×TF32, 52 K6, 7 K1, 7 K2, no K5), img/s, peak memory;
+     3×TF32, 52 K6, 7 K1, 7 K2, no K5), img/s, peak memory; and the same
+     with `--model tap_setr_ete --batch_size_per_gpu 8` (24 K7 forwards and
+     backwards a step, all on 3×TF32);
   8w. the frozen-feature evals (M14): `evals_cli` knn, logreg and linear
      (`--epochs 2`) at ViT-L/14, 224 px, batch 64, fp32 with exact GELU,
      `--synthetic`, from a seeded `.pth` in `dinov2_vitl14_pretrain.pth`'s
@@ -307,7 +317,10 @@ seconds since the start):
      against the unfused sequence and cuBLAS's fp32 GEMM ("fp32 ..." keys),
      each fp32 row's bound that of 3×TF32 on the tensor cores, which its
      kernel runs, with the CUDA cores' fp32 bound beside it
-     (`bound_fp32_cuda_cores`); at batch 64 the evals' fp32 K3 at 257
+     (`bound_fp32_cuda_cores`), and K7 in fp32 at (16, 16, 1765, 64) and the
+     SSL step's student and teacher shapes against SDPA in fp32 ("fp32
+     flash_attn ..." keys, K7's bounds 3×TF32's with the CUDA cores'
+     beside them); at batch 64 the evals' fp32 K3 at 257
      tokens against SDPA and K6 and K4 at 16448 rows ("eval ..." keys).
      The kernels line gives the training path's
      (batch 16, uniform points) numbers and the launches of `bench`'s run
@@ -316,7 +329,8 @@ seconds since the start):
      and `launches_vitg_step` (per step of 8j, or of 8k for K7),
      `m2f_shapes` (each "m2f ..." key) and `launches_m2f_step` (per step
      of 8o's `bench_m2f` and 8m's `segment_m2f`), `fp32_shapes` (each
-     "fp32 ..." key) and `launches_fp32_step` (per step of 8s),
+     "fp32 ..." key), `launches_fp32_step` and `launches_fp32_ete_step`
+     (per step of 8s's two runs),
      `eval_shapes` (each "eval ..." key) and `launches_eval_forward` (per
      extraction forward of 8w's knn run), `vits_shapes` (each "vits ..."
      and "vit_tiny adapter ..." key: at batch 16 the eval scripts' fp32 K3
@@ -332,9 +346,14 @@ Then a JSON line of the kernels, the card's name and power limit, and, last,
     python3 chip_smoke.py --times
 
 runs the build and phase 9 alone, with no checks, and prints sha256
-prefixes of K6's and K3's outputs on seeded inputs: to compare
+prefixes of K6's, K3's and K7's outputs on seeded inputs: to compare
 two trees' kernels on one card (copy this script into the other tree's root
 and run both in one call).
+
+    python3 chip_smoke.py --k7
+
+runs the build, K3's and K7's hashes and phase 9's fp32 K7 keys alone
+(`k7_only`), the same way.
 
     python3 chip_smoke.py --gate
 
@@ -356,9 +375,10 @@ and "vit_tiny adapter ..." keys alone (`entries_only`).
 
     python3 chip_smoke.py --fp32-steps
 
-runs the build and the fp32 commands of phases 8s and 8m uncut
-(`fp32_steps_only`: img/s, peak memory, launches), on any tree of the port:
-copy it into another tree's root to time both trees' fp32 steps in one call.
+runs the build and the fp32 commands of phases 8s (both runs) and 8m
+uncut (`fp32_steps_only`: img/s, peak memory, launches), on any tree of the
+port: copy it into another tree's root to time both trees' fp32 steps in
+one call.
 """
 
 from __future__ import annotations
@@ -1096,7 +1116,8 @@ def kernel_times(ff, mc, fq, fm, ln, fa, only=""):
     what else a kernel replaced. ViT-g's and vit_tiny's shapes (M2b) are
     timed at batch 16 under keys "vitg ..." and "vit_tiny ...", kept out of
     the kernels line; `only` = "eval" times only M14's "eval ..." keys,
-    "entries" only the "vits ..." and "vit_tiny adapter ..." keys."""
+    "entries" only the "vits ..." and "vit_tiny adapter ..." keys, "k7"
+    only K7's fp32 keys ("fp32 flash_attn ..." and K7's "vits ..." key)."""
     F = torch.nn.functional
     times, bounds, extra, dev, host = {}, {}, {}, {}, {}
 
@@ -1254,8 +1275,10 @@ def kernel_times(ff, mc, fq, fm, ln, fa, only=""):
         and lse; beside plain, PyTorch's SDPA with the boolean block-diagonal
         mask (the student's; none for the teacher and setr_ete), forward and
         its backward alone (autograd.grad with the graph kept; graphed on
-        the stream its forward ran on)"""
-        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        the stream its forward ran on); in fp32 the bound is 3×TF32's on the
+        tensor cores, which the kernels run, with the CUDA cores' beside it;
+        without ids also K3 on the same inputs (`k3_device`)"""
+        kind = "bf16" if dtype == torch.bfloat16 else "tf32x3"
         for case, shape in cases.items():
             q, k, v, do = k7_inputs(shape, dtype, seed=0)
             B, H, N, Dh = shape
@@ -1274,8 +1297,12 @@ def kernel_times(ff, mc, fq, fm, ln, fa, only=""):
             # reads q, k, v and the ids; writes o and lse; q·kᵀ and p·v over
             # the own-segment pairs
             bounds[key] = bound_ms(4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, kind)
+            extra[key] = {}
+            if kind == "tf32x3":  # the CUDA cores' fp32 bound beside 3×TF32's
+                extra[key]["bound_fp32_cuda_cores"] = bound_ms(
+                    4 * tb + lse.numel() * 4 + ib, 4 * Dh * pairs, "fp32")
             if seg is None:  # K3's body on the teacher's inputs (no lse store)
-                extra[key] = {"k3_device": device_ms(lambda: ff.flash_fwd(q, k, v, 0.125))}
+                extra[key]["k3_device"] = device_ms(lambda: ff.flash_fwd(q, k, v, 0.125))
             key = f"{tag}flash_attn_bwd {name}"
             side = torch.cuda.Stream()
             with torch.enable_grad():
@@ -1304,6 +1331,9 @@ def kernel_times(ff, mc, fq, fm, ln, fa, only=""):
             # products over the own-segment pairs (q·kᵀ, do·vᵀ, pᵀ·do,
             # dsᵀ·q, ds·k)
             bounds[key] = bound_ms(8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, kind)
+            if kind == "tf32x3":
+                extra[key]["bound_fp32_cuda_cores"] = bound_ms(
+                    8 * tb + lse.numel() * 4 + ib, 10 * Dh * pairs, "fp32")
             del q, k, v, do, o, lse, leaves, out, leaves_side, out_side, mask
             torch.cuda.empty_cache()
 
@@ -1340,9 +1370,20 @@ def kernel_times(ff, mc, fq, fm, ln, fa, only=""):
         msda_times([c for c in TINY_MSDA_CASES if c[1][0] == ENTRY_BATCH], tiny,
                    hot_too=False, points_timed=("uniform",), split=False)
 
+    def k7_fp32_times():
+        """K7 in fp32 at tap_setr_ete's (16, 16, 1765, 64) and the SSL step's
+        student and teacher shapes ("fp32 flash_attn ..." keys; the eval
+        scripts' (16, 6, 257, 64) is `entry_times`' "vits ..." key)"""
+        k7_times({**K7_SHAPES, f"{ETE_CASE} B={TRAIN_BATCH}": (TRAIN_BATCH,) + ETE_SHAPE[1:]},
+                 "fp32 ", dtype=torch.float32)
+
     if only:
         with torch.no_grad():
-            {"eval": eval_times, "entries": entry_times}[only]()
+            if only == "k7":
+                k7_fp32_times()
+                k7_times({VITS_K7_CASE: VITS_K7_SHAPE}, "vits ", dtype=torch.float32)
+            else:
+                {"eval": eval_times, "entries": entry_times}[only]()
         return times, bounds, extra, dev, host
 
     with torch.no_grad():
@@ -1375,6 +1416,7 @@ def kernel_times(ff, mc, fq, fm, ln, fa, only=""):
         # against the unfused sequence and cuBLAS's fp32 GEMM (TF32 off)
         flash_times(at_16(FLASH_SHAPES), "fp32 ", dtype=torch.float32)
         row_times(at_16(ROW_SHAPES), HEADS, "fp32 ", k5=False, dtype=torch.float32)
+        k7_fp32_times()
         eval_times()
         entry_times()
         geo = M2F_MSDA_GEOMETRIES
@@ -1430,6 +1472,35 @@ def k3_hashes(ff) -> dict:
     return out
 
 
+def k7_hashes(fa) -> dict:
+    """sha256 prefixes of K7's outputs (o, lse, dq, dk, dv; the backward on
+    the kernel's own o and lse) at phase 4c's and 4d's shapes on seeded
+    inputs, bf16 under the case's name and fp32 under "<case> fp32": equal
+    hashes from two builds show bit-equal outputs."""
+    import hashlib
+    inter = torch.randint(0, 5, (8, 457), generator=torch.Generator().manual_seed(3),
+                          dtype=torch.int32).cuda()
+    cases = [("student", K7_SHAPES["student"], packed_ids(2 * SSL_BATCH, STUDENT_SEGMENTS), 0.125),
+             ("teacher", K7_SHAPES["teacher"], None, 0.125),
+             ("interleaved ids", (8, 6, 457, 64), inter, 0.1),
+             ("straddle", (8, 6, 457, 64), packed_ids(8, STRADDLE_SEGMENTS), 0.125),
+             (ETE_CASE, ETE_SHAPE, None, 0.125)]
+    out = {}
+    with torch.no_grad():
+        for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, " fp32")):
+            for case, shape, seg, scale in cases:
+                q, k, v, do = k7_inputs(shape, dtype, seed=71)
+                o, lse = fa.flash_attn_fwd_kernel(q, k, v, scale, seg)
+                grads = fa.flash_attn_bwd_kernel(q, k, v, o, lse, do, scale, seg)
+                torch.cuda.synchronize()
+                h = hashlib.sha256()
+                for t in (o, lse, *grads):
+                    h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                out[case + suffix] = h.hexdigest()[:16]
+                del q, k, v, do, o, lse, grads
+    return out
+
+
 def packed_ids(B: int, segments, device="cuda") -> torch.Tensor:
     """(B, N) int32 segment ids: segment i is `segments[i]` consecutive tokens."""
     ids = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(segments)])
@@ -1476,31 +1547,34 @@ def straddle_inputs(shape, dtype, seed, seg):
     return [x.to(dtype) for x in (q, k, v, do)]
 
 
-def walked_tiles(fa, seg, shape, counted=None) -> dict:
-    """The tile pairs the kernels walk by `live_tiles`'s rule: per row of the
-    batch (its first) and as a share of all, for the forward's 64 queries ×
-    128 keys and the backward's 64 × 64. `counted`: what the bf16 kernels
-    report they walked (`walked=`), the forward's count and the dK/dV and
-    dQ kernels' two, each beside the rule's total over rows and heads."""
+def walked_tiles(fa, seg, shape, dtype, counted=None) -> dict:
+    """The tile pairs the kernels of `dtype` walk by `live_tiles`'s rule:
+    per row of the batch (its first) and as a share of all, for the
+    forward's tiles (bf16: 64 queries × 128 keys; fp32: 128 × 64) and the
+    backward's (bf16: 64 × 64; fp32: 64 own rows × 32 walked, the same pairs
+    from either side). `counted`: what the kernels report they walked
+    (`walked=`), the forward's count and the dK/dV and dQ kernels' two,
+    each beside the rule's total over rows and heads."""
     B, H, N, _ = shape
     ids = seg if seg is not None else torch.zeros((B, N), dtype=torch.int32, device="cuda")
     out = {}
-    for name, (r, c) in (("fwd_64x128", (64, 128)), ("bwd_64x64", (64, 64))):
+    for name, (r, c) in (("fwd", fa.FWD_TILES[dtype]), ("bwd", fa.BWD_TILES[dtype])):
         live = fa.live_tiles(ids, r, c)
-        out[name] = {"per_row": f"{int(live[0].sum())}/{live[0].numel()}",
-                     "share": live.float().mean().item()}
+        out[f"{name}_{r}x{c}"] = {"per_row": f"{int(live[0].sum())}/{live[0].numel()}",
+                                  "share": live.float().mean().item()}
         if counted is not None:
-            out[name].update(kernel_walked=counted[name], rule_total=H * int(live.sum()))
+            out[f"{name}_{r}x{c}"].update(kernel_walked=counted[name],
+                                          rule_total=H * int(live.sum()))
     return out
 
 
 def kernel_walks(fa, q, k, v, do, o, lse, seg, scale: float) -> dict:
-    """The tile pairs the bf16 kernels count as walked: one forward and one
+    """The tile pairs the kernels count as walked: one forward and one
     backward call (on the plain forward's o and lse)."""
     fwd, bwd = (torch.zeros(n, dtype=torch.int32, device="cuda") for n in (1, 2))
     fa.flash_attn_fwd_kernel(q, k, v, scale, seg, walked=fwd)
     fa.flash_attn_bwd_kernel(q, k, v, o, lse, do, scale, seg, walked=bwd)
-    return {"fwd_64x128": fwd.tolist(), "bwd_64x64": bwd.tolist()}
+    return {"fwd": fwd.tolist(), "bwd": bwd.tolist()}
 
 
 def k7_outputs(fa, q, k, v, do, seg, plain: bool, scale: float):
@@ -1602,24 +1676,28 @@ def check_k7(fa, cases=None) -> dict:
     kernels' own forward (autograd of flash_attn against autograd of
     flash_attn_plain), and the backward kernels alone on the plain forward's
     o and lse, whose bf16 outputs must also differ in at most
-    `K7_DIFFER_SHARE` of their elements. At the student's bf16 shape
-    deliberately wrong kernel inputs must fail: no segment ids (a dropped
-    mask), o = 0 (so di = 0), and the fp32 kernels on the same values (p
-    and ds not rounded to bf16); in the interleaved case, whose scale 0.1
-    is no power of two, q scaled and rounded before the product; in the
-    straddle case (`STRADDLE_SEGMENTS`, `straddle_inputs`) the straddling
-    tokens given the next segment's id in the kernel's ids only. Also in
-    bf16 at the student's shape, five more forward and backward calls must
-    give the same bits. Each case prints the share of tile pairs that
-    `live_tiles` keeps (`walked_tiles`); in bf16 the kernels' own counts of
-    the pairs they walked (`kernel_walks`) must equal the rule's. No
-    backward call may change its o. Returns the largest errors at the SSL
-    step's shapes, forward and backward, bf16 ("fwd", "bwd") and fp32
-    ("fwd fp32", "bwd fp32"). Phase 4d passes `cases` = [(ETE_CASE,
-    ETE_SHAPE, None, 0.125)]: tap_setr_ete's one segment of 1765 tokens,
-    whose faults are di = 0 and the unrounded fp32 kernels, with five
-    repeats; it returns that case's errors (and 4i the same at
-    `VITS_K7_CASE`)."""
+    `K7_DIFFER_SHARE` of their elements. At the student's shape, in both
+    dtypes, deliberately wrong kernel inputs must fail: no segment ids (a
+    dropped mask) and o = 0 (so di = 0); in bf16 also the fp32 kernels on
+    the same values (p and ds not rounded to bf16), in fp32 the kernels'
+    arithmetic emulated with one TF32 pass (`ops/tf32.py`), where the
+    emulation with three, the kernels', must stay inside the bounds. In the
+    interleaved case, whose scale 0.1 is no power of two, q scaled and
+    rounded before the product; in the straddle case (`STRADDLE_SEGMENTS`,
+    `straddle_inputs`) the straddling tokens given the next segment's id in
+    the kernel's ids only. Also at the student's shape, in both dtypes, five
+    more forward and backward calls must give the same bits. Each case
+    prints the share of tile pairs that `live_tiles` keeps at the dtype's
+    tiles (`walked_tiles`), and the kernels' own counts of the pairs they
+    walked (`kernel_walks`) must equal the rule's; every launch must take
+    the tensor-core kernel (`path_counts`). No backward call may change its
+    o. Returns the largest errors at the SSL step's shapes, forward and
+    backward, bf16 ("fwd", "bwd") and fp32 ("fwd fp32", "bwd fp32"). Phase
+    4d passes `cases` = [(ETE_CASE, ETE_SHAPE, None, 0.125)]: tap_setr_ete's
+    one segment of 1765 tokens, whose faults are di = 0, the unrounded fp32
+    kernels (bf16) and one TF32 pass (fp32), with five repeats; it returns
+    that case's errors (and 4e at ViT-g's SSL shapes and 4i at
+    `VITS_K7_CASE` the same)."""
     k7_err = {"fwd": 0.0, "bwd": 0.0}
     if cases is None:
         cases = [(name, shape,
@@ -1636,7 +1714,9 @@ def check_k7(fa, cases=None) -> dict:
         return all(report[n][key] > (1.0 if key == "worst_share_of_bound" else K7_DIFFER_SHARE)
                    for n in names)
 
+    from adaptersis_tpu_torch.ops import tf32
     for dtype in (torch.bfloat16, torch.float32):
+        before = dict(path_counts())
         for i, (case, shape, seg, scale) in enumerate(cases):
             q, k, v, do = (straddle_inputs(shape, dtype, 40 + i, seg) if case == "straddle"
                            else k7_inputs(shape, dtype, seed=40 + i))
@@ -1646,16 +1726,14 @@ def check_k7(fa, cases=None) -> dict:
             ref_o = ref[0].clone()
             alone = list(fa.flash_attn_bwd_kernel(q, k, v, ref[0], ref[1], do, scale, seg))
             allow = k7_allowances(fa, q, k, v, do, seg, ref, scale)
-            counted = (kernel_walks(fa, q, k, v, do, ref[0], ref[1], seg, scale)
-                       if dtype == torch.bfloat16 else None)
-            report = {"walked_tiles": walked_tiles(fa, seg, shape, counted),
+            counted = kernel_walks(fa, q, k, v, do, ref[0], ref[1], seg, scale)
+            report = {"walked_tiles": walked_tiles(fa, seg, shape, dtype, counted),
                       "fwd": k7_worst(K7_NAMES[:2], got[:2], ref[:2], allow["fwd"]),
                       "bwd_through_kernel_forward": k7_worst(bwd, got[2:], ref[2:],
                                                              allow["through"]),
                       "bwd_alone": k7_worst(bwd, alone, ref[2:], allow["alone"])}
             planted = {}
-            if case in ("student", "vitg student", ETE_CASE, VITS_K7_CASE) \
-                    and dtype == torch.bfloat16:
+            if case in ("student", "vitg student", ETE_CASE, VITS_K7_CASE):
                 if seg is not None:
                     wrong = k7_outputs(fa, q, k, v, do, None, plain=False, scale=scale)
                     r = {**k7_worst(K7_NAMES[:2], wrong[:2], ref[:2], allow["fwd"]),
@@ -1666,11 +1744,27 @@ def check_k7(fa, cases=None) -> dict:
                                                  scale, seg)
                 r = k7_worst(bwd, wrong, ref[2:], allow["alone"])
                 planted["di_zero"] = (r, caught(r, ("dq", "dk"), "worst_share_of_bound"))
-                wrong = [x.to(dtype) for x in fa.flash_attn_bwd_kernel(
-                    q.float(), k.float(), v.float(), ref[0].float(), ref[1], do.float(),
-                    scale, seg)]
-                r = k7_worst(bwd, wrong, ref[2:], allow["alone"])
-                planted["p_ds_not_rounded"] = (r, caught(r, bwd, "differing_share"))
+                if dtype == torch.bfloat16:
+                    wrong = [x.to(dtype) for x in fa.flash_attn_bwd_kernel(
+                        q.float(), k.float(), v.float(), ref[0].float(), ref[1], do.float(),
+                        scale, seg)]
+                    r = k7_worst(bwd, wrong, ref[2:], allow["alone"])
+                    planted["p_ds_not_rounded"] = (r, caught(r, bwd, "differing_share"))
+                else:
+                    # the kernels' arithmetic emulated (`ops/tf32.py`): three
+                    # passes must stay inside the bounds, one must break them
+                    for passes in (3, 1):
+                        em = [*tf32.flash_attn_fwd_tf32(q, k, v, scale, seg, passes),
+                              *tf32.flash_attn_bwd_tf32(q, k, v, ref[0], ref[1], do, scale, seg,
+                                                        passes)]
+                        r = {**k7_worst(K7_NAMES[:2], em[:2], ref[:2], allow["fwd"]),
+                             **k7_worst(bwd, em[2:], ref[2:], allow["alone"])}
+                        if passes == 1:
+                            planted["one_tf32_pass"] = (r, caught(r, K7_NAMES,
+                                                                  "worst_share_of_bound"))
+                        else:
+                            report["tf32x3_emulated"] = r
+                        del em
                 first = [*fa.flash_attn_fwd_kernel(q, k, v, scale, seg),
                          *fa.flash_attn_bwd_kernel(q, k, v, ref[0], ref[1], do, scale, seg)]
                 report["repeats_bit_identical"] = all(
@@ -1707,7 +1801,10 @@ def check_k7(fa, cases=None) -> dict:
                     fail(f"flash_attn: the kernels walked {walk['kernel_walked']} tile pairs "
                          f"({name}, {case}), live_tiles keeps {walk['rule_total']}")
             if report.get("repeats_bit_identical") is False:
-                fail(f"flash_attn: repeated calls differ ({case})")
+                fail(f"flash_attn: repeated calls differ ({case}, {dtype})")
+            if any(not r["worst_share_of_bound"] <= 1.0
+                   for r in report.get("tf32x3_emulated", {}).values()):
+                fail(f"flash_attn: the 3×TF32 emulation breaks the fp32 bounds ({case})")
             for part, names in (("fwd", K7_NAMES[:2]), ("bwd_through_kernel_forward", bwd),
                                 ("bwd_alone", bwd)):
                 for n in names:
@@ -1728,6 +1825,14 @@ def check_k7(fa, cases=None) -> dict:
                                             for n in bwd))
             del q, k, v, do, got, ref, ref_o, alone, allow
             torch.cuda.empty_cache()
+        # every launch of this dtype's calls took its tensor-core kernel (the
+        # bf16 fault p_ds_not_rounded runs the fp32 one)
+        paths = {n: c - before[n] for n, c in path_counts().items() if n.startswith("flash_attn")}
+        say("flash_attn_paths", dtype=str(dtype), launches_by_kernel=paths)
+        if any(c and (n.endswith("cuda_cores") or (dtype == torch.float32 and
+                                                   n.endswith("wgmma")))
+               for n, c in paths.items()):
+            fail(f"flash_attn: launches by kernel {paths} in the {dtype} checks")
     return k7_err
 
 
@@ -3444,14 +3549,18 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                                          "--output_dir", str(work / name.replace(" ", "_"))]
 
     report, failures = {}, []
+    run_batch = [batch]
     with arch_depth(arch, depth):
         train_seg.build_model = build_recorded
-        train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=steps * batch, **kw)
+        # a run's own --batch_size_per_gpu (its last) sizes its synthetic set
+        train_seg.SyntheticSeg = lambda n, **kw: plain_synthetic(n=steps * run_batch[0], **kw)
         Trainer.train_step = counted("train", plain_train)
         Trainer.eval_step = counted("eval", plain_eval)
         try:
             for name, entry, extra, model in runs:
                 run_argv = argv(name, extra)
+                at = len(run_argv) - 1 - run_argv[::-1].index("--batch_size_per_gpu")
+                run_batch[0] = int(run_argv[at + 1])
                 dtype = "bf16" if "--bf16" in run_argv else "fp32"
                 path = "wgmma" if dtype == "bf16" else "tf32x3"
                 gelu = "--gelu_approx" in run_argv
@@ -3489,7 +3598,7 @@ def variant_runs(counts, reset_counts, smi, runs=VARIANTS, flags=variant_argv,
                      "by_kernel": by_kernel}
                 report[name] = r
                 say("variant_training", name=name, arch=arch, depth=depth,
-                    imsize=seen.pop("imsize"), dtype=dtype, batch=batch, **r)
+                    imsize=seen.pop("imsize"), dtype=dtype, batch=run_batch[0], **r)
                 if by_kernel != paths_expected(path, launched):
                     failures.append(f"{name}: launches by kernel {by_kernel}")
                 want_t, want_e = want(model, True, gelu), want(model, False, gelu)
@@ -3580,70 +3689,121 @@ def ete_gate_inputs(seed=0):
     return model.to(dev), *apply_train_augment(imgs, masks, draws)
 
 
+class AttnFp64(torch.autograd.Function):
+    """Attention (one segment) with float64 sums, rounded to q's dtype, and
+    its gradient recomputed in float64 from q, k and v alone (an equally
+    valid K7, without a (B, H, N, N) float64 tensor kept per block)."""
+
+    @staticmethod
+    def _attn(q, k, v, scale):
+        return torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1) @ v
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        with torch.autocast(q.device.type, enabled=False):
+            return AttnFp64._attn(q.double(), k.double(), v.double(), scale).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad(), torch.autocast(q.device.type, enabled=False):
+            leaves = [x.detach().double().requires_grad_() for x in (q, k, v)]
+            out = AttnFp64._attn(*leaves, ctx.scale)
+            grads = torch.autograd.grad(out, leaves, g.double())
+        return (*(x.to(q.dtype) for x in grads), None)
+
+
+def attn_fp64(q, k, v, scale, seg):
+    if seg is not None:
+        raise ValueError("attn_fp64 takes one segment")
+    return AttnFp64.apply(q, k, v, scale)
+
+
 def ete_step_gate(fa, counts, reset_counts) -> dict:
-    """Phase 8i: tap_setr_ete's bf16 train step (`ete_gate_inputs`, its loss
-    CE + DC on the raw logits) on four sides from the same weights and
-    batch: K7 (the kernel side); `flash_attn_plain` patched into
-    `models.layers` (the plain side); PyTorch's SDPA there (the floor: an
-    equally valid attention, with its own roundings); and a planted fault,
-    K7 on q, k and v moved by one head. Against the plain side: the loss
-    (relative, `SSL_GATE_LOSS_BOUND`) and per subtree (backbone, head) the
-    gradients' `grad_distance`, held as phase 8e holds its subtrees: within
-    max(1e-1, 2 × the floor's distance); the fault must break a bound. A
-    zero gradient on the plain side fails, and so do K7 launches other than
-    24 forwards and 24 backwards on the kernel and fault sides and none on
-    the others."""
+    """Phase 8i: tap_setr_ete's train step (`ete_gate_inputs`, its loss CE
+    + DC on the raw logits) on four sides from the same weights and batch:
+    K7 (the kernel side); `flash_attn_plain` patched into `models.layers`
+    (the plain side); a floor, an equally valid attention with its own
+    roundings; and a planted fault, K7 on q, k and v moved by one head.
+    First in bf16 with tanh GELU, the floor PyTorch's SDPA, each subtree
+    (backbone, head) held as phase 8e holds its subtrees: within max(1e-1,
+    2 × the floor's distance), the loss within `SSL_GATE_LOSS_BOUND`; then
+    at `train.py`'s precision (fp32, the exact GELU: the same model with its
+    MLPs switched, TF32 off), the floor attention in float64 (`attn_fp64`),
+    held as phase 8r: `FP32_GATE_BOUND` or 2 × the floor, the loss within
+    `FP32_GATE_LOSS_BOUND`. Against the plain side: the loss (relative) and
+    the gradients' `grad_distance`; the fault must break a bound. A zero
+    gradient on the plain side fails, and so do K7 launches other than 24
+    forwards and 24 backwards on the kernel and fault sides and none on the
+    others, or a kernel-side launch on another kernel than the dtype's
+    tensor-core one (`path_counts`)."""
     from adaptersis_tpu_torch.models import layers
     F = torch.nn.functional
-    t0 = time.perf_counter()
     model, x01, y = ete_gate_inputs()
     kernel = layers.flash_attn
-    sides = {"kernel": [], "plain": [(layers, "flash_attn", fa.flash_attn_plain)],
-             "floor": [(layers, "flash_attn", lambda q, k, v, scale, seg:
-                        F.scaled_dot_product_attention(q, k, v, scale=scale))],
-             "heads moved": [(layers, "flash_attn", lambda q, k, v, scale, seg: kernel(
-                 *(t.roll(1, dims=1) for t in (q, k, v)), scale, seg))]}
-    losses, grads, launches = {}, {}, {}
-    for side, patches in sides.items():
-        losses[side], grads[side], launches[side] = seg_gate_step(
-            model, x01, y, patches, "full", counts, reset_counts, subtrees=ETE_SUBTREES,
-            loss="ce_dc", softmax=False)
     measures = ("l2_dist", "max_rel")
-    report, fault = {}, {}
-    for sub, g in grads["plain"].items():
-        r = grad_distance(grads["kernel"][sub], g)
-        floor = grad_distance(grads["floor"][sub], g)
-        r["floor"] = {k: floor[k] for k in measures}
-        r["bound"] = {k: max(SSL_GATE_BOUND, 2 * floor[k]) for k in measures}
-        report[sub] = r
-        d = grad_distance(grads["heads moved"][sub], g)
-        fault[sub] = max(d[k] / r["bound"][k] for k in measures)
-    loss_err = {side: abs(v - losses["plain"]) / max(abs(losses["plain"]), 1e-30)
-                for side, v in losses.items() if side != "plain"}
-    out = {"losses": losses, "loss_rel_err": loss_err, "subtrees": report,
-           "fault_share_of_bound": fault, "launches": launches,
-           "seconds": time.perf_counter() - t0}
-    say("ete_step_gate", arch="vit_large", imsize=588, batch=ETE_GATE_BATCH, dtype="bf16",
-        bound=SSL_GATE_BOUND, loss_bound=SSL_GATE_LOSS_BOUND, **out)
     k7 = {**{k: 0 for k in expect(0, 0)}, "flash_attn": 24, "flash_attn_bwd": 24}
-    for side, got in launches.items():
-        want = k7 if side in ("kernel", "heads moved") else {k: 0 for k in k7}
-        if got != want:
-            fail(f"8i: launches {got} on the {side} side, expected {want}")
-    dead = [sub for sub, r in report.items() if not r["norm_plain"] > 0]
-    if dead:
-        fail(f"8i: zero gradient on the plain side in {dead}")
-    if not all(math.isfinite(loss_err[side]) and loss_err[side] <= SSL_GATE_LOSS_BOUND
-               for side in ("kernel", "floor")):
-        fail(f"8i: losses differ {losses}")
-    if not max(fault.values()) > 1:
-        fail(f"8i: the bounds pass q, k and v moved by one head: {fault}")
-    for sub, r in report.items():
-        if not all(r[k] <= r["bound"][k] for k in measures):
-            fail(f"8i: {sub} gradients differ: {r}")
+    result = {}
+    for fp32 in (False, True):
+        t0 = time.perf_counter()
+        if fp32:
+            for m in model.modules():
+                if isinstance(m, layers.Mlp):
+                    m.approximate = "none"
+        floor = attn_fp64 if fp32 else (lambda q, k, v, scale, seg:
+                                        F.scaled_dot_product_attention(q, k, v, scale=scale))
+        sides = {"kernel": [], "plain": [(layers, "flash_attn", fa.flash_attn_plain)],
+                 "floor": [(layers, "flash_attn", floor)],
+                 "heads moved": [(layers, "flash_attn", lambda q, k, v, scale, seg: kernel(
+                     *(t.roll(1, dims=1) for t in (q, k, v)), scale, seg))]}
+        bound = FP32_GATE_BOUND if fp32 else dict.fromkeys(measures, SSL_GATE_BOUND)
+        loss_bound = FP32_GATE_LOSS_BOUND if fp32 else SSL_GATE_LOSS_BOUND
+        losses, grads, launches, paths = {}, {}, {}, {}
+        for side, patches in sides.items():
+            losses[side], grads[side], launches[side] = seg_gate_step(
+                model, x01, y, patches, "full", counts, reset_counts, subtrees=ETE_SUBTREES,
+                bf16=not fp32, paths=paths if side == "kernel" else None, loss="ce_dc",
+                softmax=False)
+        report, fault = {}, {}
+        for sub, g in grads["plain"].items():
+            r = grad_distance(grads["kernel"][sub], g)
+            fl = grad_distance(grads["floor"][sub], g)
+            r["floor"] = {k: fl[k] for k in measures}
+            r["bound"] = {k: max(bound[k], 2 * fl[k]) for k in measures}
+            report[sub] = r
+            d = grad_distance(grads["heads moved"][sub], g)
+            fault[sub] = max(d[k] / r["bound"][k] for k in measures)
+        loss_err = {side: abs(v - losses["plain"]) / max(abs(losses["plain"]), 1e-30)
+                    for side, v in losses.items() if side != "plain"}
+        dtype = "fp32" if fp32 else "bf16"
+        out = {"losses": losses, "loss_rel_err": loss_err, "subtrees": report,
+               "fault_share_of_bound": fault, "launches": launches,
+               "kernel_side_by_kernel": paths, "seconds": time.perf_counter() - t0}
+        say("ete_step_gate", arch="vit_large", imsize=588, batch=ETE_GATE_BATCH, dtype=dtype,
+            gelu="none" if fp32 else "tanh", bound=bound, loss_bound=loss_bound, **out)
+        for side, got in launches.items():
+            want = k7 if side in ("kernel", "heads moved") else {k: 0 for k in k7}
+            if got != want:
+                fail(f"8i {dtype}: launches {got} on the {side} side, expected {want}")
+        if paths != paths_expected("tf32x3" if fp32 else "wgmma", launches["kernel"]):
+            fail(f"8i {dtype}: the kernel side's launches by kernel {paths}")
+        dead = [sub for sub, r in report.items() if not r["norm_plain"] > 0]
+        if dead:
+            fail(f"8i {dtype}: zero gradient on the plain side in {dead}")
+        if not all(math.isfinite(loss_err[side]) and loss_err[side] <= loss_bound
+                   for side in ("kernel", "floor")):
+            fail(f"8i {dtype}: losses differ {losses}")
+        if not max(fault.values()) > 1:
+            fail(f"8i {dtype}: the bounds pass q, k and v moved by one head: {fault}")
+        for sub, r in report.items():
+            if not all(r[k] <= r["bound"][k] for k in measures):
+                fail(f"8i {dtype}: {sub} gradients differ: {r}")
+        result[dtype] = out
     del model
     torch.cuda.empty_cache()
-    return out
+    return result
 
 
 # phase 8j: ViT-g/14 through `train_seg` at full width (M2b): its config file
@@ -3655,9 +3815,16 @@ G_GATE_BATCH = 2
 
 # phase 8s: `train_seg` at train.py's own example precision (its docstring's
 # command: no --bf16, no --gelu_approx) on ViT-L/14 at 588 px, batch 12,
-# one epoch cut to VARIANT_STEPS steps (`variant_runs`)
-FP32_RUNS = [("train_seg fp32", "train_seg", ["--lr", "0.01"], "adapter")]
+# and tap_setr_ete's fp32 train step (its trained backbone's 24 K7 forwards
+# and backwards a step) at batch 8, each one epoch cut to VARIANT_STEPS
+# steps (`variant_runs`)
 FP32_TRAIN_BATCH = 12
+FP32_ETE_BATCH = 8
+FP32_ETE_RUN = "train_seg tap_setr_ete fp32"
+FP32_RUNS = [("train_seg fp32", "train_seg", ["--lr", "0.01"], "adapter"),
+             (FP32_ETE_RUN, "train_seg", ["--model", "tap_setr_ete", "--lr", "0.01",
+                                          "--batch_size_per_gpu", str(FP32_ETE_BATCH)],
+              "tap_setr_ete")]
 
 
 def fp32_argv() -> list:
@@ -4882,7 +5049,8 @@ def launch_counters():
     def reset_counts():
         ff.launches = mc.launches = mc.bwd_launches = fq.launches = fm.launches = 0
         ln.launches = fa.launches = fa.bwd_launches = 0
-        ff.path_launches.update(dict.fromkeys(ff.path_launches, 0))
+        for paths in (ff.path_launches, fa.path_launches, fa.bwd_path_launches):
+            paths.update(dict.fromkeys(paths, 0))
 
     def counts():
         return {"flash_fwd": ff.launches, "msda_fwd": mc.launches, "msda_bwd": mc.bwd_launches,
@@ -4894,20 +5062,27 @@ def launch_counters():
 
 
 def path_counts() -> dict:
-    """K3's launches since the last reset by the kernel `asis_flash_fwd`
-    reported launching: "wgmma" (bf16), "tf32x3" (fp32, 3×TF32 on the
-    tensor cores), "cuda_cores" (Dh 16, 32). K4's and K5's launcher has one
-    kernel per dtype (fp32: the 3×TF32 `gemm_tf32_kernel`), so their
-    launches in a run of one dtype all took that dtype's kernel."""
-    from adaptersis_tpu_torch.ops import flash_fwd as ff
-    return dict(ff.path_launches)
+    """K3's and K7's launches since the last reset by the kernel their
+    launchers reported launching: "wgmma" (bf16), "tf32x3" (fp32, 3×TF32 on
+    the tensor cores), "cuda_cores" (Dh 16, 32); K7's forward under
+    "flash_attn <kernel>", its backward under "flash_attn_bwd <kernel>".
+    K4's and K5's launcher has one kernel per dtype (fp32: the 3×TF32
+    `gemm_tf32_kernel`), so their launches in a run of one dtype all took
+    that dtype's kernel."""
+    from adaptersis_tpu_torch.ops import flash_attn as fa, flash_fwd as ff
+    return {**ff.path_launches, **{f"flash_attn {k}": v for k, v in fa.path_launches.items()},
+            **{f"flash_attn_bwd {k}": v for k, v in fa.bwd_path_launches.items()}}
 
 
 def paths_expected(path: str, launches: dict) -> dict:
-    """`path_counts` when every K3 launch in `launches` (`counts`) ran the
-    tensor-core kernel of one dtype, `path` ("tf32x3" in fp32, "wgmma" in
-    bf16): none on the CUDA cores."""
-    return {k: launches["flash_fwd"] if k == path else 0 for k in path_counts()}
+    """`path_counts` when every K3 and K7 launch in `launches` (`counts`)
+    ran the tensor-core kernel of one dtype, `path` ("tf32x3" in fp32,
+    "wgmma" in bf16): none on the CUDA cores."""
+    out = {}
+    for k in path_counts():
+        kname, _, kernel = k.rpartition(" ")
+        out[k] = launches[kname or "flash_fwd"] if kernel == path else 0
+    return out
 
 
 def expect(forwards, backwards, per=PER_FORWARD):
@@ -5255,11 +5430,15 @@ def main() -> None:
         ssl_report.append({"loss_cpu": outs["cpu"], "loss_rel_err": loss_err,
                            "grad_max_rel_err": grad_rel if it == 0 else None,
                            "teacher_max_abs_err": t_err, "centre_max_abs_err": c_err})
-    ssl_small_launches = counts()
-    say("small_ssl_step", steps=2, steps_report=ssl_report, launches=ssl_small_launches)
+    ssl_small_launches, ssl_small_paths = counts(), path_counts()
+    say("small_ssl_step", steps=2, steps_report=ssl_report, launches=ssl_small_launches,
+        by_kernel=ssl_small_paths)
     if ssl_small_launches != expect_ssl(2, {"flash_attn": 2 * depth, "flash_attn_bwd": depth}):
         fail(f"narrow SSL step: launches {ssl_small_launches}, expected {2 * depth} K7 "
              f"forwards and {depth} backwards per step")
+    # two heads of 64: every K7 launch on the 3×TF32 kernels
+    if ssl_small_paths != paths_expected("tf32x3", ssl_small_launches):
+        fail(f"narrow SSL step: launches by kernel {ssl_small_paths}")
     del base, archs, named
 
     # ---- 7. the serving path at full width through its entry point
@@ -5633,6 +5812,7 @@ def main() -> None:
                                             "tflops_device") if e in extra.get(k, {})}}
             for k in times if k.startswith("fp32 ") and kname in k.split()}
         row["launches_fp32_step"] = fp32_run["train_seg fp32"]["per_train_step"][kname]
+        row["launches_fp32_ete_step"] = fp32_run[FP32_ETE_RUN]["per_train_step"][kname]
         # M14: the fp32 kernels at evals_cli's batch 64, 257 tokens ("eval ..."
         # keys), and the launches per extraction forward of 8w's knn run
         row["eval_shapes"] = {
@@ -5664,8 +5844,8 @@ def main() -> None:
 
 
 def times_only() -> None:
-    """`--times`: the build and phase 9 alone, plus `row_hashes` and
-    `k3_hashes`, with no checks: to compare two trees' kernels in one call
+    """`--times`: the build and phase 9 alone, plus `row_hashes`,
+    `k3_hashes` and `k7_hashes`, with no checks: to compare two trees' kernels in one call
     on one card."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -5684,7 +5864,33 @@ def times_only() -> None:
         torch=torch.__version__, cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
     say("row_hashes", **row_hashes(ln))
     say("k3_hashes", **k3_hashes(ff))
+    say("k7_hashes", **k7_hashes(fa))
     say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa))
+
+
+def k7_only() -> None:
+    """`--k7`: the build, K3's and K7's output hashes (`k3_hashes`,
+    `k7_hashes`) and phase 9's fp32 K7 keys alone, with no checks: to time
+    two trees' fp32 K7 in one call on one card (copy this script into the
+    other tree's root)."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from adaptersis_tpu_torch.ops import _build, flash_attn as fa, flash_fwd as ff, msda_cuda as mc
+    from adaptersis_tpu_torch.ops import fused_mlp as fm, fused_qkv as fq, layernorm as ln
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    t0 = time.perf_counter()
+    _build.library()
+    say("device", name=name, root=str(ROOT), nvidia_smi=smi[0] if smi else "unavailable",
+        torch=torch.__version__, cuda=torch.version.cuda, build_s=time.perf_counter() - t0)
+    say("k3_hashes", **k3_hashes(ff))
+    say("k7_hashes", **k7_hashes(fa))
+    say_times(name, smi, *kernel_times(ff, mc, fq, fm, ln, fa, only="k7"))
 
 
 def data_parallel_only() -> None:
@@ -5809,7 +6015,8 @@ def fp32_steps_only() -> None:
     """`--fp32-steps`: the build, then the user's fp32 steps as phases 8s and
     8m run them, uncut: `train_seg --arch vit_large --patch_size 14 --imsize
     588 --batch_size_per_gpu 12 --lr 0.01 --synthetic` (exact GELU, one
-    epoch) and `segment_m2f --arch vit_large --imsize 518
+    epoch), the same with `--model tap_setr_ete --batch_size_per_gpu 8` (K7
+    in fp32, one epoch) and `segment_m2f --arch vit_large --imsize 518
     --batch_size_per_gpu 4 --synthetic` (`FP32_STEP_EPOCHS` epochs), each
     epoch's img/s over its steps after the first, peak memory and the
     launches, failing only on a loss that is not finite: to compare two
@@ -5834,6 +6041,9 @@ def fp32_steps_only() -> None:
     shutil.rmtree(work, ignore_errors=True)
     runs = (("train_seg fp32", train_seg,
              [*fp32_argv(), "--lr", "0.01", "--synthetic", "--epochs", "1", "--seed", "0"]),
+            (FP32_ETE_RUN, train_seg,
+             [*fp32_argv(), "--model", "tap_setr_ete", "--lr", "0.01", "--batch_size_per_gpu",
+              str(FP32_ETE_BATCH), "--synthetic", "--epochs", "1", "--seed", "0"]),
             ("segment_m2f vit_large fp32", segment_m2f,
              ["--arch", "vit_large", "--imsize", "518", "--batch_size_per_gpu", str(M2F_BATCH),
               "--synthetic", "--epochs", str(FP32_STEP_EPOCHS)]))
@@ -5841,7 +6051,7 @@ def fp32_steps_only() -> None:
         torch.cuda.reset_peak_memory_stats()
         before, t = counts(), time.perf_counter()
         hist = entry.main([*argv, "--num_workers", "4",
-                           "--output_dir", str(work / name.split()[0])])
+                           "--output_dir", str(work / name.replace(" ", "_"))])
         after = counts()
         say("fp32_step", name=name, argv=argv, seconds=time.perf_counter() - t,
             img_per_s=[h["train_img_per_s"] for h in hist],
@@ -5858,6 +6068,8 @@ def fp32_steps_only() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--times"]:
         times_only()
+    elif sys.argv[1:] == ["--k7"]:
+        k7_only()
     elif sys.argv[1:] == ["--gate"]:
         gate_only()
     elif sys.argv[1:] == ["--fp32-steps"]:
@@ -5875,7 +6087,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--gloo-child"]:
         gloo_child(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:]:
-        fail(f"usage: python3 chip_smoke.py [--times | --gate | --fp32-steps | "
+        fail(f"usage: python3 chip_smoke.py [--times | --k7 | --gate | --fp32-steps | "
              f"--data-parallel | --evals | --entries], "
              f"got {sys.argv[1:]}")
     else:
