@@ -1,6 +1,7 @@
 // GEMMs with fused epilogues after a LayerNorm pass: the frozen ViT
-// block's LN → qkv → head split (K4) and LN → fc1 → tanh-GELU → fc2 →
-// LayerScale → residual (K5, as two GEMMs).
+// block's LN → qkv → head split (K4) and LN → fc1 → GELU → fc2 →
+// LayerScale → residual (K5, as two GEMMs; the tanh GELU or the exact erf
+// one, as the block's MLP declares).
 //
 // Replaces:
 //   * K4: adaptersis_tpu/ops/fused_qkv.py `_kernel` (via `_fwd_impl`);
@@ -16,6 +17,10 @@
 //            column j to (j / C, (j mod C) / Dh, j mod Dh), row r to
 //            (r / Ntok, r mod Ntok) — K3's input layout, with no relayout;
 //   * GELU:  tanh-GELU(acc + b1) in fp32 → x's dtype: K5's hidden (M, 4C);
+//   * GELU_ERF: the exact GELU 0.5·h·(1 + erf(h·√½)) of h = acc + b1 in
+//            fp32 → x's dtype: K5's hidden for an MLP with exact GELU (the
+//            TPU kernel computes only the tanh form; this is its plain
+//            `reference_ln_mlp(..., approximate=False)`);
 //   * RESID: (x + γ·(acc + b2)) in fp32 → x's dtype: K5's output, from the
 //            hidden as A.
 // The TPU's K5 kept both weights (16 MB in bf16) resident in VMEM and never
@@ -59,14 +64,14 @@
 
 namespace {
 
-enum Epilogue { kQKV = 0, kGelu = 1, kResid = 2 };
+enum Epilogue { kQKV = 0, kGelu = 1, kResid = 2, kGeluErf = 3 };
 
 struct GemmArgs {
   const void* a;         // (M, K), row-major
   const void* w;         // (N, K), row-major
   const void* bias;      // (N,)
   int M, N, K;
-  void* out0;            // QKV: q; GELU: hidden (M, N); RESID: out (M, N)
+  void* out0;            // QKV: q; GELU(_ERF): hidden (M, N); RESID: out (M, N)
   void* out1;            // QKV: k
   void* out2;            // QKV: v
   const void* resid;     // RESID: x (M, N)
@@ -91,6 +96,17 @@ __device__ __forceinline__ float gelu_tanh(float h) {
   return h * (0.5f * (1.f + tanhf(k * (h + 0.044715f * (h * h * h)))));
 }
 
+// The exact GELU, torch's F.gelu(approximate="none"): 0.5·h·(1 + erf(h·√½))
+__device__ __forceinline__ float gelu_erf(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
+}
+
+// K5's hidden: the GELU of the epilogue's flavour (kGelu or kGeluErf)
+template <int kEpi>
+__device__ __forceinline__ float gelu(float h) {
+  return kEpi == kGeluErf ? gelu_erf(h) : gelu_tanh(h);
+}
+
 // fp32 output columns c and c + 1 (c even) of row r.
 template <int kEpi>
 __device__ __forceinline__ void epilogue_f32(const GemmArgs& p, int r, int c, float a0,
@@ -105,9 +121,9 @@ __device__ __forceinline__ void epilogue_f32(const GemmArgs& p, int r, int c, fl
     const int b = r / p.ntok, n = r - b * p.ntok;
     float* o = static_cast<float*>(which == 0 ? p.out0 : which == 1 ? p.out1 : p.out2);
     store_pair(o + ((static_cast<size_t>(b) * p.heads + h) * p.ntok + n) * p.dh + d, a0, a1);
-  } else if (kEpi == kGelu) {
-    store_pair(static_cast<float*>(p.out0) + static_cast<size_t>(r) * p.N + c, gelu_tanh(a0),
-               gelu_tanh(a1));
+  } else if (kEpi == kGelu || kEpi == kGeluErf) {
+    store_pair(static_cast<float*>(p.out0) + static_cast<size_t>(r) * p.N + c, gelu<kEpi>(a0),
+               gelu<kEpi>(a1));
   } else {
     const size_t off = static_cast<size_t>(r) * p.N + c;
     const float2 x = load_pair(static_cast<const float*>(p.resid) + off);
@@ -216,7 +232,7 @@ __device__ __forceinline__ void store_resid(const GemmArgs& p, const float (&acc
   }
 }
 
-// QKV's and GELU's epilogue for one consumer warpgroup (thread ct of 128,
+// QKV's and the GELUs' epilogue for one consumer warpgroup (thread ct of 128,
 // rows m0 + 64·wg ..): the rounded bf16 outputs are staged in `stage`, 64
 // rows × 128 columns at a time (rows of 16 chunks of 16 bytes, chunk c of
 // row r at c ^ (r % 8): the accumulator's writes and the chunk reads are
@@ -240,9 +256,9 @@ __device__ __forceinline__ void store_staged(const GemmArgs& p, const float (&ac
       for (int i = 0; i < 2; ++i) {
         const int row = warp * 16 + (lane >> 2) + 8 * i;
         float a0 = acc[4 * j + 2 * i] + bias.x, a1 = acc[4 * j + 2 * i + 1] + bias.y;
-        if (kEpi == kGelu) {
-          a0 = gelu_tanh(a0);
-          a1 = gelu_tanh(a1);
+        if (kEpi == kGelu || kEpi == kGeluErf) {
+          a0 = gelu<kEpi>(a0);
+          a1 = gelu<kEpi>(a1);
         }
         *reinterpret_cast<uint32_t*>(stage + row * 256 + ((jj ^ (row & 7)) << 4) + 4 * tig) =
             asis::pack_bf16(a0, a1);
@@ -616,6 +632,7 @@ int asis_ln_gemm(int epi, const void* a, const void* w, const void* bias, int M,
     case kQKV: return launch<kQKV>(p, is_bf16 != 0, ws, s);
     case kGelu: return launch<kGelu>(p, is_bf16 != 0, ws, s);
     case kResid: return launch<kResid>(p, is_bf16 != 0, ws, s);
+    case kGeluErf: return launch<kGeluErf>(p, is_bf16 != 0, ws, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,9 +8,9 @@ mlp_impl):
   * the deployed configuration of the frozen walks ("flash_fwd" and three
     "pallas", the default): fused LN → qkv → head split (K4), forward-only
     attention (K3), then fused LN → MLP → LayerScale → residual (K5) where
-    the FFN is the "mlp" with tanh GELU and the block has LayerScale, else
-    LayerNorm (K6) and the plain FFN (`Mlp` with exact GELU, or
-    `SwiGLUFFNFused`);
+    the FFN is the "mlp" and the block has LayerScale, with the GELU the
+    `Mlp` declares (tanh or exact), else LayerNorm (K6) and the plain FFN
+    (`Mlp` without LayerScale, or `SwiGLUFFNFused`);
   * the SSL step's trained configuration ("flash" and three "xla"):
     `nn.LayerNorm`, the qkv Linear, flash attention with segment ids (K7,
     forward and backward), proj, the plain FFN, LayerScale, all
@@ -177,8 +177,8 @@ class Block(nn.Module):
         self.mlp = (Mlp(dim, int(dim * mlp_ratio), gelu_approx) if ffn_layer == "mlp"
                     else SwiGLUFFNFused(dim))
         self.ls2 = ls()
-        # K5 computes an "mlp" FFN with tanh GELU and LayerScale, and only that
-        self.fused_mlp = ffn_layer == "mlp" and gelu_approx and init_values is not None
+        # K5 computes an "mlp" FFN (either GELU) with LayerScale, and only that
+        self.fused_mlp = ffn_layer == "mlp" and init_values is not None
         self.attn_impl = attn_impl
         self.windowed = windowed
         self.window_size = window_size
@@ -206,7 +206,7 @@ class Block(nn.Module):
             mlp = self.mlp
             return fused_ln_mlp(x, self.norm2.weight, self.norm2.bias, mlp.fc1.weight,
                                 mlp.fc1.bias, mlp.fc2.weight, mlp.fc2.bias, self.ls2.gamma,
-                                self.norm2.eps)
+                                self.norm2.eps, mlp.approximate == "tanh")
         h = layernorm(x, self.norm2.weight, self.norm2.bias, self.norm2.eps)
         return x + self.ls2(self.mlp(h))
 

@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from .flash_attn import MASK_VALUE
-from .fused_mlp import gelu_tanh
+from .fused_mlp import gelu
 from .layernorm import ln_rows
 
 
@@ -79,9 +79,11 @@ def fused_ln_qkv_tf32(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
 
 def fused_ln_mlp_tf32(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
                       w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                      gamma: torch.Tensor, passes: int = 3, eps: float = 1e-6) -> torch.Tensor:
+                      gamma: torch.Tensor, passes: int = 3, eps: float = 1e-6,
+                      approximate: bool = True) -> torch.Tensor:
     """K5 in fp32 with TF32 products (`fused_ln_mlp_plain`'s arithmetic)."""
-    h = gelu_tanh(matmul_tf32(ln_rows(x, ln_w, ln_b, eps), w1.float().t(), passes) + b1.float())
+    h = gelu(matmul_tf32(ln_rows(x, ln_w, ln_b, eps), w1.float().t(), passes) + b1.float(),
+             approximate)
     return x + gamma.float() * (matmul_tf32(h, w2.float().t(), passes) + b2.float())
 
 

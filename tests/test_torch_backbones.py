@@ -63,11 +63,13 @@ def _images(seed, B=2, size=84):
 
 @pytest.mark.parametrize("ffn_layer, init_values, gelu_approx", [
     ("swiglufused", 1e-5, False), ("swiglufused", 1e-5, True),
-    ("mlp", None, False), ("mlp", None, True)])
+    ("mlp", None, False), ("mlp", None, True), ("mlp", 1e-5, False)])
 def test_deployed_block(ffn_layer, init_values, gelu_approx):
-    """K4 → K3 → proj, then the MLP half as the JAX package dispatches it:
-    none of these cases may take K5 (SwiGLU, or no LayerScale), so K6 and
-    the plain FFN run."""
+    """K4 → K3 → proj, then the MLP half: K5 only for the "mlp" FFN with
+    LayerScale, here with exact GELU, which the JAX package runs unfused
+    (LN, Linear, GELU, Linear, LayerScale, residual); the SwiGLU FFN and
+    blocks without LayerScale take K6 and the plain FFN, as in the JAX
+    package."""
     x = np.random.default_rng(3).standard_normal((2, 37, 64)).astype(np.float32)
     jblk = JaxBlock(64, 2, init_values=init_values, ffn_layer=ffn_layer,
                     gelu_approx=gelu_approx, **JAX_DEPLOYED)
@@ -76,7 +78,7 @@ def test_deployed_block(ffn_layer, init_values, gelu_approx):
         want = np.asarray(jblk.apply(variables, jnp.asarray(x)))
     blk = load(Block(64, 2, init_values=init_values, gelu_approx=gelu_approx,
                      ffn_layer=ffn_layer), variables)
-    assert not blk.fused_mlp
+    assert blk.fused_mlp == (ffn_layer == "mlp" and init_values is not None)
     assert ("ls1.gamma" in blk.state_dict()) == (init_values is not None)
     with torch.no_grad():
         np.testing.assert_allclose(n(blk(t(x))), want, atol=ATOL, rtol=0)

@@ -81,15 +81,24 @@ def test_fused_ln_qkv_plain_matches_jax(N, C, H, dt):
         _check(g, w, dt)
 
 
-@pytest.mark.parametrize("dt", DTYPES)
+# (dtype, GELU): the tanh GELU against the JAX kernel, the exact one (which
+# the JAX package runs unfused) against its plain `reference_ln_mlp`
+MLP_FLAVOURS = [pytest.param(dt, True, id=dt) for dt in DTYPES] + [
+    pytest.param(dt, False, id=f"{dt}-erf") for dt in DTYPES]
+
+
+@pytest.mark.parametrize("dt, approximate", MLP_FLAVOURS)
 @pytest.mark.parametrize("N,C,H", CASES)
-def test_fused_ln_mlp_plain_matches_jax(N, C, H, dt):
+def test_fused_ln_mlp_plain_matches_jax(N, C, H, dt, approximate):
     jdt, tdt = DTYPES[dt]
     x, p = _inputs(N, C, seed=N + 2)
     keys = ("ln_w", "ln_b", "w1", "b1", "w2", "b2", "gamma")
-    want = jax_fm.fused_ln_mlp(jnp.asarray(x, jdt), *(jnp.asarray(p[k]) for k in keys))
+    args = (jnp.asarray(x, jdt), *(jnp.asarray(p[k]) for k in keys))
+    want = (jax_fm.fused_ln_mlp(*args) if approximate
+            else jax_fm.reference_ln_mlp(*args, approximate=False))
     got = fm.fused_ln_mlp_plain(t(x).to(tdt), t(p["ln_w"]), t(p["ln_b"]), t(p["w1"].T),
-                                t(p["b1"]), t(p["w2"].T), t(p["b2"]), t(p["gamma"]))
+                                t(p["b1"]), t(p["w2"].T), t(p["b2"]), t(p["gamma"]),
+                                approximate=approximate)
     assert got.dtype == tdt
     _check(got, want, dt)
 
